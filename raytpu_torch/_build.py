@@ -1,0 +1,150 @@
+"""Build, load and launch the hand-written CUDA kernels of ``csrc/``.
+
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` into ONE shared library
+with a plain C interface, under ``build/raytpu_torch/`` at the repository
+root, named by a hash of the sources and flags (a changed source builds
+anew). The library is loaded with ctypes. Pointers go in as
+``ctypes.c_void_p``, the stream is PyTorch's current one, and every C entry
+point returns ``cudaGetLastError()`` after its launch; :func:`launch` raises
+on a non-zero code.
+
+Flags: ``--fmad=false`` and no ``--use_fast_math``, so every float operation
+rounds once, as a PyTorch eager op does (the sweeps then match their plain
+versions bit for bit, and the raygen hash keeps the precise ``sinf``).
+
+Each kernel has a launch counter (:func:`launch_counts`): :func:`launch`
+adds one after a launch it issued, and nothing else touches it. A run shows
+that the main path went through the kernels by resetting the counters,
+rendering, and reading them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "raytpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# C entry point -> argument types (the trailing _P is the stream)
+_SIGNATURES = {
+    "closest_sweep": [_P, _P, _L, _F, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                      _P, _P, _P, _L, _P],
+    "anyhit_sweep": [_P, _P, _P, _L, _F, _P, _I, _P, _P, _P, _P, _P, _P,
+                     _P, _P, _P, _P],
+    "raygen": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
+    "sky": [_P, _I, _I, _P, _P, _P, _P, _L, _P],
+}
+KERNELS = tuple(_SIGNATURES)
+
+_launches = dict.fromkeys(KERNELS, 0)
+_lib = None
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"libraytpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` with nvcc unless this exact build exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *map(str, sorted(CSRC.glob("*.cu")))]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc exited {res.returncode}:\n{' '.join(cmd)}\n{res.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, "rt_" + name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.rt_error_string.argtypes = [ctypes.c_int]
+            lib.rt_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def launch(kernel: str, *args) -> None:
+    """Launch ``kernel`` on the current stream with ``args`` (ints, floats
+    and pointers as the C signature lists them; the stream is appended),
+    count the launch, and raise if CUDA reports an error."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{kernel}: CUDA is not available on this machine")
+    lib = library()
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib, "rt_" + kernel)(*args, stream)
+    if err != 0:
+        msg = lib.rt_error_string(err).decode()
+        raise RuntimeError(f"{kernel}: CUDA error {err} ({msg})")
+    _launches[kernel] += 1
+
+
+def launch_counts() -> dict:
+    """Launches issued per kernel since the last reset."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for k in _launches:
+        _launches[k] = 0
+
+
+def check_operand(kernel: str, name: str, t: torch.Tensor, shape=None,
+                  dtype=torch.float32) -> int:
+    """Validate one kernel operand and return its device pointer: a
+    contiguous CUDA tensor of ``dtype`` (and ``shape`` where given)."""
+    if t.device.type != "cuda":
+        raise ValueError(
+            f"{kernel}: {name} lies on {t.device}; the kernel needs a CUDA "
+            "tensor (CPU tensors take the plain PyTorch version)")
+    if t.dtype != dtype:
+        raise ValueError(f"{kernel}: {name} is {t.dtype}, needs {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"{kernel}: {name} has shape {tuple(t.shape)}, needs "
+            f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} is not contiguous")
+    return t.data_ptr()

@@ -1,0 +1,76 @@
+"""BVH attachment for the PyTorch port (counterpart of
+``raytpu/accel/__init__.py:26-147``).
+
+One threaded SAH tree per mesh, built by the native builder. The JAX
+package's SMEM chunking (``accel/__init__.py:93-101``) exists only because
+the TPU kernels keep a tree in 1 MB of scalar memory; a GPU thread walks a
+whole mesh's tree from device memory, so the port builds no chunks. To walk
+raytpu's chunked trees instead, use
+:func:`raytpu_torch.device_scene.from_raytpu`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from raytpu.scene import Scene
+from raytpu_torch.accel.native import Bvh, build_bvh
+from raytpu_torch.device_scene import TorchScene, corner_tables, entry_table
+
+__all__ = ["Bvh", "attach_bvh", "build_bvh"]
+
+
+def attach_bvh(tscene: TorchScene, scene: Scene, leaf_size: int) -> TorchScene:
+    """Build one tree per mesh of ``scene``, concatenate the ``bvh_*``
+    arrays (node and slot indices stay mesh-local) and fill the entry
+    table, one entry per instance."""
+    v0_all, e1_all, e2_all, n_soa = corner_tables(scene)
+    nodes = {k: [] for k in ("aabb_min", "aabb_max", "tri_first",
+                             "tri_count", "miss")}
+    v0s, e1s, e2s, prims = [], [], [], []
+    node_ranges, tri_ranges = [], []
+    node_acc = tri_acc = 0
+    for mesh_id in range(scene.geometry.num_meshes):
+        _, ps = scene.geometry.mesh_slice(mesh_id)
+        v0, e1, e2 = v0_all[ps], e1_all[ps], e2_all[ps]
+        bvh = build_bvh(v0, e1, e2, leaf_size=leaf_size)
+        node_ranges.append((node_acc, bvh.num_nodes))
+        tri_ranges.append((tri_acc, bvh.num_triangles))
+        node_acc += bvh.num_nodes
+        tri_acc += bvh.num_triangles
+        for k in nodes:
+            nodes[k].append(getattr(bvh, k))
+        order = bvh.tri_order.astype(np.int64)
+        v0s.append(v0[order])
+        e1s.append(e1[order])
+        e2s.append(e2[order])
+        prims.append((order + ps.start).astype(np.int32))
+
+    prim = np.concatenate(prims)
+    traversal_list = tuple(enumerate(tscene.instance_mesh))
+    materials = tscene.materials.cpu().numpy()
+    count = np.concatenate(nodes["tri_count"])
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=tscene.device)
+
+    return dataclasses.replace(
+        tscene,
+        bvh_aabb_min=dev(np.concatenate(nodes["aabb_min"])),
+        bvh_aabb_max=dev(np.concatenate(nodes["aabb_max"])),
+        bvh_tri_first=dev(np.concatenate(nodes["tri_first"])),
+        bvh_tri_count=dev(count),
+        bvh_miss=dev(np.concatenate(nodes["miss"])),
+        bvh_tri_v0=dev(np.concatenate(v0s)),
+        bvh_tri_e1=dev(np.concatenate(e1s)),
+        bvh_tri_e2=dev(np.concatenate(e2s)),
+        bvh_tri_prim=dev(prim),
+        bvh_tri_n_soa=dev(n_soa[:, prim.astype(np.int64)]),
+        entries=dev(entry_table(traversal_list, materials, node_ranges,
+                                tri_ranges)),
+        traversal_list=traversal_list,
+        leaf_max=int(count.max()),
+    )

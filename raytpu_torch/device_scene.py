@@ -1,0 +1,172 @@
+"""Device-resident scene for the PyTorch port (counterpart of
+``raytpu/device_scene.py``).
+
+:class:`TorchScene` holds only what the Whitted frame reads: the instance
+transforms and materials, the light, the packed RGB8 sky, the shading
+normals, and the threaded ``bvh_*`` arrays with an ENTRY TABLE that lists,
+per (instance, traversal mesh) in ``traversal_list`` order, the instance,
+its material, and the mesh's node base, node count and triangle base. The
+sweeps walk that table in one launch.
+
+Layouts match the JAX package, so buffers compare by a reshape: nodes are
+concatenated over meshes with mesh-local ``bvh_miss`` and ``bvh_tri_first``
+(``raytpu/ops/traverse.py:64,114``), triangles are in BVH-slot order, and
+the sky is one u32 word per texel, carried as int32 bits (PyTorch has no
+full uint32 arithmetic).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from raytpu.scene import Scene
+
+ENTRY_COLS = ("inst", "mat", "node_base", "node_count", "tri_base")
+
+
+@dataclasses.dataclass(frozen=True)
+class TorchScene:
+    """All device tensors of a scene, plus its static shape facts."""
+
+    device: torch.device
+    o2w: torch.Tensor              # (N, 3, 4) f32 object -> world
+    w2o: torch.Tensor              # (N, 3, 4) f32 world -> object
+    materials: torch.Tensor        # (N,) int32 0 diffuse / 1 mirror / 2 refract
+    light_pos: torch.Tensor        # (3,) f32
+    light_intensity: torch.Tensor  # () f32
+    tri_n_soa: torch.Tensor        # (9, T) f32 corner normals, prim order
+    skybox_u32: torch.Tensor       # (6*H*W,) int32 bits of R | G<<8 | B<<16
+    sky_hw: Tuple[int, int]
+    instance_mesh: Tuple[int, ...]
+    # threaded BVH, concatenated over traversal meshes (None until attached)
+    bvh_aabb_min: Optional[torch.Tensor] = None   # (M, 3) f32
+    bvh_aabb_max: Optional[torch.Tensor] = None   # (M, 3) f32
+    bvh_tri_first: Optional[torch.Tensor] = None  # (M,) int32 mesh-local, -1 inner
+    bvh_tri_count: Optional[torch.Tensor] = None  # (M,) int32
+    bvh_miss: Optional[torch.Tensor] = None       # (M,) int32 mesh-local skip link
+    bvh_tri_v0: Optional[torch.Tensor] = None     # (T, 3) f32 BVH-slot order
+    bvh_tri_e1: Optional[torch.Tensor] = None     # (T, 3)
+    bvh_tri_e2: Optional[torch.Tensor] = None     # (T, 3)
+    bvh_tri_prim: Optional[torch.Tensor] = None   # (T,) int32 global prim id
+    bvh_tri_n_soa: Optional[torch.Tensor] = None  # (9, T) f32 BVH-slot order
+    entries: Optional[torch.Tensor] = None        # (E, 5) int32, ENTRY_COLS
+    traversal_list: Tuple[Tuple[int, int], ...] = ()
+    leaf_max: int = 0              # largest leaf (the plain walk's unroll)
+
+    def with_transforms(self, o2w: np.ndarray, w2o: np.ndarray) -> "TorchScene":
+        """Per-frame instance transform update (the refit analog)."""
+        return dataclasses.replace(
+            self,
+            o2w=torch.as_tensor(np.asarray(o2w, np.float32), device=self.device),
+            w2o=torch.as_tensor(np.asarray(w2o, np.float32), device=self.device),
+        )
+
+
+def corner_tables(scene: Scene):
+    """Per-triangle corner data in primitive order, as
+    ``raytpu.device_scene.build_device_scene`` computes it:
+    ``(v0, e1, e2)`` each (T, 3) f32 and ``tri_n_soa`` (9, T) f32."""
+    g = scene.geometry
+    tri = g.triangles.astype(np.int64)
+    p, n = g.positions, g.normals
+    v0, v1, v2 = p[tri[:, 0]], p[tri[:, 1]], p[tri[:, 2]]
+    n_soa = np.concatenate(
+        [n[tri[:, 0]].T, n[tri[:, 1]].T, n[tri[:, 2]].T], axis=0
+    ).astype(np.float32)
+    return v0, v1 - v0, v2 - v0, np.ascontiguousarray(n_soa)
+
+
+def pack_skybox(skybox: Optional[np.ndarray]) -> Tuple[np.ndarray, Tuple[int, int]]:
+    """(6, H, W, 3) float sky -> ((6*H*W,) int32 RGB8 words, (H, W)),
+    quantized exactly as ``raytpu.device_scene`` does (black 1x1 if None)."""
+    if skybox is None:
+        skybox = np.zeros((6, 1, 1, 3), np.float32)
+    sky8 = np.clip(np.asarray(skybox, np.float32) * 255.0 + 0.5, 0, 255)
+    sky8 = sky8.astype(np.uint32)
+    words = (sky8[..., 0] | (sky8[..., 1] << 8) | (sky8[..., 2] << 16))
+    return words.reshape(-1).view(np.int32), (skybox.shape[1], skybox.shape[2])
+
+
+def build_device_scene(scene: Scene, device) -> TorchScene:
+    """Host :class:`raytpu.scene.Scene` -> :class:`TorchScene` on ``device``
+    (no BVH yet: :func:`raytpu_torch.accel.attach_bvh` adds it)."""
+    device = torch.device(device)
+    anim = scene.animation()
+    _, _, _, n_soa = corner_tables(scene)
+    sky, sky_hw = pack_skybox(scene.skybox)
+
+    def dev(a, dtype=None):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype), device=device)
+
+    return TorchScene(
+        device=device,
+        o2w=dev(anim.transforms_3x4(), np.float32),
+        w2o=dev(anim.inverse_transforms_3x4(), np.float32),
+        materials=dev(scene.material_types, np.int32),
+        light_pos=dev(scene.config.light_position, np.float32),
+        light_intensity=dev(scene.config.light_intensity, np.float32),
+        tri_n_soa=dev(n_soa),
+        skybox_u32=dev(sky),
+        sky_hw=(int(sky_hw[0]), int(sky_hw[1])),
+        instance_mesh=tuple(inst.mesh_id for inst in scene.instances),
+    )
+
+
+def entry_table(traversal_list, materials, node_ranges, tri_ranges) -> np.ndarray:
+    """(E, 5) int32 rows (inst, mat, node_base, node_count, tri_base), one
+    per (instance, traversal mesh) in ``traversal_list`` order."""
+    rows = [
+        (inst, int(materials[inst]), node_ranges[mesh][0],
+         node_ranges[mesh][1], tri_ranges[mesh][0])
+        for inst, mesh in traversal_list
+    ]
+    return np.asarray(rows, np.int32).reshape(-1, len(ENTRY_COLS))
+
+
+def from_raytpu(dev, static, device) -> TorchScene:
+    """Carry a JAX ``DeviceScene`` + ``SceneStatic`` across unchanged: the
+    same chunked ``bvh_*`` arrays and the same ``traversal_list``, so both
+    packages walk the identical trees in the identical order.
+
+    ``dev``/``static`` are read through ``np.asarray`` only; this module
+    never imports JAX."""
+    if not static.mesh_node_ranges:
+        raise ValueError("from_raytpu needs a raytpu scene with a BVH")
+    device = torch.device(device)
+
+    def t(x):
+        return torch.as_tensor(np.array(x), device=device)  # a writable copy
+
+    materials = np.asarray(dev.materials, np.int32)
+    count = np.asarray(dev.bvh_tri_count)
+    return TorchScene(
+        device=device,
+        o2w=t(dev.o2w),
+        w2o=t(dev.w2o),
+        materials=t(materials),
+        light_pos=t(dev.light_pos),
+        light_intensity=t(dev.light_intensity),
+        tri_n_soa=t(dev.tri_n_soa),
+        skybox_u32=t(np.asarray(dev.skybox_u32).view(np.int32)),
+        sky_hw=tuple(int(x) for x in static.sky_hw),
+        instance_mesh=tuple(static.instance_mesh),
+        bvh_aabb_min=t(dev.bvh_aabb_min),
+        bvh_aabb_max=t(dev.bvh_aabb_max),
+        bvh_tri_first=t(dev.bvh_tri_first),
+        bvh_tri_count=t(count),
+        bvh_miss=t(dev.bvh_miss),
+        bvh_tri_v0=t(dev.bvh_tri_v0),
+        bvh_tri_e1=t(dev.bvh_tri_e1),
+        bvh_tri_e2=t(dev.bvh_tri_e2),
+        bvh_tri_prim=t(dev.bvh_tri_prim),
+        bvh_tri_n_soa=t(dev.bvh_tri_n_soa),
+        entries=t(entry_table(static.traversal_list, materials,
+                              static.mesh_node_ranges,
+                              static.mesh_bvh_tri_ranges)),
+        traversal_list=tuple(static.traversal_list),
+        leaf_max=int(count.max()),
+    )

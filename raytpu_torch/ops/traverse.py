@@ -1,0 +1,289 @@
+"""Closest-hit and any-hit sweeps on the packed ABI (counterpart of
+``raytpu/ops/traverse.py`` and ``raytpu/ops/traverse_pallas.py:459-799``).
+
+Packed ABI, as in the JAX package: rays are one (6, P, K) f32 tensor
+(origin xyz, direction xyz), the trace state one (9, P, K) f32 tensor in
+``ST_*`` plane order with valid/mat/inst carried as int32 bit patterns.
+
+``closest_sweep`` / ``anyhit_sweep`` are the kernel wrappers: a CPU tensor
+takes the plain version beside them, a CUDA tensor launches the kernel in
+``csrc/traverse.cu`` (or raises). The plain versions walk the same tables
+the same way: per lane, the entries in ``traversal_list`` order, a
+skip-link walk from node 0 to ``node_count`` that tests a leaf's triangles
+on arrival and descends an inner node when the ``_slab`` test hits within
+``(tmin, best_t)``. Lanes still walking are compacted every step, so dead
+and finished lanes cost nothing.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raytpu_torch import _build
+from raytpu_torch.device_scene import TorchScene
+from raytpu_torch.ops.intersect import moller_trumbore, safe_inverse, slab
+
+ST_T, ST_VALID, ST_MAT, ST_INST = 0, 1, 2, 3
+ST_NX, ST_NY, ST_NZ, ST_U, ST_V = 4, 5, 6, 7, 8
+
+
+def pack_rays(o, d) -> torch.Tensor:
+    """Vec3 (P, K) x2 -> one (6, P, K) buffer."""
+    return torch.stack((*o, *d), dim=0)
+
+
+def make_trace_state(lane_tmax: torch.Tensor) -> torch.Tensor:
+    """Fresh (9, P, K) state: t = the lane window (0 = dead lane),
+    inst = -1, nz = 1, everything else 0 (traverse_pallas.py:477-489)."""
+    state = torch.zeros((9, *lane_tmax.shape), dtype=torch.float32,
+                        device=lane_tmax.device)
+    state[ST_T] = lane_tmax
+    state[ST_INST] = torch.tensor(-1, dtype=torch.int32).view(torch.float32)
+    state[ST_NZ] = 1.0
+    return state
+
+
+def unpack_state(state: torch.Tensor):
+    """Packed state -> (t, valid bool, mat, inst, n Vec3, u, v)."""
+    i32 = state[ST_VALID:ST_INST + 1].view(torch.int32)
+    return (
+        state[ST_T], i32[0] != 0, i32[1], i32[2],
+        (state[ST_NX], state[ST_NY], state[ST_NZ]), state[ST_U], state[ST_V],
+    )
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _table_ptrs(kernel: str, ts: TorchScene):
+    """Validated device pointers of the entry table and BVH arrays, in the
+    order the C entry points take them (after the per-call operands)."""
+    m = ts.bvh_aabb_min.shape[0]
+    t = ts.bvh_tri_v0.shape[0]
+    e = ts.entries.shape[0]
+    c = _build.check_operand
+    i32 = torch.int32
+    return (
+        c(kernel, "entries", ts.entries, (e, 5), i32), e,
+        c(kernel, "w2o", ts.w2o, (ts.w2o.shape[0], 3, 4)),
+        c(kernel, "bvh_aabb_min", ts.bvh_aabb_min, (m, 3)),
+        c(kernel, "bvh_aabb_max", ts.bvh_aabb_max, (m, 3)),
+        c(kernel, "bvh_tri_first", ts.bvh_tri_first, (m,), i32),
+        c(kernel, "bvh_tri_count", ts.bvh_tri_count, (m,), i32),
+        c(kernel, "bvh_miss", ts.bvh_miss, (m,), i32),
+        c(kernel, "bvh_tri_v0", ts.bvh_tri_v0, (t, 3)),
+        c(kernel, "bvh_tri_e1", ts.bvh_tri_e1, (t, 3)),
+        c(kernel, "bvh_tri_e2", ts.bvh_tri_e2, (t, 3)),
+    )
+
+
+def closest_sweep(ts: TorchScene, rays: torch.Tensor, tmin: float,
+                  state: torch.Tensor) -> torch.Tensor:
+    """Closest hit of ``rays`` (6, P, K) over every entry, merged into
+    ``state`` (9, P, K) in place; returns ``state``. CPU tensors take
+    :func:`closest_sweep_ref`; CUDA tensors launch ``rt_closest_sweep``."""
+    if rays.device.type == "cpu":
+        return closest_sweep_ref(ts, rays, tmin, state)
+    n = rays[0].numel()
+    k = "closest_sweep"
+    t = ts.bvh_tri_v0.shape[0]
+    _build.launch(
+        k,
+        _build.check_operand(k, "rays", rays, (6, *rays.shape[1:])),
+        _build.check_operand(k, "state", state, (9, *rays.shape[1:])),
+        n, float(tmin), *_table_ptrs(k, ts),
+        _build.check_operand(k, "bvh_tri_n_soa", ts.bvh_tri_n_soa, (9, t)),
+        t,
+    )
+    return state
+
+
+def anyhit_sweep(ts: TorchScene, rays: torch.Tensor, tmin: float,
+                 tmax: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
+    """Occlusion of ``rays`` (6, P, K) within ``(tmin, tmax)`` per lane over
+    every entry, OR-merged into the int32 ``occ`` (P, K) in place; returns
+    ``occ``. CPU tensors take :func:`anyhit_sweep_ref`; CUDA tensors launch
+    ``rt_anyhit_sweep``."""
+    if rays.device.type == "cpu":
+        return anyhit_sweep_ref(ts, rays, tmin, tmax, occ)
+    n = rays[0].numel()
+    k = "anyhit_sweep"
+    _build.launch(
+        k,
+        _build.check_operand(k, "rays", rays, (6, *rays.shape[1:])),
+        _build.check_operand(k, "tmax", tmax, rays.shape[1:]),
+        _build.check_operand(k, "occ", occ, rays.shape[1:], torch.int32),
+        n, float(tmin), *_table_ptrs(k, ts),
+    )
+    return occ
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _entry_rows(ts: TorchScene):
+    return ts.entries.cpu().tolist()
+
+
+def _object_rays(ts: TorchScene, inst: int, ow, dw):
+    """World -> object for one instance from its 12 w2o scalars
+    (traverse_pallas.py:541-554), plus safe inverse directions."""
+    m = ts.w2o[inst].reshape(12)
+    o = (
+        m[0] * ow[0] + m[1] * ow[1] + m[2] * ow[2] + m[3],
+        m[4] * ow[0] + m[5] * ow[1] + m[6] * ow[2] + m[7],
+        m[8] * ow[0] + m[9] * ow[1] + m[10] * ow[2] + m[11],
+    )
+    d = (
+        m[0] * dw[0] + m[1] * dw[1] + m[2] * dw[2],
+        m[4] * dw[0] + m[5] * dw[1] + m[6] * dw[2],
+        m[8] * dw[0] + m[9] * dw[1] + m[10] * dw[2],
+    )
+    return m, o, d, tuple(safe_inverse(x) for x in d)
+
+
+def _walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
+          tmin: float, window: torch.Tensor, on_hit) -> None:
+    """Lock-step skip-link walk of one entry's tree for all lanes of ``o``
+    (component tuples of (L,) tensors). ``window`` (L,) is the open upper
+    bound, updated in place by ``on_hit(lanes, slot, t, u, v, hit)``, which
+    also decides whether a lane keeps walking (it returns the lanes that
+    stop). A lane's visits and tests happen in the order the CUDA thread
+    makes them."""
+    dev = window.device
+    lanes = torch.arange(window.shape[0], device=dev)
+    node = torch.zeros_like(lanes)
+    while lanes.numel():
+        g = node + nb
+        first = ts.bvh_tri_first[g].long()
+        miss = ts.bvh_miss[g].long()
+        leaf = first >= 0
+        nxt = miss.clone()
+
+        inner = ~leaf
+        if bool(inner.any()):
+            li, gi = lanes[inner], g[inner]
+            box = slab(
+                tuple(x[li] for x in o), tuple(x[li] for x in d_inv),
+                tuple(ts.bvh_aabb_min[gi, a] for a in range(3)),
+                tuple(ts.bvh_aabb_max[gi, a] for a in range(3)),
+                tmin, window[li],
+            )
+            nxt[inner] = torch.where(box, node[inner] + 1, miss[inner])
+
+        stop = torch.zeros_like(leaf)
+        if bool(leaf.any()):
+            lf = leaf.nonzero().squeeze(1)
+            ll, f, cnt = lanes[lf], first[lf], ts.bvh_tri_count[g[lf]].long()
+            for k in range(ts.leaf_max):
+                sel = k < cnt
+                if not bool(sel.any()):
+                    break
+                kl, s = ll[sel], tb + f[sel] + k
+                tri = (ts.bvh_tri_v0[s], ts.bvh_tri_e1[s], ts.bvh_tri_e2[s])
+                t, u, v, hit = moller_trumbore(
+                    tuple(x[kl] for x in o), tuple(x[kl] for x in d),
+                    *(tuple(x[:, a] for a in range(3)) for x in tri),
+                    tmin, window[kl],
+                )
+                stop[lf[sel]] |= on_hit(kl, s, t, u, v, hit)
+
+        node = torch.where(stop, torch.full_like(nxt, nc), nxt)
+        keep = node != nc
+        lanes, node = lanes[keep], node[keep]
+
+
+def closest_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
+                      state: torch.Tensor, slots=None) -> torch.Tensor:
+    """Plain PyTorch :func:`closest_sweep` (same function, same tables,
+    same operation order as ``rt_closest_sweep``). If given, ``slots``
+    (P, K) int64 receives each improved lane's BVH slot, the triangle that
+    won (for comparisons with the JAX walks, which report prims)."""
+    flat = state.reshape(9, -1)
+    rflat = rays.reshape(6, -1)
+    live = (flat[ST_T] > tmin).nonzero().squeeze(1)
+    if live.numel() == 0:
+        return state
+    ow = tuple(rflat[c, live] for c in range(3))
+    dw = tuple(rflat[3 + c, live] for c in range(3))
+    bt = flat[ST_T, live].clone()
+    n_lane = live.shape[0]
+    dev = rays.device
+    improved = torch.zeros(n_lane, dtype=torch.bool, device=dev)
+    res_i = torch.zeros((2, n_lane), dtype=torch.int32, device=dev)  # mat, inst
+    res_f = torch.zeros((5, n_lane), dtype=torch.float32, device=dev)  # n, u, v
+    res_s = torch.zeros(n_lane, dtype=torch.long, device=dev)  # winning slot
+    n_soa = ts.bvh_tri_n_soa
+
+    for inst, mat, nb, nc, tb in _entry_rows(ts):
+        m, o, d, d_inv = _object_rays(ts, inst, ow, dw)
+        bs = torch.full((n_lane,), -1, dtype=torch.long, device=dev)
+        bu = torch.zeros(n_lane, dtype=torch.float32, device=dev)
+        bv = torch.zeros_like(bu)
+
+        def on_hit(kl, s, t, u, v, hit):
+            h = kl[hit]
+            bt[h] = t[hit]
+            bs[h] = s[hit]
+            bu[h] = u[hit]
+            bv[h] = v[hit]
+            return torch.zeros_like(hit)
+
+        _walk(ts, nb, nc, tb, o, d, d_inv, tmin, bt, on_hit)
+
+        w_ = (bs >= 0).nonzero().squeeze(1)
+        if w_.numel() == 0:
+            continue
+        s, u, v = bs[w_], bu[w_], bv[w_]
+        w = 1.0 - u - v
+        no = [w * n_soa[c, s] + u * n_soa[3 + c, s] + v * n_soa[6 + c, s]
+              for c in range(3)]
+        res_f[0, w_] = m[0] * no[0] + m[4] * no[1] + m[8] * no[2]
+        res_f[1, w_] = m[1] * no[0] + m[5] * no[1] + m[9] * no[2]
+        res_f[2, w_] = m[2] * no[0] + m[6] * no[1] + m[10] * no[2]
+        res_f[3, w_] = u
+        res_f[4, w_] = v
+        res_i[0, w_] = mat
+        res_i[1, w_] = inst
+        res_s[w_] = s
+        improved[w_] = True
+
+    hit = live[improved]
+    flat[ST_T, hit] = bt[improved]
+    flat[ST_VALID, hit] = torch.ones_like(hit, dtype=torch.int32).view(torch.float32)
+    flat[ST_MAT, hit] = res_i[0, improved].view(torch.float32)
+    flat[ST_INST, hit] = res_i[1, improved].view(torch.float32)
+    for j, plane in enumerate((ST_NX, ST_NY, ST_NZ, ST_U, ST_V)):
+        flat[plane, hit] = res_f[j, improved]
+    if slots is not None:
+        slots.reshape(-1)[hit] = res_s[improved]
+    return state
+
+
+def anyhit_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
+                     tmax: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch :func:`anyhit_sweep`: a lane stops at its first hit
+    and skips the remaining entries."""
+    oflat = occ.reshape(-1)
+    tflat = tmax.reshape(-1)
+    rflat = rays.reshape(6, -1)
+    lanes = ((oflat == 0) & (tflat > tmin)).nonzero().squeeze(1)
+    for inst, _mat, nb, nc, tb in _entry_rows(ts):
+        if lanes.numel() == 0:
+            break
+        ow = tuple(rflat[c, lanes] for c in range(3))
+        dw = tuple(rflat[3 + c, lanes] for c in range(3))
+        _, o, d, d_inv = _object_rays(ts, inst, ow, dw)
+        found = torch.zeros(lanes.shape[0], dtype=torch.bool,
+                            device=rays.device)
+
+        def on_hit(kl, s, t, u, v, hit):
+            found[kl[hit]] = True
+            return hit
+
+        _walk(ts, nb, nc, tb, o, d, d_inv, tmin, tflat[lanes].clone(), on_hit)
+        oflat[lanes[found]] = 1
+        lanes = lanes[~found]
+    return occ

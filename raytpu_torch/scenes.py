@@ -1,0 +1,131 @@
+"""Asset-free scenes for the PyTorch port.
+
+Everything is generated from code and seeds and goes through
+``raytpu.scene.load_scene(cfg, meshes=..., skybox=...)``, so both packages
+build the same host ``Scene``. Every config sets ``wavefront="full"``, the
+one bounce schedule the port implements (the ``RenderConfig`` default,
+``"compact"``, is rejected).
+
+* :func:`two_box_scene`: the two boxes of ``__graft_entry__.py:20-69``;
+* :func:`mixed_scene`: mirror ``spin``, diffuse ``static`` and refractive
+  ``orbit`` instances, so every material and sky misses occur;
+* :func:`config4_standin` / :func:`reference_standin`: the shapes of the
+  JAX presets ``config4`` and ``reference`` (``raytpu/presets.py:67,121``)
+  without their files: ``generate_highpoly(depth=4)``, scaled to the
+  teapot's extent, for ``teapot.obj``; ``armadillo_standin(depth=7)``
+  (327,680 triangles) for the armadillo; a generated 6x1024x1024 sky for
+  the sea skybox.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from raytpu.config import MaterialType, ObjectConfig, RenderConfig
+from raytpu.io.genmesh import armadillo_standin, generate_highpoly
+from raytpu.io.obj import Mesh, compute_smooth_normals
+from raytpu.scene import Scene, load_scene
+
+_BOX_FACES = np.array(
+    [
+        [0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5],
+        [0, 4, 5], [0, 5, 1], [2, 3, 7], [2, 7, 6],
+        [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3],
+    ],
+    np.int32,
+)
+
+TEAPOT_RADIUS = 3.0  # teapot.obj spans about +-3 (raytpu/io/genmesh.py:101)
+
+
+def box_mesh(center, half: float) -> Mesh:
+    """Axis-aligned box, 12 triangles, smooth corner normals."""
+    h = float(half)
+    corners = np.array(
+        [[x, y, z] for x in (-h, h) for y in (-h, h) for z in (-h, h)],
+        np.float32,
+    ) + np.asarray(center, np.float32)
+    return Mesh(positions=corners,
+                normals=compute_smooth_normals(corners, _BOX_FACES),
+                triangles=_BOX_FACES.copy(), name="box")
+
+
+def procedural_skybox(size: int, seed: int = 0) -> np.ndarray:
+    """Seeded (6, size, size, 3) f32 cube map in [0, 1]: a per-face base
+    color, smooth waves and noise, so that bilinear taps differ."""
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(0.15, 0.85, (6, 1, 1, 3)).astype(np.float32)
+    phase = rng.uniform(0.0, 2.0 * np.pi, (6, 1, 1, 3)).astype(np.float32)
+    g = np.linspace(0.0, 1.0, size, dtype=np.float32)
+    wave = (np.sin(9.0 * g)[None, :, None, None]
+            * np.cos(7.0 * g)[None, None, :, None])
+    sky = np.empty((6, size, size, 3), np.float32)
+    for f in range(6):  # per face keeps the temporaries at one face
+        noise = rng.uniform(-0.05, 0.05, (size, size, 3)).astype(np.float32)
+        sky[f] = base[f] + 0.1 * np.sin(wave[0] * 3.0 + phase[f]) + noise
+    return np.clip(sky, 0.0, 1.0)
+
+
+def two_box_scene(width=64, height=48, spp=1, bounces=3, **config) -> Scene:
+    """Mirror spinning box + diffuse orbiting box, 4x4 sky ramp.
+    ``config`` overrides RenderConfig fields."""
+    cfg = RenderConfig(
+        objects=(
+            ObjectConfig("box0", MaterialType.MIRROR, "spin"),
+            ObjectConfig("box1", MaterialType.DIFFUSE, "orbit"),
+        ),
+        width=width, height=height, samples_per_pixel=spp,
+        max_bounce_count=bounces, wavefront="full",
+    ).replace(**config)
+    sky = np.linspace(0.1, 0.9, 6 * 4 * 4 * 3, dtype=np.float32).reshape(
+        6, 4, 4, 3)
+    return load_scene(cfg, meshes=[box_mesh((0, 0, 0), 1.0),
+                                   box_mesh((0, 0, 5), 0.7)], skybox=sky)
+
+
+def mixed_scene(width=64, height=48, spp=1, bounces=3, depth=2,
+                sky_size=16, **config) -> Scene:
+    """Mirror ``spin`` highpoly sphere, diffuse ``static`` box and
+    refractive ``orbit`` highpoly, in front of a generated sky: every
+    material and sky misses occur. ``config`` overrides RenderConfig
+    fields."""
+    cfg = RenderConfig(
+        objects=(
+            ObjectConfig("sphere", MaterialType.MIRROR, "spin"),
+            ObjectConfig("box", MaterialType.DIFFUSE, "static"),
+            ObjectConfig("blob", MaterialType.REFRACTIVE, "orbit"),
+        ),
+        camera_position=(0.0, 1.0, 14.0),
+        width=width, height=height, samples_per_pixel=spp,
+        max_bounce_count=bounces, wavefront="full",
+    ).replace(**config)
+    meshes = [
+        generate_highpoly(depth=depth, radius=1.5, name="sphere"),
+        box_mesh((3.0, -1.0, -2.0), 1.2),
+        generate_highpoly(depth=depth, radius=2.0, name="blob"),
+    ]
+    return load_scene(cfg, meshes=meshes, skybox=procedural_skybox(sky_size))
+
+
+def _standin(width, height, bounces) -> Scene:
+    cfg = RenderConfig(
+        objects=(
+            ObjectConfig("generated://highpoly4", MaterialType.MIRROR, "spin"),
+            ObjectConfig("generated://armadillo", MaterialType.DIFFUSE, "orbit"),
+        ),
+        width=width, height=height, samples_per_pixel=4,
+        max_bounce_count=bounces, wavefront="full",
+    )
+    meshes = [generate_highpoly(depth=4, radius=TEAPOT_RADIUS, name="teapot_standin"),
+              armadillo_standin(depth=7)]
+    return load_scene(cfg, meshes=meshes, skybox=procedural_skybox(1024))
+
+
+def config4_standin() -> Scene:
+    """config4's shape: 1920x1080, 4 spp, 3 bounces."""
+    return _standin(1920, 1080, 3)
+
+
+def reference_standin() -> Scene:
+    """The reference default's shape: 800x600, 4 spp, 63 bounces."""
+    return _standin(800, 600, 63)

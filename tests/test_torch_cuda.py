@@ -1,0 +1,87 @@
+"""The CUDA kernels of the PyTorch port against their plain versions, on
+the card. Marked ``cuda``: without a CUDA device every test skips. On a
+machine with the card and no JAX (the conftest imports JAX unless
+``RAYTPU_TEST_TPU=1`` is set):
+
+    RAYTPU_TEST_TPU=1 python -m pytest tests/test_torch_cuda.py -q -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from raytpu_torch import _build, scenes
+from raytpu_torch.integrator import plain_kernels, render_frame
+from raytpu_torch.ops import raygen, sky, traverse
+from raytpu_torch.render import Renderer
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def rig():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    r = Renderer(scenes.mixed_scene(64, 48, 2, 3), "cuda")
+    r.set_transforms(0.1)
+    rng = np.random.default_rng(9)
+    p, k = 16, 1024
+    u = rng.normal(size=(p * k, 3))
+    o = u / np.linalg.norm(u, axis=1, keepdims=True) * 12.0
+    d = rng.uniform(-3, 3, (p * k, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = torch.from_numpy(np.ascontiguousarray(
+        np.concatenate([o.T, d.T]), np.float32).reshape(6, p, k)).cuda()
+    return r, rays
+
+
+def test_sweeps_bitwise(rig):
+    r, rays = rig
+    ts = r.tscene
+    win = torch.full(rays.shape[1:], 1e4, device="cuda")
+    win.view(-1)[::5] = 0.0
+    st = traverse.make_trace_state(win)
+    got = traverse.closest_sweep(ts, rays, 1e-3, st.clone())
+    want = traverse.closest_sweep_ref(ts, rays, 1e-3, st.clone())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (got[traverse.ST_VALID].view(torch.int32) != 0).float().mean() > 0.2
+
+    tmax = win * 0.002
+    occ = torch.zeros(rays.shape[1:], dtype=torch.int32, device="cuda")
+    a = traverse.anyhit_sweep(ts, rays, 1e-3, tmax, occ.clone())
+    b = traverse.anyhit_sweep_ref(ts, rays, 1e-3, tmax, occ.clone())
+    assert torch.equal(a, b)
+
+
+def test_raygen_and_sky(rig):
+    r, rays = rig
+    cam = r.camera_tensor()
+    p = rays.shape[1]
+    px = torch.randint(0, 800, (p, 1024), device="cuda").float()
+    py = torch.randint(0, 600, (p, 1024), device="cuda").float()
+    s_row = torch.arange(p, device="cuda").float() % 4
+    a = raygen.raygen_packed(cam, s_row, px, py, 4, 800, 600)
+    b = raygen.raygen_packed_ref(cam, s_row, px, py, 4, 800, 600)
+    assert torch.equal(a[:3], b[:3])
+    assert (a[3:].square().sum(0) - 1).abs().max() <= 1e-5
+    assert (a[3:] - b[3:]).abs().max() <= 2.5 / 600
+    assert (a[3:] - b[3:]).abs().max() <= 1e-5  # same f32 ops, one card
+    assert raygen.jitter_error(a, cam, s_row, px, py, 4, 800, 600) <= raygen.JITTER_TOL
+
+    h, w = r.tscene.sky_hw
+    dirs = (rays[3], rays[4], -rays[5])
+    for x, y in zip(sky.sample_cubemap_u32(r.tscene.skybox_u32, h, w, dirs),
+                    sky.sample_cubemap_u32_ref(r.tscene.skybox_u32, h, w, dirs)):
+        assert (x - y).abs().max() <= 1e-6
+
+
+def test_frame_goes_through_kernels(rig):
+    r, _ = rig
+    _build.reset_launch_counts()
+    img = r.render()
+    counts = _build.launch_counts()
+    assert all(counts[k] > 0 for k in _build.KERNELS), counts
+    with plain_kernels():
+        plain = render_frame(r.tscene, r.render_static, r.camera_tensor())
+    assert torch.isfinite(img).all()
+    assert (img - plain).abs().max() <= 1e-2  # raygen sinf ulps move jitter

@@ -1,0 +1,145 @@
+"""The PyTorch port stands apart from JAX, and its kernel wrappers never
+fall back: a CPU tensor takes the plain version (no launch counted), any
+other tensor must be a CUDA tensor or the wrapper raises."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from raytpu_torch import _build, scenes
+from raytpu_torch.ops import raygen, sky, traverse
+from raytpu_torch.render import Renderer
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_never_imports_jax():
+    code = (
+        "import pkgutil, importlib, sys, raytpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages("
+        "raytpu_torch.__path__, 'raytpu_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "assert len(mods) >= 14, mods\n"
+        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "print(len(mods))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+@pytest.fixture(scope="module")
+def small():
+    r = Renderer(scenes.two_box_scene(32, 32, 1, 1), "cpu")
+    r.set_transforms(0.2)
+    rng = np.random.default_rng(5)
+    p, k = 2, 64
+    d = rng.normal(size=(3, p, k)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0)
+    o = np.zeros((3, p, k), np.float32)
+    o[2] = 12.0
+    rays = torch.from_numpy(np.concatenate([o, d]))
+    return r, rays
+
+
+def test_cpu_wrappers_take_plain_path(small):
+    r, rays = small
+    ts = r.tscene
+    _build.reset_launch_counts()
+    win = torch.full(rays.shape[1:], 1e4)
+    st = traverse.make_trace_state(win)
+    got = traverse.closest_sweep(ts, rays, 1e-3, st.clone())
+    want = traverse.closest_sweep_ref(ts, rays, 1e-3, st.clone())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool((got[traverse.ST_VALID].view(torch.int32) != 0).any())
+
+    occ0 = torch.zeros(rays.shape[1:], dtype=torch.int32)
+    assert torch.equal(traverse.anyhit_sweep(ts, rays, 1e-3, win, occ0.clone()),
+                       traverse.anyhit_sweep_ref(ts, rays, 1e-3, win, occ0.clone()))
+
+    cam = r.camera_tensor()
+    px = torch.arange(128, dtype=torch.float32).reshape(2, 64)
+    s_row = torch.tensor([0.0, 1.0])
+    assert torch.equal(raygen.raygen_packed(cam, s_row, px, px, 2, 32, 32),
+                       raygen.raygen_packed_ref(cam, s_row, px, px, 2, 32, 32))
+
+    dirs = (rays[3], rays[4], rays[5])
+    h, w = ts.sky_hw
+    for a, b in zip(sky.sample_cubemap_u32(ts.skybox_u32, h, w, dirs),
+                    sky.sample_cubemap_u32_ref(ts.skybox_u32, h, w, dirs)):
+        assert torch.equal(a, b)
+
+    img = r.render_np()
+    assert np.isfinite(img).all()
+    assert _build.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
+
+
+def test_non_cpu_tensor_needs_cuda(small):
+    """A tensor that is not on the CPU goes to the kernel: the device check
+    refuses anything but CUDA (a meta tensor stands in, no GPU needed)."""
+    r, rays = small
+    _build.reset_launch_counts()
+    meta_rays = rays.to("meta")
+    state = traverse.make_trace_state(torch.full(rays.shape[1:], 1e4)).to("meta")
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        traverse.closest_sweep(r.tscene, meta_rays, 1e-3, state)
+    tm = torch.zeros(rays.shape[1:], device="meta")
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        traverse.anyhit_sweep(r.tscene, meta_rays, 1e-3, tm,
+                              tm.to(torch.int32))
+    px = torch.zeros((2, 64), device="meta")
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        raygen.raygen_packed(r.camera_tensor().to("meta"), px[:, 0], px, px,
+                             1, 32, 32)
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        sky.sample_cubemap_u32(r.tscene.skybox_u32, *r.tscene.sky_hw,
+                               (px, px, px))
+    assert _build.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
+
+
+def test_launch_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the refusal path is CPU-only")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _build.launch("sky")
+    assert _build.launch_counts()["sky"] == 0
+
+
+def test_unported_config_values_raise():
+    from raytpu_torch.integrator import RenderStatic
+
+    base = scenes.two_box_scene().config
+    RenderStatic.from_config(base)  # the asset-free default is accepted
+    for knob in (dict(wavefront="compact"), dict(skybox_filter="nearest"),
+                 dict(ray_chunk=4096), dict(devices=2), dict(validation=True),
+                 dict(divergence="split"), dict(bounce_unroll=True),
+                 dict(sky_rebin="on"), dict(traversal="brute"),
+                 dict(chunk_tris=256), dict(bvh_builder="lbvh")):
+        with pytest.raises(ValueError):
+            RenderStatic.from_config(base.replace(**knob))
+    for trav in ("auto", "pallas", "xla", "perlane", "mega", "hybrid"):
+        RenderStatic.from_config(base.replace(traversal=trav))
+    with pytest.raises(ValueError, match="fold_spp"):
+        RenderStatic(32, 32, 2, 1, fold_spp=False)
+
+
+def test_plain_kernels_swaps_and_restores(small):
+    """``plain_kernels`` routes the frame through the plain versions for the
+    block only, also when the block raises."""
+    from raytpu_torch import integrator
+
+    r, _ = small
+    before = dict(integrator._KERNELS)
+    with integrator.plain_kernels():
+        assert integrator._KERNELS == integrator._PLAIN
+        plain = r.render_np()
+    with pytest.raises(KeyError):
+        with integrator.plain_kernels():
+            raise KeyError("inside")
+    assert integrator._KERNELS == before
+    np.testing.assert_array_equal(plain, r.render_np())  # CPU: same path
