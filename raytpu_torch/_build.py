@@ -3,7 +3,8 @@
 At first use, ``nvcc`` compiles every ``csrc/*.cu`` into ONE shared library
 with a plain C interface, under ``build/raytpu_torch/`` at the repository
 root, named by a hash of the sources and flags (a changed source builds
-anew). The library is loaded with ctypes. Pointers go in as
+anew): one nvcc process per source, all started together, then one link.
+The library is loaded with ctypes. Pointers go in as
 ``ctypes.c_void_p``, the stream is PyTorch's current one, and every C entry
 point returns ``cudaGetLastError()`` after its launch; :func:`launch` raises
 on a non-zero code.
@@ -34,18 +35,21 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "raytpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry point -> argument types (the trailing _P is the stream)
 _SIGNATURES = {
-    "closest_sweep": [_P, _P, _L, _F, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                      _P, _P, _P, _L, _P],
-    "anyhit_sweep": [_P, _P, _P, _L, _F, _P, _I, _P, _P, _P, _P, _P, _P,
-                     _P, _P, _P, _P],
+    "closest_sweep": [_P, _L, _P, _L, _L, _F, _P, _I, _P, _P, _P, _P, _P,
+                      _P, _P, _P, _P, _P, _L, _P],
+    "anyhit_sweep": [_P, _L, _P, _P, _L, _F, _P, _I, _P, _P, _P, _P, _P,
+                     _P, _P, _P, _P, _P],
     "raygen": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
     "sky": [_P, _I, _I, _P, _P, _P, _P, _L, _P],
+    "shade_epilogue": [_P, _L, _P, _L, _P, _P, _L, _P, _P, _L, _P, _P, _L,
+                       _P, _P, _L, _F, _F, _F, _P],
+    "accumulate_epilogue": [_P, _P, _L, _P, _P, _L, _P, _L, _I, _F, _P],
 }
 KERNELS = tuple(_SIGNATURES)
 
@@ -73,19 +77,38 @@ def library_path() -> Path:
     return BUILD_DIR / f"libraytpu_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> None:
+    """Run the commands side by side; raise with the first failure's
+    output once all have ended."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc exited {proc.returncode}:\n{' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError(failed[0])
+
+
 def build() -> Path:
-    """Compile ``csrc/*.cu`` with nvcc unless this exact build exists."""
+    """Compile ``csrc/*.cu`` with nvcc unless this exact build exists: one
+    object per source, compiled in parallel, linked into one library."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc exited {res.returncode}:\n{' '.join(cmd)}\n{res.stderr}")
+    tag = f"{out.stem}.{os.getpid()}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(sources, objs)])
+    tmp = out.with_name(f"{tag}.tmp.so")
+    _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *map(str, objs)]])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
     return out
 
@@ -131,10 +154,7 @@ def reset_launch_counts() -> None:
         _launches[k] = 0
 
 
-def check_operand(kernel: str, name: str, t: torch.Tensor, shape=None,
-                  dtype=torch.float32) -> int:
-    """Validate one kernel operand and return its device pointer: a
-    contiguous CUDA tensor of ``dtype`` (and ``shape`` where given)."""
+def _check(kernel: str, name: str, t: torch.Tensor, shape, dtype) -> None:
     if t.device.type != "cuda":
         raise ValueError(
             f"{kernel}: {name} lies on {t.device}; the kernel needs a CUDA "
@@ -145,6 +165,25 @@ def check_operand(kernel: str, name: str, t: torch.Tensor, shape=None,
         raise ValueError(
             f"{kernel}: {name} has shape {tuple(t.shape)}, needs "
             f"{tuple(shape)}")
+
+
+def check_operand(kernel: str, name: str, t: torch.Tensor, shape=None,
+                  dtype=torch.float32) -> int:
+    """Validate one kernel operand and return its device pointer: a
+    contiguous CUDA tensor of ``dtype`` (and ``shape`` where given)."""
+    _check(kernel, name, t, shape, dtype)
     if not t.is_contiguous():
         raise ValueError(f"{kernel}: {name} is not contiguous")
     return t.data_ptr()
+
+
+def check_planes(kernel: str, name: str, t: torch.Tensor, shape,
+                 dtype=torch.float32):
+    """Validate a multi-plane operand of ``shape`` (planes, P, K) and return
+    ``(pointer, plane stride in elements)``. The planes need not be
+    adjacent, so a wave ``x[:, s:s+b]`` of a larger buffer goes in without a
+    copy; the lanes of each plane must be contiguous."""
+    _check(kernel, name, t, shape, dtype)
+    if not t[0].is_contiguous():
+        raise ValueError(f"{kernel}: {name}'s planes are not contiguous")
+    return t.data_ptr(), t.stride(0)

@@ -16,7 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from raytpu.scene import Scene
+from raytpu_torch.scene import Scene
 from raytpu_torch.accel.native import Bvh, build_bvh
 from raytpu_torch.device_scene import TorchScene, corner_tables, entry_table
 

@@ -22,6 +22,10 @@
 // What this first version does about it: nothing yet. Right and simple
 // first: one thread per ray, tables read straight from device memory
 // through the L1/L2 caches, no packet sharing, no shared-memory staging.
+//
+// Rays and state are (planes, n) with `*_s` elements between planes, so the
+// bounce loop hands over a wave x[:, s:s+b] of its (planes, P, K) buffers
+// without a copy; the lanes of a plane are contiguous.
 
 #include "common.cuh"
 
@@ -42,20 +46,22 @@ struct Tables {
 };
 
 __global__ void closest_sweep_kernel(const float* __restrict__ rays,
-                                     float* __restrict__ state, long long n,
+                                     long long rays_s,
+                                     float* __restrict__ state,
+                                     long long st_s, long long n,
                                      float tmin, Tables tab,
                                      const float* __restrict__ n_soa,
                                      long long n_tris) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  float bt = state[rt::ST_T * n + i];
+  float bt = state[rt::ST_T * st_s + i];
   if (!(bt > tmin)) return;  // dead lane (window 0): never walks
 
   float ow[3], dw[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    ow[c] = rays[c * n + i];
-    dw[c] = rays[(3 + c) * n + i];
+    ow[c] = rays[c * rays_s + i];
+    dw[c] = rays[(3 + c) * rays_s + i];
   }
   bool improved = false;
   int hit_mat = 0, hit_inst = 0;
@@ -118,18 +124,19 @@ __global__ void closest_sweep_kernel(const float* __restrict__ rays,
     }
   }
   if (!improved) return;
-  state[rt::ST_T * n + i] = bt;
-  state[rt::ST_VALID * n + i] = __int_as_float(1);
-  state[rt::ST_MAT * n + i] = __int_as_float(hit_mat);
-  state[rt::ST_INST * n + i] = __int_as_float(hit_inst);
-  state[rt::ST_NX * n + i] = hit_n[0];
-  state[rt::ST_NY * n + i] = hit_n[1];
-  state[rt::ST_NZ * n + i] = hit_n[2];
-  state[rt::ST_U * n + i] = hit_u;
-  state[rt::ST_V * n + i] = hit_v;
+  state[rt::ST_T * st_s + i] = bt;
+  state[rt::ST_VALID * st_s + i] = __int_as_float(1);
+  state[rt::ST_MAT * st_s + i] = __int_as_float(hit_mat);
+  state[rt::ST_INST * st_s + i] = __int_as_float(hit_inst);
+  state[rt::ST_NX * st_s + i] = hit_n[0];
+  state[rt::ST_NY * st_s + i] = hit_n[1];
+  state[rt::ST_NZ * st_s + i] = hit_n[2];
+  state[rt::ST_U * st_s + i] = hit_u;
+  state[rt::ST_V * st_s + i] = hit_v;
 }
 
 __global__ void anyhit_sweep_kernel(const float* __restrict__ rays,
+                                    long long rays_s,
                                     const float* __restrict__ tmax,
                                     int* __restrict__ occ, long long n,
                                     float tmin, Tables tab) {
@@ -142,8 +149,8 @@ __global__ void anyhit_sweep_kernel(const float* __restrict__ rays,
   float ow[3], dw[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    ow[c] = rays[c * n + i];
-    dw[c] = rays[(3 + c) * n + i];
+    ow[c] = rays[c * rays_s + i];
+    dw[c] = rays[(3 + c) * rays_s + i];
   }
   for (int e = 0; e < tab.n_entries; ++e) {
     const int* ent = tab.entries + rt::ENTRY_COLS * e;
@@ -192,8 +199,9 @@ Tables make_tables(const void* entries, int n_entries, const void* w2o,
 
 extern "C" {
 
-// rays (6, n) f32; state (9, n) f32 updated in place.
-int rt_closest_sweep(const void* rays, void* state, long long n, float tmin,
+// rays (6, n) f32 and state (9, n) f32, updated in place, with plane strides.
+int rt_closest_sweep(const void* rays, long long rays_s, void* state,
+                     long long st_s, long long n, float tmin,
                      const void* entries, int n_entries, const void* w2o,
                      const void* bmin, const void* bmax, const void* first,
                      const void* count, const void* miss, const void* v0,
@@ -204,15 +212,16 @@ int rt_closest_sweep(const void* rays, void* state, long long n, float tmin,
                              count, miss, v0, e1, e2);
     closest_sweep_kernel<<<rt::grid_for(n), rt::BLOCK, 0,
                            (cudaStream_t)stream>>>(
-        (const float*)rays, (float*)state, n, tmin, tab,
+        (const float*)rays, rays_s, (float*)state, st_s, n, tmin, tab,
         (const float*)n_soa, n_tris);
   }
   return (int)cudaGetLastError();
 }
 
-// rays (6, n) f32; tmax (n,) f32; occ (n,) int32 OR-merged in place.
-int rt_anyhit_sweep(const void* rays, const void* tmax, void* occ,
-                    long long n, float tmin, const void* entries,
+// rays (6, n) f32 with a plane stride; tmax (n,) f32; occ (n,) int32
+// OR-merged in place.
+int rt_anyhit_sweep(const void* rays, long long rays_s, const void* tmax,
+                    void* occ, long long n, float tmin, const void* entries,
                     int n_entries, const void* w2o, const void* bmin,
                     const void* bmax, const void* first, const void* count,
                     const void* miss, const void* v0, const void* e1,
@@ -222,7 +231,8 @@ int rt_anyhit_sweep(const void* rays, const void* tmax, void* occ,
                              count, miss, v0, e1, e2);
     anyhit_sweep_kernel<<<rt::grid_for(n), rt::BLOCK, 0,
                           (cudaStream_t)stream>>>(
-        (const float*)rays, (const float*)tmax, (int*)occ, n, tmin, tab);
+        (const float*)rays, rays_s, (const float*)tmax, (int*)occ, n, tmin,
+        tab);
   }
   return (int)cudaGetLastError();
 }

@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from raytpu.scene import Scene
+from raytpu_torch.scene import Scene
 
 ENTRY_COLS = ("inst", "mat", "node_base", "node_count", "tri_base")
 
@@ -42,6 +42,10 @@ class TorchScene:
     skybox_u32: torch.Tensor       # (6*H*W,) int32 bits of R | G<<8 | B<<16
     sky_hw: Tuple[int, int]
     instance_mesh: Tuple[int, ...]
+    # light_pos xyz and light_intensity as host floats (each an exact f32
+    # value): the shade and accumulate kernels take them as arguments, so a
+    # launch reads nothing back from the device
+    light: Tuple[float, float, float, float]
     # threaded BVH, concatenated over traversal meshes (None until attached)
     bvh_aabb_min: Optional[torch.Tensor] = None   # (M, 3) f32
     bvh_aabb_max: Optional[torch.Tensor] = None   # (M, 3) f32
@@ -91,8 +95,16 @@ def pack_skybox(skybox: Optional[np.ndarray]) -> Tuple[np.ndarray, Tuple[int, in
     return words.reshape(-1).view(np.int32), (skybox.shape[1], skybox.shape[2])
 
 
+def host_light(pos, intensity) -> Tuple[float, float, float, float]:
+    """The light as four host floats, each rounded to f32 as the device
+    copies are."""
+    vals = np.concatenate([np.asarray(pos, np.float32).reshape(3),
+                           np.asarray(intensity, np.float32).reshape(1)])
+    return tuple(float(x) for x in vals)
+
+
 def build_device_scene(scene: Scene, device) -> TorchScene:
-    """Host :class:`raytpu.scene.Scene` -> :class:`TorchScene` on ``device``
+    """Host :class:`raytpu_torch.scene.Scene` -> :class:`TorchScene` on ``device``
     (no BVH yet: :func:`raytpu_torch.accel.attach_bvh` adds it)."""
     device = torch.device(device)
     anim = scene.animation()
@@ -113,6 +125,8 @@ def build_device_scene(scene: Scene, device) -> TorchScene:
         skybox_u32=dev(sky),
         sky_hw=(int(sky_hw[0]), int(sky_hw[1])),
         instance_mesh=tuple(inst.mesh_id for inst in scene.instances),
+        light=host_light(scene.config.light_position,
+                         scene.config.light_intensity),
     )
 
 
@@ -154,6 +168,7 @@ def from_raytpu(dev, static, device) -> TorchScene:
         skybox_u32=t(np.asarray(dev.skybox_u32).view(np.int32)),
         sky_hw=tuple(int(x) for x in static.sky_hw),
         instance_mesh=tuple(static.instance_mesh),
+        light=host_light(dev.light_pos, dev.light_intensity),
         bvh_aabb_min=t(dev.bvh_aabb_min),
         bvh_aabb_max=t(dev.bvh_aabb_max),
         bvh_tri_first=t(dev.bvh_tri_first),

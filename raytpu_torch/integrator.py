@@ -1,20 +1,27 @@
 """Whitted integrator of the PyTorch port (counterpart of
-``raytpu/integrator.py``): the full-width bounce body of ``_trace_sample``
-(:611-898, ``bounce_core`` :651), the deferred sky fetch (:575), the
-interleaved spp fold of ``render_packets`` (:901-970), tile-major pixel
-packets (:1002), ``render_frame`` (:1047) and ``detile`` (:1092).
+``raytpu/integrator.py``): the fused bounce loop on the packed ABI,
+``_trace_sample_fused`` (:379-572) with its sort-once compacted waves
+(``_wave_budget`` :239, ``_wave_rungs`` :258), the full-width XLA bounce
+body of ``_trace_sample`` (:611-898, ``bounce_core`` :651) for
+``fused="off"``, the deferred sky fetch (:575), the interleaved spp fold of
+``render_packets`` (:901-970), tile-major pixel packets (:1002),
+``render_frame`` (:1047) and ``detile`` (:1092).
 
-Per bounce: closest-hit sweep, shade, shadow any-hit sweep, accumulate;
-then one sky fetch for the lanes that missed. The sweeps, the raygen and
-the sky run through their kernel wrappers (CUDA tensors launch the
-hand-written kernels); the shading between sweeps is plain PyTorch, as it
-is plain XLA in the JAX body.
+The default path (``fused="on"``, ``wavefront="compact"``): per bounce a
+closest-hit sweep, the fused shade pass, a shadow any-hit sweep and the
+fused accumulate pass, on the packed (6, P, K) rays and (3, P, K)
+radiance; after the first bounce the packets sort live-first once and
+later bounces run over waves of the live prefix only. Every one of these,
+the raygen and the sky run through their kernel wrappers (CUDA tensors
+launch the hand-written kernels); ``make_trace_state``, the sort and the
+bookkeeping are plain PyTorch, as they are plain XLA in the JAX loop.
 
-Host syncs per frame: the loop condition ``any(active)`` once per bounce
-iteration, and the shadow-skip test ``any(lit_candidate)`` once per
-iteration where the skip rule applies (``max_bounce_count > 4`` or spp 1).
-They are the loop's semantics, as ``lax.while_loop``/``lax.cond`` are in
-the JAX body.
+Host syncs per frame (each counted in ``stats["host_syncs"]``): the loop
+condition once per bounce iteration (``any(window > 0)`` at full width,
+the live prefix length ``n_eff`` on the compacted path), and the
+shadow-skip test ``any(lit)`` once per wave where the skip rule applies
+(``max_bounce_count > 4`` or spp 1). They are the loop's semantics, as
+``lax.while_loop``/``lax.cond`` are in the JAX loop.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from raytpu.config import (
+from raytpu_torch.config import (
     HIT_EPSILON,
     RAY_TMAX,
     RAY_TMIN,
@@ -35,6 +42,13 @@ from raytpu.config import (
 from raytpu_torch.device_scene import TorchScene
 from raytpu_torch.ops import shade
 from raytpu_torch.ops import vec3 as v3
+from raytpu_torch.ops.epilogue import (
+    BP,
+    accumulate_epilogue,
+    accumulate_epilogue_ref,
+    shade_epilogue,
+    shade_epilogue_ref,
+)
 from raytpu_torch.ops.raygen import primary_rays_soa, raygen_packed, raygen_packed_ref
 from raytpu_torch.ops.sky import sample_cubemap_u32, sample_cubemap_u32_ref
 from raytpu_torch.ops.trace import any_hit_wave, closest_hit_wave
@@ -43,6 +57,7 @@ from raytpu_torch.ops.traverse import (
     anyhit_sweep_ref,
     closest_sweep,
     closest_sweep_ref,
+    make_trace_state,
 )
 
 __all__ = [
@@ -56,12 +71,14 @@ SEG_PACKETS = 64  # packet-count granule of the JAX package (ops/mega.py)
 # has one walk for all of them
 _TRAVERSALS = ("auto", "pallas", "xla", "perlane", "mega", "hybrid")
 
-# the frame's four kernel wrappers, looked up at call time so that
+# the frame's six kernel wrappers, looked up at call time so that
 # plain_kernels() can swap in their plain versions
 _KERNELS = {"raygen": raygen_packed, "closest": closest_sweep,
-            "anyhit": anyhit_sweep, "sky": sample_cubemap_u32}
+            "anyhit": anyhit_sweep, "sky": sample_cubemap_u32,
+            "shade": shade_epilogue, "accumulate": accumulate_epilogue}
 _PLAIN = {"raygen": raygen_packed_ref, "closest": closest_sweep_ref,
-          "anyhit": anyhit_sweep_ref, "sky": sample_cubemap_u32_ref}
+          "anyhit": anyhit_sweep_ref, "sky": sample_cubemap_u32_ref,
+          "shade": shade_epilogue_ref, "accumulate": accumulate_epilogue_ref}
 
 
 @contextlib.contextmanager
@@ -78,14 +95,23 @@ def plain_kernels():
 
 @dataclasses.dataclass(frozen=True)
 class RenderStatic:
-    """Render parameters the ported slice implements."""
+    """Render parameters the ported slice implements.
+
+    ``fused``: "on" runs the fused bounce loop (the shade and accumulate
+    kernels on the packed buffers); "off" the eager full-width body of
+    ``bounce_core``, which only ``wavefront="full"`` composes with (the XLA
+    body's per-iteration resort is not ported). ``ladder``: "auto" moves the
+    compacted loop to smaller waves as the live prefix shrinks
+    (``_wave_rungs``), "off" keeps the one budget."""
 
     width: int
     height: int
     samples_per_pixel: int
     max_bounce_count: int
     skybox_filter: str = "bilinear"
-    wavefront: str = "full"
+    wavefront: str = "compact"
+    fused: str = "on"
+    ladder: str = "auto"
     tile: int = 32
     fold_spp: bool = True
 
@@ -97,10 +123,16 @@ class RenderStatic:
             raise ValueError(
                 f"skybox_filter={self.skybox_filter!r} is not ported yet "
                 "(only 'bilinear')")
-        if self.wavefront != "full":
+        for name, allowed in (("wavefront", ("full", "compact")),
+                              ("fused", ("on", "off")),
+                              ("ladder", ("auto", "off"))):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name}={getattr(self, name)!r}: use one "
+                                 f"of {allowed}")
+        if self.wavefront == "compact" and self.fused == "off":
             raise ValueError(
-                f"wavefront={self.wavefront!r} is not ported yet (only "
-                "'full'; the compacted waves come with the fused bounce loop)")
+                "wavefront='compact' with fused='off' (the eager body's "
+                "per-iteration resort) is not ported yet")
 
     @classmethod
     def from_config(cls, config: RenderConfig) -> "RenderStatic":
@@ -150,12 +182,24 @@ def _count(stats, key, mask):
         stats[key] = n if key not in stats else stats[key] + n
 
 
-def _any(mask, stats) -> bool:
-    """``mask.any()`` on the host: one device sync, counted in
-    ``stats["host_syncs"]``."""
+def _read(x: torch.Tensor, stats):
+    """The value of the one-element ``x`` on the host: one device sync,
+    counted in ``stats["host_syncs"]``."""
     if stats is not None:
         stats["host_syncs"] = stats.get("host_syncs", 0) + 1
-    return bool(mask.any())
+    return x.item()
+
+
+def _any(mask, stats) -> bool:
+    """``mask.any()`` on the host (one counted sync)."""
+    return bool(_read(mask.any(), stats))
+
+
+def _shadow_always(rs) -> bool:
+    """The shadow-skip rule (``integrator.py:699-720``): shallow
+    multi-sample loops always sweep; others skip the sweep when no lane is
+    a lit candidate, which costs a sync."""
+    return rs.max_bounce_count <= 4 and rs.samples_per_pixel > 1
 
 
 def _bounce_core(ts, rs, o, d, tmp, active, miss_rec, decay, stats):
@@ -182,9 +226,7 @@ def _bounce_core(ts, rs, o, d, tmp, active, miss_rec, decay, stats):
     light_dist = v3.norm(to_light)
     l = v3.scale(1.0 / torch.clamp_min(light_dist, 1e-30), to_light)
 
-    # shadow-skip rule (:712-720): shallow multi-sample loops always sweep
-    if (rs.max_bounce_count <= 4 and rs.samples_per_pixel > 1) or _any(
-            lit_candidate, stats):
+    if _shadow_always(rs) or _any(lit_candidate, stats):
         _count(stats, "shadow_rays", lit_candidate)
         occluded = any_hit_wave(
             ts, shadow_o, l, RAY_TMIN,
@@ -239,6 +281,132 @@ def _trace_sample(ts: TorchScene, rs: RenderStatic, o, d,
     return _deferred_sky(ts, miss_rec, d, tmp)
 
 
+def _seg_divisor(p: int, cap: int) -> int:
+    """The largest divisor of ``p`` that is a ``SEG_PACKETS`` multiple and
+    at most ``cap`` (0 if none)."""
+    return max((b for b in range(SEG_PACKETS, cap + 1, SEG_PACKETS)
+                if p % b == 0), default=0)
+
+
+def _wave_budget(p: int) -> int:
+    """Compacted-wave row budget (``integrator._wave_budget`` :239): the
+    largest divisor of P that is a ``SEG_PACKETS`` multiple and at most
+    about P/4, so that waves tile P exactly; 0 (no compaction) when no
+    divisor gives a real subset, i.e. P < 2 * SEG_PACKETS."""
+    best = _seg_divisor(p, max(p // 4, SEG_PACKETS))
+    return best if best * 2 <= p else 0
+
+
+def _wave_rungs(p: int, budget: int, max_rungs: int = 3) -> list:
+    """Descending wave-budget ladder (``integrator._wave_rungs`` :258):
+    ``budget``, then each next rung the largest divisor of P that is a
+    ``SEG_PACKETS`` multiple and at most a quarter of the one before. Live
+    packets stay a prefix of the sorted wave, so once the prefix fits a
+    smaller rung it fits it for good."""
+    rungs = [budget]
+    while len(rungs) < max_rungs:
+        nxt = _seg_divisor(p, rungs[-1] // 4)
+        if not nxt:
+            break
+        rungs.append(nxt)
+    return rungs
+
+
+def _fused_step(ts, rs, rays, win, tmp, miss, decay_p, stats):
+    """One fused bounce over a wave (``_trace_sample_fused.step`` :448):
+    closest sweep, shade pass, shadow sweep (or its skip), accumulate pass.
+    ``rays``, ``tmp`` and ``miss`` are updated in place, ``win`` too: the
+    arguments may be waves ``x[:, s:s+b]`` of the loop's buffers."""
+    _count(stats, "closest_rays", win > 0.0)
+    st = _KERNELS["closest"](ts, rays, RAY_TMIN, make_trace_state(win))
+    srays, swin, ab, lit, _, nwin, _ = _KERNELS["shade"](
+        rays, st, miss, ts.light[:3], ts.light[3])
+    occ = torch.zeros_like(lit)
+    if _shadow_always(rs) or _any(lit != 0, stats):   # (:463-472)
+        _count(stats, "shadow_rays", lit != 0)
+        _KERNELS["anyhit"](ts, srays, RAY_TMIN, swin, occ)
+    _KERNELS["accumulate"](occ, ab, lit, tmp, decay_p, ts.light[:3],
+                           ts.light[3])
+    win.copy_(nwin)
+
+
+def _trace_sample_fused(ts: TorchScene, rs: RenderStatic, rays: torch.Tensor,
+                        s_row: torch.Tensor, active0: torch.Tensor,
+                        stats: Optional[dict] = None):
+    """The bounce loop on the packed ABI with the fused shade and
+    accumulate passes (``integrator._trace_sample_fused`` :379-572) over
+    ``rays`` (6, P, K), updated in place, and the per-packet sample index
+    ``s_row`` (P,) -> Vec3 color of (P, K).
+
+    With ``wavefront="compact"`` and a budget (P >= 128): the peeled j=0
+    runs full width, then ONE stable live-first sort of the packets; later
+    iterations run over disjoint waves of ``b`` packets that cover only the
+    live prefix (liveness is monotone, so the live packets stay a prefix),
+    phase by phase down the rung ladder; the inverse permutation restores
+    frame order. Per-lane results do not depend on the order, so the frame
+    equals the full-width loop's bit for bit. A wave is a view of the
+    loop's buffers: the kernels take plane strides, so nothing is copied."""
+    p, k = active0.shape
+    dev = rays.device
+    tmp = torch.empty((3, p, k), dtype=torch.float32, device=dev)
+    for c, a in enumerate(shade.ambient_tuple()):
+        tmp[c] = a
+    # per-packet decay: the spp fold keeps one sample index per packet
+    decay_p = torch.pow(SAMPLE_DECAY, s_row)
+    win = torch.where(active0, RAY_TMAX, 0.0)
+    miss = torch.zeros((p, k), dtype=torch.int32, device=dev)
+
+    budget = _wave_budget(p) if rs.wavefront == "compact" else 0
+    if budget and (p % budget != 0 or budget % BP != 0):
+        budget = 0
+
+    if not budget:
+        j = 0
+        while j <= rs.max_bounce_count and _any(win > 0.0, stats):
+            _fused_step(ts, rs, rays, win, tmp, miss, decay_p, stats)
+            j += 1
+    else:
+        _fused_step(ts, rs, rays, win, tmp, miss, decay_p, stats)   # j = 0
+        j = 1
+        plive = (win > 0.0).any(dim=1)
+        order = torch.argsort((~plive).to(torch.int32), stable=True)
+        inv = torch.argsort(order, stable=True)
+        rays = rays.index_select(1, order)
+        win = win.index_select(0, order)
+        tmp = tmp.index_select(1, order)
+        miss = miss.index_select(0, order)
+        decay_s = decay_p.index_select(0, order)
+        rows1 = torch.arange(1, p + 1, device=dev)
+
+        def n_eff() -> int:
+            """Live prefix length (last live row + 1): one host sync."""
+            live_row = (win > 0.0).any(dim=1)
+            return int(_read(torch.where(live_row, rows1, 0).max(), stats))
+
+        rungs = _wave_rungs(p, budget) if rs.ladder == "auto" else [budget]
+        ne = None
+        for i, b in enumerate(rungs):
+            nxt = rungs[i + 1] if i + 1 < len(rungs) else 0
+            while j <= rs.max_bounce_count:
+                if ne is None:
+                    ne = n_eff()
+                if ne <= nxt:   # done, or the prefix fits the next rung
+                    break
+                for s in range(0, ne, b):
+                    _fused_step(ts, rs, rays[:, s:s + b], win[s:s + b],
+                                tmp[:, s:s + b], miss[s:s + b],
+                                decay_s[s:s + b], stats)
+                j += 1
+                ne = None
+        rays = rays.index_select(1, inv)
+        tmp = tmp.index_select(1, inv)
+        miss = miss.index_select(0, inv)
+
+    # at loop exit d is each miss lane's miss direction (no carry needed)
+    return _deferred_sky(ts, miss != 0, (rays[3], rays[4], rays[5]),
+                         (tmp[0], tmp[1], tmp[2]))
+
+
 def render_packets(ts: TorchScene, rs: RenderStatic, camera: torch.Tensor,
                    px: torch.Tensor, py: torch.Tensor, active0: torch.Tensor,
                    rays6: Optional[torch.Tensor] = None,
@@ -248,9 +416,9 @@ def render_packets(ts: TorchScene, rs: RenderStatic, camera: torch.Tensor,
     interleaved (packet t*spp + s = tile t, sample s).
 
     ``rays6`` replaces the raygen: the packed (6, spp*P, K) primary rays of
-    the folded wave. ``stats``, if a dict, receives device counters of the
-    rays traced (``closest_rays``, ``shadow_rays``) and the host count
-    ``host_syncs``."""
+    the folded wave (left unchanged). ``stats``, if a dict, receives device
+    counters of the rays traced (``closest_rays``, ``shadow_rays``) and the
+    host count ``host_syncs``."""
     p, k = px.shape
     spp = rs.samples_per_pixel
     pxs = px.repeat_interleave(spp, dim=0)
@@ -260,9 +428,14 @@ def render_packets(ts: TorchScene, rs: RenderStatic, camera: torch.Tensor,
     if rays6 is None:
         rays6 = _KERNELS["raygen"](camera, s_row, pxs, pys, spp, rs.width,
                                    rs.height)
-    o = (rays6[0], rays6[1], rays6[2])
-    d = (rays6[3], rays6[4], rays6[5])
-    colors = _trace_sample(ts, rs, o, d, s_row[:, None], act, stats)
+    elif rs.fused == "on":
+        rays6 = rays6.clone()  # the fused loop bounces the rays in place
+    if rs.fused == "on":
+        colors = _trace_sample_fused(ts, rs, rays6, s_row, act, stats)
+    else:
+        o = (rays6[0], rays6[1], rays6[2])
+        d = (rays6[3], rays6[4], rays6[5])
+        colors = _trace_sample(ts, rs, o, d, s_row[:, None], act, stats)
     return tuple(c.reshape(p, spp, k).mean(dim=1) for c in colors)
 
 

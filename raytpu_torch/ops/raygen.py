@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from raytpu.config import FOCAL_LENGTH
+from raytpu_torch.config import FOCAL_LENGTH
 from raytpu_torch import _build
 from raytpu_torch.ops import vec3 as v3
 from raytpu_torch.ops.traverse import pack_rays

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from raytpu.config import (
+from raytpu_torch.config import (
     AMBIENT_COEFF,
     AMBIENT_INTENSITY,
     DIFFUSE_COEFF,

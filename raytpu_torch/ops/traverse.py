@@ -7,7 +7,9 @@ Packed ABI, as in the JAX package: rays are one (6, P, K) f32 tensor
 
 ``closest_sweep`` / ``anyhit_sweep`` are the kernel wrappers: a CPU tensor
 takes the plain version beside them, a CUDA tensor launches the kernel in
-``csrc/traverse.cu`` (or raises). The plain versions walk the same tables
+``csrc/traverse.cu`` (or raises). Rays and state may be waves
+``x[:, s:s+b]`` of larger buffers: the kernels take a plane stride and the
+plain versions read and write through the view. The plain versions walk the same tables
 the same way: per lane, the entries in ``traversal_list`` order, a
 skip-link walk from node 0 to ``node_count`` that tests a leaf's triangles
 on arrival and descends an inner node when the ``_slab`` test hits within
@@ -90,8 +92,8 @@ def closest_sweep(ts: TorchScene, rays: torch.Tensor, tmin: float,
     t = ts.bvh_tri_v0.shape[0]
     _build.launch(
         k,
-        _build.check_operand(k, "rays", rays, (6, *rays.shape[1:])),
-        _build.check_operand(k, "state", state, (9, *rays.shape[1:])),
+        *_build.check_planes(k, "rays", rays, (6, *rays.shape[1:])),
+        *_build.check_planes(k, "state", state, (9, *rays.shape[1:])),
         n, float(tmin), *_table_ptrs(k, ts),
         _build.check_operand(k, "bvh_tri_n_soa", ts.bvh_tri_n_soa, (9, t)),
         t,
@@ -111,7 +113,7 @@ def anyhit_sweep(ts: TorchScene, rays: torch.Tensor, tmin: float,
     k = "anyhit_sweep"
     _build.launch(
         k,
-        _build.check_operand(k, "rays", rays, (6, *rays.shape[1:])),
+        *_build.check_planes(k, "rays", rays, (6, *rays.shape[1:])),
         _build.check_operand(k, "tmax", tmax, rays.shape[1:]),
         _build.check_operand(k, "occ", occ, rays.shape[1:], torch.int32),
         n, float(tmin), *_table_ptrs(k, ts),
@@ -145,17 +147,20 @@ def _object_rays(ts: TorchScene, inst: int, ow, dw):
 
 
 def _walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
-          tmin: float, window: torch.Tensor, on_hit) -> None:
+          tmin: float, window: torch.Tensor, on_hit, counts=None) -> None:
     """Lock-step skip-link walk of one entry's tree for all lanes of ``o``
     (component tuples of (L,) tensors). ``window`` (L,) is the open upper
     bound, updated in place by ``on_hit(lanes, slot, t, u, v, hit)``, which
     also decides whether a lane keeps walking (it returns the lanes that
     stop). A lane's visits and tests happen in the order the CUDA thread
-    makes them."""
+    makes them, so ``counts``, if a dict, receives the kernel's work too:
+    node visits (``nodes``) and Moller-Trumbore tests (``tests``)."""
     dev = window.device
     lanes = torch.arange(window.shape[0], device=dev)
     node = torch.zeros_like(lanes)
     while lanes.numel():
+        if counts is not None:
+            counts["nodes"] = counts.get("nodes", 0) + lanes.numel()
         g = node + nb
         first = ts.bvh_tri_first[g].long()
         miss = ts.bvh_miss[g].long()
@@ -182,6 +187,8 @@ def _walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
                 if not bool(sel.any()):
                     break
                 kl, s = ll[sel], tb + f[sel] + k
+                if counts is not None:
+                    counts["tests"] = counts.get("tests", 0) + kl.numel()
                 tri = (ts.bvh_tri_v0[s], ts.bvh_tri_e1[s], ts.bvh_tri_e2[s])
                 t, u, v, hit = moller_trumbore(
                     tuple(x[kl] for x in o), tuple(x[kl] for x in d),
@@ -196,12 +203,14 @@ def _walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
 
 
 def closest_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
-                      state: torch.Tensor, slots=None) -> torch.Tensor:
+                      state: torch.Tensor, slots=None,
+                      counts=None) -> torch.Tensor:
     """Plain PyTorch :func:`closest_sweep` (same function, same tables,
     same operation order as ``rt_closest_sweep``). If given, ``slots``
     (P, K) int64 receives each improved lane's BVH slot, the triangle that
-    won (for comparisons with the JAX walks, which report prims)."""
-    flat = state.reshape(9, -1)
+    won (for comparisons with the JAX walks, which report prims), and
+    ``counts`` the walk's node visits and triangle tests (:func:`_walk`)."""
+    flat = state.reshape(9, -1)  # a copy if state is a strided wave
     rflat = rays.reshape(6, -1)
     live = (flat[ST_T] > tmin).nonzero().squeeze(1)
     if live.numel() == 0:
@@ -231,7 +240,7 @@ def closest_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
             bv[h] = v[hit]
             return torch.zeros_like(hit)
 
-        _walk(ts, nb, nc, tb, o, d, d_inv, tmin, bt, on_hit)
+        _walk(ts, nb, nc, tb, o, d, d_inv, tmin, bt, on_hit, counts)
 
         w_ = (bs >= 0).nonzero().squeeze(1)
         if w_.numel() == 0:
@@ -259,13 +268,17 @@ def closest_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
         flat[plane, hit] = res_f[j, improved]
     if slots is not None:
         slots.reshape(-1)[hit] = res_s[improved]
+    if flat.data_ptr() != state.data_ptr():
+        state.copy_(flat.view(state.shape))
     return state
 
 
 def anyhit_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
-                     tmax: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
+                     tmax: torch.Tensor, occ: torch.Tensor,
+                     counts=None) -> torch.Tensor:
     """Plain PyTorch :func:`anyhit_sweep`: a lane stops at its first hit
-    and skips the remaining entries."""
+    and skips the remaining entries. ``counts`` as for
+    :func:`closest_sweep_ref`."""
     oflat = occ.reshape(-1)
     tflat = tmax.reshape(-1)
     rflat = rays.reshape(6, -1)
@@ -283,7 +296,8 @@ def anyhit_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
             found[kl[hit]] = True
             return hit
 
-        _walk(ts, nb, nc, tb, o, d, d_inv, tmin, tflat[lanes].clone(), on_hit)
+        _walk(ts, nb, nc, tb, o, d, d_inv, tmin, tflat[lanes].clone(), on_hit,
+              counts)
         oflat[lanes[found]] = 1
         lanes = lanes[~found]
     return occ

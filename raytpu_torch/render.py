@@ -1,5 +1,6 @@
 """High-level render API of the PyTorch port (counterpart of
-``raytpu/render.py``): host Scene -> images on a torch device."""
+``raytpu/render.py``): host Scene -> images on a torch device, the card
+unless the caller asks for the CPU."""
 
 from __future__ import annotations
 
@@ -8,8 +9,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from raytpu.camera import Camera
-from raytpu.scene import AnimationState, Scene
+from raytpu_torch.camera import Camera
+from raytpu_torch.scene import AnimationState, Scene
 from raytpu_torch.accel import attach_bvh
 from raytpu_torch.device_scene import build_device_scene
 from raytpu_torch.integrator import RenderStatic, render_frame
@@ -19,7 +20,8 @@ class Renderer:
     """Owns the device scene, the animation state and the camera;
     ``step(t)`` advances the animation and renders one frame."""
 
-    def __init__(self, scene: Scene, device, camera: Optional[Camera] = None):
+    def __init__(self, scene: Scene, device="cuda",
+                 camera: Optional[Camera] = None):
         self.scene = scene
         self.device = torch.device(device)
         self.camera = camera or Camera(scene.config.camera_position)

@@ -1,10 +1,11 @@
 """Asset-free scenes for the PyTorch port.
 
-Everything is generated from code and seeds and goes through
-``raytpu.scene.load_scene(cfg, meshes=..., skybox=...)``, so both packages
-build the same host ``Scene``. Every config sets ``wavefront="full"``, the
-one bounce schedule the port implements (the ``RenderConfig`` default,
-``"compact"``, is rejected).
+Everything is generated from code and seeds and goes through the port's
+``load_scene(cfg, meshes=..., skybox=...)``. A comparison with raytpu builds
+raytpu's host ``Scene`` from the same config, meshes and sky and carries it
+across with :func:`raytpu_torch.scene.scene_from_raytpu`. Every config keeps
+the ``RenderConfig`` default ``wavefront="compact"``, so frames render
+through the fused, compacted bounce loop.
 
 * :func:`two_box_scene`: the two boxes of ``__graft_entry__.py:20-69``;
 * :func:`mixed_scene`: mirror ``spin``, diffuse ``static`` and refractive
@@ -21,10 +22,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from raytpu.config import MaterialType, ObjectConfig, RenderConfig
-from raytpu.io.genmesh import armadillo_standin, generate_highpoly
-from raytpu.io.obj import Mesh, compute_smooth_normals
-from raytpu.scene import Scene, load_scene
+from raytpu_torch.config import MaterialType, ObjectConfig, RenderConfig
+from raytpu_torch.io.genmesh import armadillo_standin, generate_highpoly
+from raytpu_torch.io.obj import Mesh, compute_smooth_normals
+from raytpu_torch.scene import Scene, load_scene
 
 _BOX_FACES = np.array(
     [
@@ -75,7 +76,7 @@ def two_box_scene(width=64, height=48, spp=1, bounces=3, **config) -> Scene:
             ObjectConfig("box1", MaterialType.DIFFUSE, "orbit"),
         ),
         width=width, height=height, samples_per_pixel=spp,
-        max_bounce_count=bounces, wavefront="full",
+        max_bounce_count=bounces,
     ).replace(**config)
     sky = np.linspace(0.1, 0.9, 6 * 4 * 4 * 3, dtype=np.float32).reshape(
         6, 4, 4, 3)
@@ -97,7 +98,7 @@ def mixed_scene(width=64, height=48, spp=1, bounces=3, depth=2,
         ),
         camera_position=(0.0, 1.0, 14.0),
         width=width, height=height, samples_per_pixel=spp,
-        max_bounce_count=bounces, wavefront="full",
+        max_bounce_count=bounces,
     ).replace(**config)
     meshes = [
         generate_highpoly(depth=depth, radius=1.5, name="sphere"),
@@ -114,7 +115,7 @@ def _standin(width, height, bounces) -> Scene:
             ObjectConfig("generated://armadillo", MaterialType.DIFFUSE, "orbit"),
         ),
         width=width, height=height, samples_per_pixel=4,
-        max_bounce_count=bounces, wavefront="full",
+        max_bounce_count=bounces,
     )
     meshes = [generate_highpoly(depth=4, radius=TEAPOT_RADIUS, name="teapot_standin"),
               armadillo_standin(depth=7)]

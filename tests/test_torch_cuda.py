@@ -12,7 +12,7 @@ import torch
 
 from raytpu_torch import _build, scenes
 from raytpu_torch.integrator import plain_kernels, render_frame
-from raytpu_torch.ops import raygen, sky, traverse
+from raytpu_torch.ops import epilogue, raygen, sky, traverse
 from raytpu_torch.render import Renderer
 
 pytestmark = pytest.mark.cuda
@@ -85,3 +85,55 @@ def test_frame_goes_through_kernels(rig):
         plain = render_frame(r.tscene, r.render_static, r.camera_tensor())
     assert torch.isfinite(img).all()
     assert (img - plain).abs().max() <= 1e-2  # raygen sinf ulps move jitter
+
+
+def _wave_inputs(r, rays, p0, b):
+    """Post-sweep state of a wave ``rays[:, p0:p0+b]`` (a strided view of
+    the (6, P, K) buffer) and a fresh miss plane."""
+    win = torch.full(rays.shape[1:], 1e4, device="cuda")
+    win.view(-1)[::7] = 0.0
+    st = traverse.make_trace_state(win[p0:p0 + b])
+    st = traverse.closest_sweep(r.tscene, rays[:, p0:p0 + b], 1e-3, st)
+    return st, torch.zeros((b, rays.shape[2]), dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("strided", [False, True])
+def test_epilogue_kernels_match_plain(rig, strided):
+    """K3 and K4 against their plain versions, on a whole buffer and on a
+    wave of it whose planes lie apart (the kernels' plane strides)."""
+    r, rays = rig
+    light = r.tscene.light
+    p0, b = (4, 8) if strided else (0, rays.shape[1])
+    st, miss = _wave_inputs(r, rays, p0, b)
+    outs = []
+    for fn in (epilogue.shade_epilogue, epilogue.shade_epilogue_ref):
+        buf = rays.clone()
+        wave = buf[:, p0:p0 + b]
+        assert wave.is_contiguous() != strided
+        res = fn(wave, st, miss.clone(), light[:3], light[3])
+        assert res[4].data_ptr() == wave.data_ptr()   # continuation in place
+        outs.append((res, buf))
+    (got, buf_k), (want, buf_p) = outs
+    for a, w in zip(got, want):
+        assert torch.equal(a, w) if a.dtype == torch.int32 else (
+            _ulps(a, w) <= 2)
+    assert torch.equal(buf_k, buf_p)   # lanes outside the wave untouched
+    assert (got[3] != 0).any() and (got[5] > 0).any()
+
+    srays, swin, ab, lit = got[:4]
+    occ = traverse.anyhit_sweep(r.tscene, srays, 1e-3, swin, torch.zeros_like(lit))
+    decay = torch.pow(0.9, torch.arange(b, device="cuda").float() % 2)
+    tmps = []
+    for fn in (epilogue.accumulate_epilogue, epilogue.accumulate_epilogue_ref):
+        tmp = torch.ones((3, *rays.shape[1:]), device="cuda")
+        fn(occ, ab, lit, tmp[:, p0:p0 + b], decay, light[:3], light[3])
+        tmps.append(tmp)
+    assert _ulps(*tmps) <= 2
+    assert (tmps[0] != 1.0).any()
+
+
+def _ulps(a, b):
+    """Largest distance in f32 ulps (same-sign values)."""
+    ai = a.contiguous().view(torch.int32).long()
+    bi = b.contiguous().view(torch.int32).long()
+    return (ai - bi).abs().max().item()

@@ -1,5 +1,6 @@
 """The ported Whitted frame against raytpu's, on the three-material scene
 (mirror ``spin``, diffuse ``static``, refractive ``orbit``, generated sky).
+Both packages render one host scene (``tests/torch_twin.py``).
 
 (a) Same rays, whole bounce loop: the XLA raygen's rays for the folded
     pixel and sample planes (``raytpu.integrator.primary_rays_soa``,
@@ -8,7 +9,9 @@
     traversal tier) with the same fold, mean and ``detile`` as its
     ``render_frame``. The cases (spp 2, 0 bounces), (1, 3) and (2, 63)
     cover spp {1, 2}, bounces {0, 3, 63} and both branches of the
-    shadow-skip rule. The rays are fed to raytpu's bounce
+    shadow-skip rule. The port's frame comes from its default fused loop
+    (the shade and accumulate kernels' plain versions) and, held to the
+    same bar, from its eager ``fused="off"`` body. The rays are fed to raytpu's bounce
     body and not regenerated inside ``render_frame`` because the shader
     hash is chaotic: XLA compiles the raygen inside the frame's jit with
     other rounding than the same ops run eagerly (measured 1e-2 apart on a
@@ -55,6 +58,7 @@ from raytpu_torch.integrator import (
     tiled_pixels,
 )
 from raytpu_torch.render import Renderer
+from tests.torch_twin import twin
 
 T_ANIM = 0.1  # the orbiting refractive mesh is in view
 
@@ -73,11 +77,13 @@ def _jax_frame(scene, static, rs, o, d, s_idx, act):
 
 
 def _same_rays_frames(width, height, spp, bounces, scene_fn=scenes.mixed_scene,
-                      short_cap=None, **cfg):
-    """(port frame, raytpu frame) from the same primary rays; with
-    ``short_cap``, also the port's frame at that bounce cap."""
-    scene = scene_fn(width, height, spp, bounces, **cfg)
-    jr = JaxRenderer(scene)
+                      short_cap=None, eager=False, **cfg):
+    """(port frame, raytpu frame) from the same primary rays, the port's
+    through its default fused loop; with ``short_cap``, also the port's
+    frame at that bounce cap; with ``eager``, also the port's frame through
+    its eager ``fused="off"`` body."""
+    jscene, scene = twin(scene_fn(width, height, spp, bounces, **cfg))
+    jr = JaxRenderer(jscene)
     jr.set_transforms(T_ANIM)
     rs_j = dataclasses.replace(jr.render_static, fused="off", wavefront="full")
     cam = jnp.asarray(jr.camera.basis())
@@ -111,6 +117,9 @@ def _same_rays_frames(width, height, spp, bounces, scene_fn=scenes.mixed_scene,
         return detile(colors, rs).numpy()
 
     got = port(rs)
+    if eager:
+        return got, want, port(dataclasses.replace(rs, fused="off",
+                                                   wavefront="full"))
     if short_cap is None:
         return got, want
     return got, want, port(dataclasses.replace(rs, max_bounce_count=short_cap))
@@ -118,10 +127,11 @@ def _same_rays_frames(width, height, spp, bounces, scene_fn=scenes.mixed_scene,
 
 @pytest.mark.parametrize("spp,bounces", [(2, 0), (1, 3)])
 def test_same_rays_frame_matches_raytpu(spp, bounces):
-    got, want = _same_rays_frames(64, 48, spp, bounces)
+    got, want, eager = _same_rays_frames(64, 48, spp, bounces, eager=True)
     assert got.shape == want.shape == (48, 64, 3)
     assert want.std() > 0.05  # materials and sky all show
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(eager, want, rtol=0, atol=1e-5)
 
 
 def test_same_rays_deep_frame_matches_raytpu():
@@ -133,9 +143,9 @@ def test_same_rays_deep_frame_matches_raytpu():
 
 
 def test_renderer_frame_ssim_against_raytpu():
-    scene = scenes.mixed_scene(64, 48, 2, 3)
+    jscene, scene = twin(scenes.mixed_scene(64, 48, 2, 3))
     r = Renderer(scene, "cpu")
-    jr = JaxRenderer(scene)
+    jr = JaxRenderer(jscene)
     for x in (r, jr):
         x.set_transforms(T_ANIM)
     got, want = r.render_np(), jr.render_np()

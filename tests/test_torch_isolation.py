@@ -1,7 +1,8 @@
-"""The PyTorch port stands apart from JAX, and its kernel wrappers never
-fall back: a CPU tensor takes the plain version (no launch counted), any
-other tensor must be a CUDA tensor or the wrapper raises."""
+"""The PyTorch port stands apart from JAX and from raytpu, and its kernel
+wrappers never fall back: a CPU tensor takes the plain version (no launch
+counted), any other tensor must be a CUDA tensor or the wrapper raises."""
 
+import inspect
 import os
 import subprocess
 import sys
@@ -11,26 +12,49 @@ import pytest
 import torch
 
 from raytpu_torch import _build, scenes
-from raytpu_torch.ops import raygen, sky, traverse
+from raytpu_torch.ops import epilogue, raygen, sky, traverse
 from raytpu_torch.render import Renderer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# after the imports: neither jax nor any raytpu module is loaded
+_NOTHING_OF_JAX_OR_RAYTPU = (
+    "bad = sorted(m for m in sys.modules if m in ('jax', 'raytpu') or "
+    "m.startswith(('jax.', 'raytpu.')))\n"
+    "assert not bad, bad\n"
+)
+
+
+def _run_isolated(code):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code + _NOTHING_OF_JAX_OR_RAYTPU],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 def test_port_never_imports_jax():
-    code = (
+    _run_isolated(
         "import pkgutil, importlib, sys, raytpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages("
         "raytpu_torch.__path__, 'raytpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 14, mods\n"
-        "assert 'jax' not in sys.modules, 'jax imported'\n"
-        "print(len(mods))\n"
+        "assert len(mods) >= 22, mods\n"
     )
-    env = dict(os.environ, PYTHONPATH=REPO)
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert res.returncode == 0, res.stderr
+
+
+def test_chip_smoke_imports_nothing_of_jax_or_raytpu():
+    """chip_smoke's module and every phase's imports, without a card."""
+    _run_isolated(
+        "import sys, chip_smoke\n"
+        "chip_smoke.import_port()\n"
+    )
+
+
+def test_renderer_defaults_to_the_card():
+    device = inspect.signature(Renderer).parameters["device"]
+    assert device.default == "cuda"
 
 
 @pytest.fixture(scope="module")
@@ -74,6 +98,20 @@ def test_cpu_wrappers_take_plain_path(small):
                     sky.sample_cubemap_u32_ref(ts.skybox_u32, h, w, dirs)):
         assert torch.equal(a, b)
 
+    st0 = traverse.closest_sweep_ref(ts, rays, 1e-3, st.clone())
+    light = ts.light
+    outs = [fn(rays.clone(), st0, torch.zeros(win.shape, dtype=torch.int32),
+               light[:3], light[3])
+            for fn in (epilogue.shade_epilogue, epilogue.shade_epilogue_ref)]
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    srays, swin, ab, lit, _, _, _ = outs[0]
+    tmps = [torch.ones((3, *win.shape)) for _ in range(2)]
+    decay = torch.tensor([1.0, 0.9])
+    epilogue.accumulate_epilogue(occ0, ab, lit, tmps[0], decay, light[:3], light[3])
+    epilogue.accumulate_epilogue_ref(occ0, ab, lit, tmps[1], decay, light[:3], light[3])
+    assert torch.equal(*tmps)
+
     img = r.render_np()
     assert np.isfinite(img).all()
     assert _build.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
@@ -99,6 +137,13 @@ def test_non_cpu_tensor_needs_cuda(small):
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         sky.sample_cubemap_u32(r.tscene.skybox_u32, *r.tscene.sky_hw,
                                (px, px, px))
+    miss = torch.zeros(rays.shape[1:], dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        epilogue.shade_epilogue(meta_rays, state, miss, (5.0, 5.0, 5.0), 1.0)
+    ab = torch.zeros((2, *rays.shape[1:]), device="meta")
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        epilogue.accumulate_epilogue(miss, ab, miss, state[:3], px[:, 0],
+                                     (5.0, 5.0, 5.0), 1.0)
     assert _build.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
 
 
@@ -114,8 +159,10 @@ def test_unported_config_values_raise():
     from raytpu_torch.integrator import RenderStatic
 
     base = scenes.two_box_scene().config
+    assert base.wavefront == "compact"
     RenderStatic.from_config(base)  # the asset-free default is accepted
-    for knob in (dict(wavefront="compact"), dict(skybox_filter="nearest"),
+    RenderStatic.from_config(base.replace(wavefront="full"))
+    for knob in (dict(wavefront="sorted"), dict(skybox_filter="nearest"),
                  dict(ray_chunk=4096), dict(devices=2), dict(validation=True),
                  dict(divergence="split"), dict(bounce_unroll=True),
                  dict(sky_rebin="on"), dict(traversal="brute"),
@@ -126,6 +173,13 @@ def test_unported_config_values_raise():
         RenderStatic.from_config(base.replace(traversal=trav))
     with pytest.raises(ValueError, match="fold_spp"):
         RenderStatic(32, 32, 2, 1, fold_spp=False)
+    # the eager body composes only with full-width waves
+    RenderStatic(32, 32, 2, 1, wavefront="full", fused="off")
+    with pytest.raises(ValueError, match="compact"):
+        RenderStatic(32, 32, 2, 1, wavefront="compact", fused="off")
+    for bad in (dict(fused="auto"), dict(ladder="on")):
+        with pytest.raises(ValueError):
+            RenderStatic(32, 32, 2, 1, **bad)
 
 
 def test_plain_kernels_swaps_and_restores(small):

@@ -4,8 +4,11 @@
   the chunked ``bvh_*`` arrays and the entry table of ``traversal_list``;
 * the port's own build (no chunks) agrees with raytpu's on every non-BVH
   field, and its native trees pass ``raytpu.accel.bvh.validate_bvh``;
-* ``with_transforms`` follows ``AnimationState``.
+* ``with_transforms`` follows ``AnimationState``;
+* ``scene_from_raytpu`` hands the port raytpu's host scene, array for array.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -17,12 +20,14 @@ from raytpu_torch import scenes
 from raytpu_torch.accel import Bvh
 from raytpu_torch.device_scene import build_device_scene, corner_tables, from_raytpu
 from raytpu_torch.render import Renderer
+from raytpu_torch.scene import scene_from_raytpu
+from tests.torch_twin import one_thread, raytpu_twin, twin
 
 
 @pytest.fixture(scope="module")
 def chunked():
-    scene = scenes.mixed_scene(32, 32, 1, 1, depth=2, chunk_tris=256)
-    jr = JaxRenderer(scene)
+    jscene, scene = twin(scenes.mixed_scene(32, 32, 1, 1, depth=2, chunk_tris=256))
+    jr = JaxRenderer(jscene)
     jr.set_transforms(0.1)
     return scene, jr
 
@@ -96,12 +101,40 @@ def test_attach_bvh_native_trees_validate():
 
 
 def test_with_transforms_follows_animation():
-    scene = scenes.mixed_scene(32, 32, 1, 1, depth=1)
+    jscene, scene = twin(scenes.mixed_scene(32, 32, 1, 1, depth=1))
     r = Renderer(scene, "cpu")
-    anim = AnimationState(scene.instances)
+    anim = AnimationState(jscene.instances)
     for t in (0.25, 1.5):  # spin accumulates: both steps must agree
         r.set_transforms(t)
         anim.step(t)
         np.testing.assert_array_equal(_np(r.tscene.o2w), anim.transforms_3x4())
         np.testing.assert_array_equal(_np(r.tscene.w2o),
                                       anim.inverse_transforms_3x4())
+
+
+def test_scene_from_raytpu_carries_every_array():
+    """The port's Scene of a raytpu Scene holds the same arrays, instances
+    and config, and renders the port's own scene's frame exactly."""
+    own = scenes.two_box_scene(32, 32, 1, 2)
+    jscene = raytpu_twin(own)
+    scene = scene_from_raytpu(jscene)
+    g, jg = scene.geometry, jscene.geometry
+    for name in ("positions", "normals", "triangles"):
+        assert getattr(g, name) is getattr(jg, name)
+    assert (g.vertex_offsets, g.primitive_offsets, g.mesh_names) == (
+        jg.vertex_offsets, jg.primitive_offsets, jg.mesh_names)
+    assert scene.skybox is jscene.skybox
+    for m, jm in zip(scene.meshes, jscene.meshes):
+        assert m.positions is jm.positions and m.triangles is jm.triangles
+    for i, ji in zip(scene.instances, jscene.instances):
+        assert (i.mesh_id, int(i.material), i.animation) == (
+            ji.mesh_id, int(ji.material), ji.animation)
+        np.testing.assert_array_equal(i.transform, ji.transform)
+    for f in dataclasses.fields(scene.config):
+        if f.name != "objects":
+            assert getattr(scene.config, f.name) == getattr(jscene.config, f.name)
+    assert [(o.path, int(o.material), o.animation) for o in scene.config.objects] == [
+        (o.path, int(o.material), o.animation) for o in jscene.config.objects]
+    with one_thread():
+        np.testing.assert_array_equal(Renderer(scene, "cpu").render_np(),
+                                      Renderer(own, "cpu").render_np())

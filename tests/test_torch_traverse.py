@@ -43,6 +43,7 @@ from raytpu.render import Renderer as JaxRenderer
 from raytpu_torch import scenes
 from raytpu_torch.device_scene import from_raytpu
 from raytpu_torch.ops import traverse
+from tests.torch_twin import raytpu_twin
 
 P, K = 8, tp.PACKET_K
 TMIN = 1e-3
@@ -91,8 +92,8 @@ def _anyhit_chain_call(tmin, end, w2o12, boxes, meta, tris, live, rays,
 
 
 def _jax_renderer():
-    jr = JaxRenderer(scenes.mixed_scene(32, 32, 1, 1, depth=2, chunk_tris=128,
-                                        traversal="pallas"))
+    jr = JaxRenderer(raytpu_twin(scenes.mixed_scene(
+        32, 32, 1, 1, depth=2, chunk_tris=128, traversal="pallas")))
     jr.set_transforms(T_ANIM)
     return jr
 
