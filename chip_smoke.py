@@ -5,24 +5,39 @@
     python3 chip_smoke.py --profile DIR  # profiler tables into DIR
                                          # (default build/profile/)
 
-Builds the six hand-written CUDA kernels from ``raytpu_torch/csrc`` and the
-BVHs, holds every kernel against its plain PyTorch version on the card at
-the main path's shapes, renders the config4 stand-in (1920x1080, 4 spp,
-3 bounces, 327,680-triangle orbiting mesh) and the reference-default
-stand-in (800x600, 4 spp, 63 bounces) through ``Renderer`` on the default
-fused and compacted bounce loop, checks that the frames went through all
-six kernels and are sane, profiles one frame of each for the device's idle
-share, renders two config4 frames through the eager ``fused="off"`` body
-and two through the fused loop at full width (no compaction), and at 256x192 (P = 256, budget 64, so compaction engages) holds the
-compacted frame against the full-width fused frame (bit for bit), the eager
-frame from the same rays, and the plain path (SSIM, and max abs diff from
-the same primary rays). Any failed check raises and exits non-zero. It
-imports nothing of JAX or raytpu.
+Builds the nine hand-written CUDA kernels from ``raytpu_torch/csrc`` and
+the BVHs, holds every kernel against its plain PyTorch version on the card
+at the main path's shapes (and the per-lane sweeps K1/K2 against the
+chained sweeps K10a/K10b, bit for bit), then renders through ``Renderer``
+on the default fused and compacted bounce loop:
+
+* the config4 stand-in (1920x1080, 4 spp, 3 bounces, 327,680-triangle
+  orbiting mesh) on its default tier, per-lane (``traversal="auto"``
+  resolves so at 332,800 triangles): the frames must launch the prepass K7
+  and the per-lane sweeps K1/K2 and not K10a/K10b;
+* the same scene with ``traversal="pallas"``: K10a/K10b and not K7/K1/K2;
+* one profiled frame of each tier, for the device's idle share;
+* one per-lane config4 frame with every K1/K2 launch held against K10a/K10b
+  on its wave, primary and bounce waves, and its pixels against the
+  pallas-tier frame of the same pose (only exact ties may differ);
+* two config4 frames through the eager ``fused="off"`` body and two
+  through the fused loop at full width (no compaction);
+* the reference-default stand-in (800x600, 4 spp, 63 bounces), per-lane;
+* at 256x192 (P = 256, budget 64, so compaction engages): the compacted
+  frame against the full-width fused frame and the chained tier's frame
+  (bit for bit), the eager frame from the same rays, and the plain path
+  (SSIM, and max abs diff from the same primary rays);
+* the tie scene (two coincident boxes of different materials) through
+  both tiers: no pixel may differ.
+
+Any failed check raises and exits non-zero. It imports nothing of JAX or
+raytpu.
 
 The last three lines: the frames and checks as one JSON object, the
-per-kernel JSON line (launches counted during the config4 frames, errors
-against the plain versions, times, bounds), and ``{"ok": true, "device":
-{...}}``.
+per-kernel JSON line (launches counted during the frames of the path that
+runs the kernel: the default config4 frames, or the ``traversal="pallas"``
+ones for K10a/K10b; errors against the plain versions, times, bounds), and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -30,6 +45,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -49,8 +65,21 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                        "raytpu/ops/epilogue.py:86"),
     "accumulate_epilogue": ("raytpu_torch/csrc/epilogue.cu",
                             "raytpu/ops/epilogue.py:236"),
+    "block_stats": ("raytpu_torch/csrc/mega.cu", "raytpu/ops/mega.py:360"),
+    "perlane_closest_sweep": ("raytpu_torch/csrc/perlane.cu",
+                              "raytpu/ops/perlane.py:1490"),
+    "perlane_anyhit_sweep": ("raytpu_torch/csrc/perlane.cu",
+                             "raytpu/ops/perlane.py:1720"),
 }
+CHAINED = ("closest_sweep", "anyhit_sweep")          # traversal="pallas"
+PER_LANE = ("block_stats", "perlane_closest_sweep", "perlane_anyhit_sweep")
 SWEEP_PACKETS = 256
+# Lanes (packet, lane) of the config4 stand-in's primary wave
+# (set_transforms(0.05), the raygen kernel's rays) where K1 and K10a keep two
+# different triangles of the armadillo stand-in hit at exactly the same t, a
+# tie that the walk order breaks (ROADMAP queue 3). The full-wave comparison
+# allows exactly these lanes, each shown to be a tie by exact_ties().
+EXACT_TIES = [(3983, 110)]
 RAYGEN_DIR_TOL = 1e-5  # kernel vs plain raygen, same f32 ops on one card
 EPILOGUE_ULPS = 2      # shade/accumulate kernel vs plain version, f32 ulps
 
@@ -59,11 +88,15 @@ EPILOGUE_ULPS = 2      # shade/accumulate kernel vs plain version, f32 ulps
 # over 67 TFLOP/s of f32 outside the tensor cores (NVIDIA's H100 SXM data
 # sheet, at a 700 W power limit). Operations per lane are counted from the
 # sources, each arithmetic operation, comparison and libm call as one; the
-# sweeps' from the node visits and triangle tests the plain walk counts.
+# sweeps' from the node visits and triangle tests the plain walk counts. A
+# sweep's bytes are what its lanes must read and write (closest_lane_bytes,
+# anyhit_lane_bytes), the small tables it reads whole, and the distinct node,
+# link and triangle rows its plain walk reads (traverse.rows_bytes), not the
+# whole trees.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 OPS_PER_LANE = {"raygen": 55, "sky": 80, "shade_epilogue": 100,
-                "accumulate_epilogue": 18}
+                "accumulate_epilogue": 18, "block_stats": 21}
 SLAB_OPS, MT_OPS = 23, 51  # one node's box test, one Moller-Trumbore test
 
 
@@ -78,7 +111,7 @@ def import_port():
         sys.path.insert(0, str(REPO))
     import torch  # noqa: F401
     from raytpu_torch import _build, config, integrator, render, scene, scenes  # noqa: F401
-    from raytpu_torch.ops import epilogue, raygen, sky, traverse, vec3  # noqa: F401
+    from raytpu_torch.ops import epilogue, mega, perlane, raygen, sky, traverse, vec3  # noqa: F401
     from raytpu_torch.utils import ssim  # noqa: F401
 
 
@@ -118,6 +151,63 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def differing_lanes(a, b) -> str:
+    """Lanes where two (9, P, K) states differ, and how many of them are
+    exact ties (same t bits, both valid): a walk order picked another of
+    two triangles hit at the same t."""
+    import torch
+
+    ai, bi = a.view(torch.int32), b.view(torch.int32)
+    diff = (ai != bi).any(dim=0)
+    tied = diff & (ai[0] == bi[0]) & (ai[1] != 0) & (bi[1] != 0)
+    return f"{int(diff.sum())} lanes differ, {int(tied.sum())} of them exact t ties"
+
+
+def exact_ties(ts, rays, win, k1, k10) -> list:
+    """The lanes where K1's state ``k1`` and K10a's ``k10`` differ, each
+    shown to be an exact tie: the same t bits, both valid, and the triangle
+    each walk kept (from the plain walks over the lane's block, which must
+    reproduce the kernel's state there) hit by the ray at exactly that t.
+    Returns one record per lane."""
+    import torch
+    from raytpu_torch.config import RAY_TMIN
+    from raytpu_torch.ops import perlane, traverse
+    from raytpu_torch.ops.intersect import moller_trumbore
+
+    a, b = k1.view(torch.int32), k10.view(torch.int32)
+    ties = []
+    for p, k in (a != b).any(dim=0).nonzero().tolist():
+        lane = f"lane (packet {p}, {k})"
+        check(a[0, p, k] == b[0, p, k] and a[1, p, k] != 0 and b[1, p, k] != 0,
+              f"{lane}: K1 and K10a differ in t or validity, not an exact tie")
+        blk = slice(p - p % 8, p - p % 8 + 8)   # the lane's culling block
+        r = rays[:, blk].contiguous()
+        st = traverse.make_trace_state(win[blk].contiguous())
+        rec = {"lane": [p, k], "t": float(k1[0, p, k])}
+        for name, full, sweep in (("K1", k1, perlane.perlane_closest_sweep_ref),
+                                  ("K10a", k10, traverse.closest_sweep_ref)):
+            slots = torch.full(st.shape[1:], -1, dtype=torch.long, device=st.device)
+            got = sweep(ts, r, RAY_TMIN, st.clone(), slots=slots)
+            check(torch.equal(got.view(torch.int32)[:, p % 8, k],
+                              full.view(torch.int32)[:, p, k]),
+                  f"{lane}: the plain walk reproduces {name}'s state")
+            inst, slot = int(full.view(torch.int32)[3, p, k]), int(slots[p % 8, k])
+            _, o, d, _ = traverse._object_rays(
+                ts, inst, tuple(r[c, p % 8, k:k + 1] for c in range(3)),
+                tuple(r[3 + c, p % 8, k:k + 1] for c in range(3)))
+            tri = [tuple(x[slot:slot + 1, c] for c in range(3))
+                   for x in (ts.bvh_tri_v0, ts.bvh_tri_e1, ts.bvh_tri_e2)]
+            t, _, _, hit = moller_trumbore(o, d, *tri, RAY_TMIN,
+                                           torch.full_like(o[0], float("inf")))
+            check(bool(hit[0]) and t.view(torch.int32)[0] == a[0, p, k],
+                  f"{lane}: {name}'s triangle is hit at exactly t")
+            rec[name] = {"inst": inst, "slot": slot,
+                         "prim": int(ts.bvh_tri_prim[slot])}
+        check(rec["K1"] != rec["K10a"], f"{lane}: two different triangles")
+        ties.append(rec)
+    return ties
+
+
 def ulps(a, b):
     """Per-element distance in f32 ulps (same-sign values)."""
     import torch
@@ -139,10 +229,47 @@ def sweep_slice(rs, n_packets: int):
     return [t * spp + s for t in tiles for s in range(spp)]
 
 
-def sweep_bound(counts: dict, lane_bytes: int, tables: int):
-    """Bound of a sweep call from the plain walk's node visits and tests."""
-    ops = counts.get("nodes", 0) * SLAB_OPS + counts.get("tests", 0) * MT_OPS
-    return bound(lane_bytes + tables, ops)
+def sweep_bound(counts: dict, lane_bytes: int, whole: int):
+    """Bound of a sweep call: ``lane_bytes``, the ``whole`` bytes of the
+    small tables it reads whole (entries, transforms, the per-lane
+    schedule) and the distinct table rows its plain walk read
+    (``counts["rows"]``); operations from the walk's node visits and
+    triangle tests."""
+    from raytpu_torch.ops import traverse
+
+    ops = counts["nodes"] * SLAB_OPS + counts["tests"] * MT_OPS
+    return bound(lane_bytes + whole + traverse.rows_bytes(counts), ops)
+
+
+def walk_work(counts: dict, live: int) -> dict:
+    """The plain walk's work for the JSON line: node visits, triangle tests,
+    live rays, bytes of the distinct table rows read."""
+    from raytpu_torch.ops import traverse
+
+    return {"nodes": counts["nodes"], "tests": counts["tests"], "rays": live,
+            "table_bytes": traverse.rows_bytes(counts)}
+
+
+def closest_lane_bytes(state0, state1, tmin: float) -> int:
+    """What a closest sweep's lanes must move: t of every lane in, the rays
+    of the live lanes in, all 9 planes of the lanes it improved out
+    (``state0`` before the sweep, ``state1`` after)."""
+    import torch
+
+    live = int((state0[0] > tmin).sum())
+    improved = int((state0.view(torch.int32) != state1.view(torch.int32))
+                   .any(dim=0).sum())
+    return 4 * state0[0].numel() + 24 * live + 36 * improved
+
+
+def anyhit_lane_bytes(tmax, occ0, occ1, tmin: float) -> int:
+    """What a shadow sweep's lanes must move: occ of every lane in, tmax of
+    the lanes not yet occluded, the rays of the live ones, the flags it set
+    out (``occ0`` before the sweep, ``occ1`` after)."""
+    pend = occ0 == 0
+    live = int((pend & (tmax > tmin)).sum())
+    newly = int((pend & (occ1 != 0)).sum())
+    return 4 * occ0.numel() + 4 * int(pend.sum()) + 24 * live + 4 * newly
 
 
 def compare_epilogue(r, rk, full_st, act, s_row, res, gpu: str) -> None:
@@ -218,7 +345,7 @@ def compare_kernels(r, gpu: str) -> dict:
     import torch
     from raytpu_torch.config import RAY_TMAX, RAY_TMIN
     from raytpu_torch.integrator import tiled_pixels
-    from raytpu_torch.ops import raygen, sky, traverse
+    from raytpu_torch.ops import mega, perlane, raygen, sky, traverse
     from raytpu_torch.ops import vec3 as v3
 
     ts, rs, dev = r.tscene, r.render_static, r.device
@@ -276,9 +403,7 @@ def compare_kernels(r, gpu: str) -> dict:
     print(f"sky     {list(dirs[0].shape)} lanes, {h}x{w} faces: max err {sk_err:.3g}",
           flush=True)
 
-    tables = nbytes(ts.entries, ts.w2o, ts.bvh_aabb_min, ts.bvh_aabb_max,
-                    ts.bvh_tri_first, ts.bvh_tri_count, ts.bvh_miss,
-                    ts.bvh_tri_v0, ts.bvh_tri_e1, ts.bvh_tri_e2)
+    whole = nbytes(ts.entries, ts.w2o)   # read whole by the chained sweeps
 
     # the sweeps on a 256-packet slice of the primary wave
     idx = torch.tensor(sweep_slice(rs, SWEEP_PACKETS), device=dev)
@@ -286,7 +411,7 @@ def compare_kernels(r, gpu: str) -> dict:
     win = torch.where(act[idx], RAY_TMAX, 0.0).float().contiguous()
     st0 = traverse.make_trace_state(win)
     sk_ = traverse.closest_sweep(ts, rays, RAY_TMIN, st0.clone())
-    counts = {}
+    counts = {"rows": {}}
     sp_ = traverse.closest_sweep_ref(ts, rays, RAY_TMIN, st0.clone(), counts=counts)
     ik, ip = sk_.view(torch.int32), sp_.view(torch.int32)
     for plane, name in ((traverse.ST_VALID, "valid"), (traverse.ST_MAT, "mat"),
@@ -306,8 +431,8 @@ def compare_kernels(r, gpu: str) -> dict:
         ms=cuda_ms(lambda: traverse.closest_sweep(ts, rays, RAY_TMIN, st0.clone()), 3, 10),
         plain_ms=cuda_ms(lambda: traverse.closest_sweep_ref(ts, rays, RAY_TMIN, st0.clone()), 1, 2),
         shape=list(rays.shape),
-        bound=sweep_bound(counts, nbytes(rays, st0, sk_) + nbytes(ts.bvh_tri_n_soa), tables),
-        work=dict(counts, rays=live))
+        bound=sweep_bound(counts, closest_lane_bytes(st0, sk_, RAY_TMIN), whole),
+        work=walk_work(counts, live))
     print(f"closest {list(rays.shape)}: valid/mat/inst exact, hit {hit_frac:.3f}, "
           f"t/u/v <= 4 ulps, bitwise {bitwise}; plain walk per live ray: "
           f"{counts['nodes'] / live:.1f} node visits, {counts['tests'] / live:.1f} "
@@ -327,7 +452,7 @@ def compare_kernels(r, gpu: str) -> dict:
     tmax = torch.where(vmask, dist, 0.0).contiguous()
     occ0 = torch.zeros(tmax.shape, dtype=torch.int32, device=dev)
     ok_ = traverse.anyhit_sweep(ts, srays, RAY_TMIN, tmax, occ0.clone())
-    counts = {}
+    counts = {"rows": {}}
     op_ = traverse.anyhit_sweep_ref(ts, srays, RAY_TMIN, tmax, occ0.clone(), counts=counts)
     check(torch.equal(ok_, op_), "anyhit occlusion exact")
     occ_frac = (ok_ != 0).float().mean().item()
@@ -337,30 +462,181 @@ def compare_kernels(r, gpu: str) -> dict:
         ms=cuda_ms(lambda: traverse.anyhit_sweep(ts, srays, RAY_TMIN, tmax, occ0.clone()), 3, 10),
         plain_ms=cuda_ms(lambda: traverse.anyhit_sweep_ref(ts, srays, RAY_TMIN, tmax, occ0.clone()), 1, 2),
         shape=list(srays.shape),
-        bound=sweep_bound(counts, nbytes(srays, tmax, occ0, ok_), tables),
-        work=dict(counts, rays=live))
+        bound=sweep_bound(counts, anyhit_lane_bytes(tmax, occ0, ok_, RAY_TMIN), whole),
+        work=walk_work(counts, live))
     print(f"anyhit  {list(srays.shape)}: occ exact, occluded {occ_frac:.3f}; plain "
           f"walk per live ray: {counts['nodes'] / live:.1f} node visits, "
           f"{counts['tests'] / live:.1f} triangle tests", flush=True)
 
-    # the closest kernel alone on the full primary wave
-    full_st = traverse.make_trace_state(torch.where(act, RAY_TMAX, 0.0).float())
+    compare_perlane(ts, rays, win, st0, sk_, srays, tmax, occ0, ok_, res)
+
+    # the closest kernels alone on the full primary wave, and K7 there
+    full_win = torch.where(act, RAY_TMAX, 0.0).float()
+    full_st = traverse.make_trace_state(full_win)
     res["closest_sweep"]["full_wave_ms"] = cuda_ms(
         lambda: traverse.closest_sweep(ts, rk, RAY_TMIN, full_st.clone()), 1, 3)
+    compare_block_stats(rk, full_win, res)
+    sched = perlane.prepass(ts, rk, full_win, RAY_TMIN, "origin")
+    k1 = perlane.launch_closest(ts, rk, RAY_TMIN, full_st.clone(), sched)
+    k10 = traverse.closest_sweep(ts, rk, RAY_TMIN, full_st.clone())
+    ties = exact_ties(ts, rk, full_win, k1, k10)
+    print(f"perlane_closest_sweep vs closest_sweep on the full primary wave: "
+          f"{differing_lanes(k1, k10)}; exact ties {ties}", flush=True)
+    check([tuple(t["lane"]) for t in ties] == EXACT_TIES,
+          f"K1 and K10a differ on exactly the known tied lanes {EXACT_TIES}")
+    res["perlane_closest_sweep"]["full_wave_ties"] = ties
+    res["perlane_closest_sweep"]["full_wave_ms"] = cuda_ms(
+        lambda: perlane.launch_closest(ts, rk, RAY_TMIN, full_st.clone(), sched), 1, 3)
+    res["perlane_closest_sweep"]["full_wave_prepass_ms"] = cuda_ms(
+        lambda: perlane.prepass(ts, rk, full_win, RAY_TMIN, "origin"), 1, 3)
+    del k1, k10
     compare_epilogue(r, rk, full_st, act, s_row, res, gpu)
     for name, v in res.items():
-        print(f"time {name:19s} kernel {v['ms']:.4f} ms  plain {v['plain_ms']:.4f} ms"
+        print(f"time {name:21s} kernel {v['ms']:.4f} ms  plain {v['plain_ms']:.4f} ms"
               f"  bound {v['bound'][0]:.4f} ms ({v['bound'][1]})  shape {v['shape']}"
               f"  [{gpu}]", flush=True)
-    print(f"time closest_sweep full primary wave {list(rk.shape)}: "
-          f"{res['closest_sweep']['full_wave_ms']:.4f} ms [{gpu}]", flush=True)
+    for name in ("closest_sweep", "perlane_closest_sweep"):
+        v = res[name]
+        print(f"time {name} full primary wave {list(rk.shape)}: "
+              f"{v['full_wave_ms']:.4f} ms [{gpu}]", flush=True)
+    for name in PER_LANE[1:]:
+        print(f"time {name} prepass (K7 and the PyTorch schedule ops) on the "
+              f"slice: {res[name]['prepass_ms']:.4f} ms [{gpu}]", flush=True)
+    print(f"time perlane_closest_sweep prepass on the full primary wave: "
+          f"{res['perlane_closest_sweep']['full_wave_prepass_ms']:.4f} ms [{gpu}]",
+          flush=True)
     return res
 
 
-def render_frames(r, n_frames: int, t0: float, dt: float, label: str, gpu: str) -> dict:
-    """Warm-up frame, then ``n_frames`` with advancing transforms; checks."""
+def compare_block_stats(rk, win, res) -> None:
+    """K7 against its plain version on the full primary wave: all 17
+    columns exact."""
     import torch
+    from raytpu_torch.config import RAY_TMIN
+    from raytpu_torch.ops import mega
 
+    got = mega.block_stats(rk, win, RAY_TMIN)
+    want = mega.block_stats_ref(rk, win, RAY_TMIN)
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          "block_stats: all 17 columns equal the plain version's bit for bit")
+    n_live = int(got[:, 16].sum().item())
+    check(n_live == int((win > RAY_TMIN).sum().item()), "block_stats counts the live lanes")
+    n = rk[0].numel()
+    res["block_stats"] = dict(
+        max_abs_err=(got - want).abs().max().item(),
+        ms=cuda_ms(lambda: mega.block_stats(rk, win, RAY_TMIN), 3, 10),
+        plain_ms=cuda_ms(lambda: mega.block_stats_ref(rk, win, RAY_TMIN), 1, 3),
+        shape=list(rk.shape),
+        # rays 24 B and the window 4 B a lane in, the rows out
+        bound=bound(nbytes(rk, win, got), OPS_PER_LANE["block_stats"] * n))
+    print(f"block_stats {list(rk.shape)} -> {list(got.shape)}: all 17 columns exact, "
+          f"{n_live} live lanes", flush=True)
+
+
+def prepass_ops(fn, label: str, warm: bool = True) -> dict:
+    """What one call of ``fn`` (a prepass, after a first call that fills
+    the scene's per-frame properties unless not ``warm``) dispatches, from
+    torch.profiler: the PyTorch ops the host dispatches (top-level
+    ``aten::`` calls, views included) and the kernels the device runs."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    ops = sum(1 for e in events if e.name.startswith("aten::") and e.cpu_parent is None)
+    kernels = sum(1 for e in events if e.device_type == DeviceType.CUDA)
+    print(f"prepass ({label}): {ops} PyTorch ops dispatched, {kernels} device "
+          f"kernels and copies", flush=True)
+    return {"torch_ops": ops, "device_kernels": kernels}
+
+
+def compare_perlane(ts, rays, win, st0, k10a, srays, tmax, occ0, k10b,
+                    res) -> None:
+    """K1 and K2 on the sweep slice: against their plain versions and
+    against K10a/K10b's results on the same rays, bit for bit; the node
+    visits and triangle tests of the plain walks; times of the kernels
+    alone and of their prepass."""
+    import torch
+    from raytpu_torch.config import RAY_TMIN
+    from raytpu_torch.ops import perlane
+
+    sched = perlane.prepass(ts, rays, win, RAY_TMIN, "origin")
+    k1 = perlane.launch_closest(ts, rays, RAY_TMIN, st0.clone(), sched)
+    work = {"rows": {}}
+    p1 = perlane.perlane_closest_sweep_ref(ts, rays, RAY_TMIN, st0.clone(), counts=work)
+    wrapped = perlane.perlane_closest_sweep(ts, rays, RAY_TMIN, st0.clone())
+    for other, what in ((p1, "its plain version"), (k10a, "closest_sweep (K10a)"),
+                        (wrapped, "its wrapper's launch")):
+        check(torch.equal(k1.view(torch.int32), other.view(torch.int32)),
+              f"perlane_closest_sweep equals {what} bit for bit "
+              f"({differing_lanes(k1, other)})")
+    live = int((win > RAY_TMIN).sum().item())
+    res["perlane_closest_sweep"] = dict(
+        max_abs_err=(k1 - p1)[[0, 4, 5, 6, 7, 8]].abs().max().item(),
+        ms=cuda_ms(lambda: perlane.launch_closest(ts, rays, RAY_TMIN, st0.clone(), sched),
+                   3, 10),
+        prepass_ms=cuda_ms(lambda: perlane.prepass(ts, rays, win, RAY_TMIN, "origin"),
+                           3, 10),
+        plain_ms=cuda_ms(lambda: perlane.perlane_closest_sweep_ref(
+            ts, rays, RAY_TMIN, st0.clone()), 1, 2),
+        shape=list(rays.shape),
+        bound=sweep_bound(work, closest_lane_bytes(st0, k1, RAY_TMIN),
+                          nbytes(ts.w2o, *sched)),
+        work=walk_work(work, live))
+    res["perlane_closest_sweep"]["prepass_ops"] = prepass_ops(
+        lambda: perlane.prepass(ts, rays, win, RAY_TMIN, "origin"), "closest")
+    print(f"perlane_closest {list(rays.shape)}: bit for bit equal to its plain version "
+          f"and to closest_sweep; plain walk per live ray: {work['nodes'] / live:.1f} "
+          f"node visits, {work['tests'] / live:.1f} triangle tests", flush=True)
+
+    sched = perlane.prepass(ts, srays, tmax, RAY_TMIN, "light")
+    k2 = perlane.launch_anyhit(ts, srays, RAY_TMIN, tmax, occ0.clone(), sched)
+    work = {"rows": {}}
+    p2 = perlane.perlane_anyhit_sweep_ref(ts, srays, RAY_TMIN, tmax, occ0.clone(),
+                                          counts=work)
+    wrapped = perlane.perlane_anyhit_sweep(ts, srays, RAY_TMIN, tmax, occ0.clone())
+    for other, what in ((p2, "its plain version"), (k10b, "anyhit_sweep (K10b)"),
+                        (wrapped, "its wrapper's launch")):
+        check(torch.equal(k2, other), f"perlane_anyhit_sweep occlusion equals {what}")
+    live = int((tmax > RAY_TMIN).sum().item())
+    res["perlane_anyhit_sweep"] = dict(
+        max_abs_err=(k2 - p2).abs().max().item(),
+        ms=cuda_ms(lambda: perlane.launch_anyhit(ts, srays, RAY_TMIN, tmax, occ0.clone(),
+                                                 sched), 3, 10),
+        prepass_ms=cuda_ms(lambda: perlane.prepass(ts, srays, tmax, RAY_TMIN, "light"),
+                           3, 10),
+        plain_ms=cuda_ms(lambda: perlane.perlane_anyhit_sweep_ref(
+            ts, srays, RAY_TMIN, tmax, occ0.clone()), 1, 2),
+        shape=list(srays.shape),
+        bound=sweep_bound(work, anyhit_lane_bytes(tmax, occ0, k2, RAY_TMIN),
+                          nbytes(ts.w2o, *sched)),
+        work=walk_work(work, live))
+    res["perlane_anyhit_sweep"]["prepass_ops"] = prepass_ops(
+        lambda: perlane.prepass(ts, srays, tmax, RAY_TMIN, "light"), "shadow")
+    fresh = dataclasses.replace(ts)      # no per-frame properties cached yet
+    res["perlane_anyhit_sweep"]["frame_ops"] = prepass_ops(
+        lambda: (fresh.root_boxes, fresh.light_order), "once per frame", warm=False)
+    print(f"perlane_anyhit {list(srays.shape)}: occ equal to its plain version and to "
+          f"anyhit_sweep; plain walk per live ray: {work['nodes'] / live:.1f} node "
+          f"visits, {work['tests'] / live:.1f} triangle tests", flush=True)
+
+
+def render_frames(r, n_frames: int, t0: float, dt: float, label: str, gpu: str,
+                  tier: str) -> dict:
+    """Warm-up frame, then ``n_frames`` with advancing transforms, from the
+    scene's initial pose (the spin accumulates over ``set_transforms``
+    calls, so runs with the same arguments render the same frames);
+    checks, among them that each frame's sweeps took ``tier``."""
+    import torch
+    from raytpu_torch.scene import AnimationState
+
+    r.animation = AnimationState(r.scene.instances)
     r.set_transforms(t0)
     r.render()
     torch.cuda.synchronize()
@@ -376,6 +652,7 @@ def render_frames(r, n_frames: int, t0: float, dt: float, label: str, gpu: str) 
         check(bool(torch.isfinite(img).all()), f"{label} frame {i} finite")
         std = img.std().item()
         check(std > 1e-3, f"{label} frame {i} not constant (std {std})")
+        check(stats["tier"] == tier, f"{label} frame {i} on the {tier} tier ({stats['tier']})")
         rays.append(sum(int(stats[k].item()) for k in ("closest_rays", "shadow_rays")
                         if k in stats))
         syncs.append(stats["host_syncs"])
@@ -383,12 +660,109 @@ def render_frames(r, n_frames: int, t0: float, dt: float, label: str, gpu: str) 
     ray_med = int(statistics.median(rays))
     rs = r.render_static
     print(f"{label}: {rs.width}x{rs.height} spp {rs.samples_per_pixel} bounces "
-          f"{rs.max_bounce_count} fused {rs.fused} wavefront {rs.wavefront}: "
+          f"{rs.max_bounce_count} fused {rs.fused} wavefront {rs.wavefront} tier {tier}: "
           f"frame ms {[round(x, 3) for x in ms]} median {med:.3f} ms, rays traced "
           f"{ray_med}, {ray_med / med / 1e3:.2f} Mrays/s, host syncs per frame "
           f"{syncs} [{gpu}]", flush=True)
-    return dict(frame_ms=ms, median_ms=med, rays=ray_med,
+    return dict(tier=tier, frame_ms=ms, median_ms=med, rays=ray_med,
                 mrays_per_s=ray_med / med / 1e3, host_syncs=syncs)
+
+
+def check_launches(counts: dict, label: str, idle) -> dict:
+    """The launches of one path's frames: every kernel but those of the
+    ``idle`` tier must have launched, those of ``idle`` never."""
+    print(f"launches during {label}: {counts}", flush=True)
+    for name, n in counts.items():
+        if name in idle:
+            check(n == 0, f"{name} not launched during the {label} ({n})")
+        else:
+            check(n > 0, f"{name} launched during the {label}")
+    return counts
+
+
+def tie_check(r) -> dict:
+    """The tie scene (two coincident boxes, mirror and diffuse) through the
+    pallas tier and the per-lane and hybrid tiers: the pixels that differ
+    (the JAX bench's ``tie_check``, whose bar is 0)."""
+    import torch
+    from raytpu_torch.integrator import render_frame
+
+    frames = {trav: render_frame(dataclasses.replace(r.tscene, traversal=trav),
+                                 r.render_static, r.camera_tensor())
+              for trav in ("pallas", "perlane", "hybrid")}
+    n_diff = {trav: int((img != frames["pallas"]).any(dim=-1).sum().item())
+              for trav, img in frames.items() if trav != "pallas"}
+    rs = r.render_static
+    print(f"tie scene {rs.width}x{rs.height} spp {rs.samples_per_pixel} bounces "
+          f"{rs.max_bounce_count}: pixels differing from the pallas tier {n_diff}",
+          flush=True)
+    check(frames["pallas"].std().item() > 1e-3, "the tie scene's frame is not constant")
+    check(not any(n_diff.values()), f"tie check n_diff 0 ({n_diff})")
+    return {"n_diff": n_diff}
+
+
+def tier_waves(r, t0: float) -> dict:
+    """The config4 frame of pose ``t0`` on the per-lane tier with each K1
+    and K2 launch held against K10a/K10b on the same wave (the primary wave,
+    then the compacted bounce waves): K2's occlusion equal, and every lane
+    where K1 and K10a differ an exact tie (:func:`exact_ties`), those of the
+    primary wave exactly ``EXACT_TIES``. Then the same pose on the pallas
+    tier: the two frames may differ only in the pixels of tied lanes (a
+    lane's sample stays in its pixel), so the differing pixels are at most
+    the tied lanes."""
+    import torch
+    from raytpu_torch.integrator import kernels
+    from raytpu_torch.ops import perlane, traverse
+    from raytpu_torch.scene import AnimationState
+
+    waves = []
+
+    def closest(ts, rays, tmin, state):
+        win = state[traverse.ST_T].clone()
+        k10 = traverse.closest_sweep(ts, rays, tmin, state.clone())
+        perlane.perlane_closest_sweep(ts, rays, tmin, state)
+        ties = exact_ties(ts, rays, win, state, k10)
+        waves.append({"sweep": "closest", "packets": rays.shape[1],
+                      "tied_lanes": [t["lane"] for t in ties]})
+        return state
+
+    def anyhit(ts, rays, tmin, tmax, occ, order):
+        k10 = traverse.anyhit_sweep(ts, rays, tmin, tmax, occ.clone())
+        perlane.perlane_anyhit_sweep(ts, rays, tmin, tmax, occ, order)
+        check(torch.equal(occ, k10), f"perlane_anyhit_sweep equals anyhit_sweep "
+              f"on the frame's wave {len(waves)} ({rays.shape[1]} packets)")
+        waves.append({"sweep": "anyhit", "packets": rays.shape[1]})
+        return occ
+
+    def frame(traversal):
+        r.animation = AnimationState(r.scene.instances)
+        r.tscene = dataclasses.replace(r.tscene, traversal=traversal)
+        r.set_transforms(t0)
+        stats = {}
+        img = r.render(stats=stats)
+        r.tscene = dataclasses.replace(r.tscene, traversal="auto")
+        return img, stats["tier"]
+
+    with kernels(perlane_closest=closest, perlane_anyhit=anyhit):
+        img, tier = frame("auto")
+    check(tier == "perlane", f"the checked frame is per-lane ({tier})")
+    pal, tier = frame("pallas")
+    check(tier == "pallas", f"the compared frame is on the pallas tier ({tier})")
+    closest_waves = [w for w in waves if w["sweep"] == "closest"]
+    check(len(closest_waves) > 1 and len(waves) > len(closest_waves),
+          f"the frame swept bounce waves and shadows ({waves})")
+    check([tuple(x) for x in closest_waves[0]["tied_lanes"]] == EXACT_TIES,
+          f"the primary wave's K1/K10a differences are exactly {EXACT_TIES}")
+    n_tied = sum(len(w["tied_lanes"]) for w in closest_waves)
+    n_diff = int((img != pal).any(dim=-1).sum().item())
+    print(f"config4 frame (pose {t0}) per-lane, each sweep against the chained "
+          f"sweep on its wave: waves {[(w['sweep'], w['packets']) for w in waves]}, "
+          f"K2 occlusion equal on every wave, K1/K10a exact ties per closest wave "
+          f"{[w['tied_lanes'] for w in closest_waves]}; pixels differing from the "
+          f"pallas-tier frame: {n_diff} (tied lanes {n_tied})", flush=True)
+    check(n_diff <= n_tied, f"per-lane and pallas frames differ only in tied "
+          f"pixels ({n_diff} pixels, {n_tied} tied lanes)")
+    return {"waves": waves, "tied_lanes": n_tied, "pixels_differing": n_diff}
 
 
 def same_rays_frames(r, rs_a, rs_b, plain_b: bool = False):
@@ -415,9 +789,16 @@ def same_rays_frames(r, rs_a, rs_b, plain_b: bool = False):
     return got, want
 
 
+def kernel_named(name: str, key: str) -> bool:
+    """Whether profiler event ``key`` is kernel ``name``'s ``__global__``
+    (whole names: closest_sweep_kernel is not perlane_closest_...)."""
+    return re.search(rf"(?<!\w){name}_kernel\b", key) is not None
+
+
 def profile_frame(r, path: Path, label: str, gpu: str) -> dict:
     """torch.profiler table of one frame, its device busy time and idle
-    share, and the share of each hand-written kernel in it."""
+    share, the share of each hand-written kernel in it, and each sweep
+    launch's device time in launch order."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -433,20 +814,25 @@ def profile_frame(r, path: Path, label: str, gpu: str) -> dict:
               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     busy = sum(e.self_device_time_total for e in device) / 1e3
     check(busy > 0, f"{label}: the profiler saw device time")
-    per_kernel = {
-        name: sum(e.self_device_time_total for e in device
-                  if f"{name}_kernel" in e.key) / 1e3
-        for name in KERNELS
-    }
+    per_kernel = {name: sum(e.self_device_time_total for e in device
+                            if kernel_named(name, e.key)) / 1e3
+                  for name in KERNELS}
+    launches = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    launches.sort(key=lambda e: e.time_range.start)
+    sweep_ms = {name: [e.time_range.elapsed_us() / 1e3 for e in launches
+                       if kernel_named(name, e.name)]
+                for name in CHAINED + PER_LANE[1:]}
+    sweep_ms = {k: v for k, v in sweep_ms.items() if v}
     table = events.table(sort_by="device_time_total", row_limit=40)
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(f"{gpu}\n{table}\n")
     idle = 1.0 - busy / wall
     print(f"{label} profiled frame: wall {wall:.3f} ms, device busy {busy:.3f} ms, "
           f"device idle {idle:.1%}, kernels ms {per_kernel}, other device ms "
-          f"{busy - sum(per_kernel.values()):.3f}; table in {path} [{gpu}]",
-          flush=True)
-    return dict(wall_ms=wall, busy_ms=busy, idle_share=idle, kernels_ms=per_kernel)
+          f"{busy - sum(per_kernel.values()):.3f}; sweep launches ms {sweep_ms}; "
+          f"table in {path} [{gpu}]", flush=True)
+    return dict(wall_ms=wall, busy_ms=busy, idle_share=idle, kernels_ms=per_kernel,
+                sweep_launch_ms=sweep_ms)
 
 
 def main() -> int:
@@ -467,7 +853,7 @@ def main() -> int:
         return 1
     import_port()
     from raytpu_torch import _build, scenes
-    from raytpu_torch.integrator import plain_kernels, render_frame
+    from raytpu_torch.integrator import frame_tier, plain_kernels, render_frame
     from raytpu_torch.render import Renderer
     from raytpu_torch.scene import load_scene
     from raytpu_torch.utils.ssim import ssim
@@ -507,20 +893,35 @@ def main() -> int:
     r4.set_transforms(0.05)
     kern = compare_kernels(r4, gpu)
 
+    # the main path: config4's default tier, per-lane
+    check((ts.traversal, ts.auto_tier) == ("auto", "perlane"),
+          f"config4 resolves to the per-lane tier ({ts.traversal}, {ts.auto_tier})")
     _build.reset_launch_counts()
-    c4 = render_frames(r4, 5, 0.05, 0.05, "config4_standin", gpu)
+    c4 = render_frames(r4, 5, 0.05, 0.05, "config4_standin", gpu, "perlane")
     counts = _build.launch_counts()
-    print(f"launches during config4 frames: {counts}", flush=True)
     check(set(counts) == set(KERNELS), f"chip_smoke lists every kernel ({counts})")
-    for name in _build.KERNELS:
-        check(counts[name] > 0, f"{name} launched during the config4 frames")
+    c4["launches"] = check_launches(counts, "config4 frames", idle=CHAINED)
     c4["profile"] = profile_frame(r4, prof_dir / "profile_config4.txt",
                                   "config4_standin", gpu)
 
+    # the chained tier on the same scene, the same frames
+    r4.tscene = dataclasses.replace(r4.tscene, traversal="pallas")
+    _build.reset_launch_counts()
+    pal4 = render_frames(r4, 5, 0.05, 0.05, "config4_standin_pallas", gpu, "pallas")
+    check(pal4["rays"] == c4["rays"], "both tiers trace the same rays in the same frames")
+    pal_counts = _build.launch_counts()
+    pal4["launches"] = check_launches(pal_counts, "config4 pallas-tier frames",
+                                      idle=PER_LANE)
+    pal4["profile"] = profile_frame(r4, prof_dir / "profile_config4_pallas.txt",
+                                    "config4_standin_pallas", gpu)
+    r4.tscene = dataclasses.replace(r4.tscene, traversal="auto")
+    waves4 = tier_waves(r4, 0.05)
+
     r4.render_static = dataclasses.replace(rs4, fused="off", wavefront="full")
-    eager4 = render_frames(r4, 2, 0.05, 0.05, "config4_standin_eager", gpu)
+    eager4 = render_frames(r4, 2, 0.05, 0.05, "config4_standin_eager", gpu, "perlane")
     r4.render_static = dataclasses.replace(rs4, wavefront="full")
-    full4 = render_frames(r4, 2, 0.05, 0.05, "config4_standin_full_width", gpu)
+    full4 = render_frames(r4, 2, 0.05, 0.05, "config4_standin_full_width", gpu,
+                          "perlane")
     r4.render_static = rs4
 
     start = time.perf_counter()
@@ -528,11 +929,9 @@ def main() -> int:
     rr = Renderer(ref_scene)
     print(f"reference stand-in: scene + BVH {time.perf_counter() - start:.2f} s", flush=True)
     _build.reset_launch_counts()
-    ref = render_frames(rr, 2, 0.05, 0.05, "reference_standin", gpu)
-    ref_counts = _build.launch_counts()
-    print(f"launches during reference frames: {ref_counts}", flush=True)
-    for name in _build.KERNELS:
-        check(ref_counts[name] > 0, f"{name} launched during the reference frames")
+    ref = render_frames(rr, 2, 0.05, 0.05, "reference_standin", gpu, "perlane")
+    ref["launches"] = check_launches(_build.launch_counts(), "reference frames",
+                                     idle=CHAINED)
     ref["profile"] = profile_frame(rr, prof_dir / "profile_reference.txt",
                                    "reference_standin", gpu)
     del rr
@@ -542,12 +941,16 @@ def main() -> int:
     small.set_transforms(0.1)
     rs_s = small.render_static
     cam = small.camera_tensor()
+    check(frame_tier(small.tscene, 256) == "perlane", "256x192 renders per-lane")
     img_k = render_frame(small.tscene, rs_s, cam)
     img_full = render_frame(small.tscene, dataclasses.replace(rs_s, wavefront="full"), cam)
     check(torch.equal(img_k, img_full),
           "256x192 compacted frame equals the full-width fused frame bit for bit")
-    print("256x192 compacted frame vs full-width fused frame on the card: bit for bit",
-          flush=True)
+    img_pal = render_frame(dataclasses.replace(small.tscene, traversal="pallas"), rs_s, cam)
+    check(torch.equal(img_k, img_pal),
+          "256x192 per-lane frame equals the pallas-tier frame bit for bit")
+    print("256x192 compacted per-lane frame vs full-width fused frame and vs the "
+          "pallas-tier frame on the card: bit for bit", flush=True)
     with plain_kernels():
         img_p = render_frame(small.tscene, rs_s, cam).cpu().numpy()
     img_k = img_k.cpu().numpy()
@@ -567,17 +970,26 @@ def main() -> int:
     print(f"256x192 fused compacted frame vs eager frame from the same primary "
           f"rays: max abs diff {eager_diff:.3g}", flush=True)
     check(eager_diff <= 1e-5, f"fused vs eager frame within 1e-5 ({eager_diff})")
+    tie = tie_check(Renderer(scenes.tie_scene()))
 
-    print(json.dumps({"gpu": gpu, "config4_standin": c4, "config4_standin_eager": eager4,
+    print(json.dumps({"gpu": gpu, "config4_standin": c4,
+                      "config4_standin_pallas": pal4, "config4_tier_waves": waves4,
+                      "config4_standin_eager": eager4,
                       "config4_standin_full_width": full4, "reference_standin": ref,
                       "small_frame": {"ssim": s, "max_abs_diff": diff,
                                       "same_rays_max_abs_diff": same,
                                       "eager_same_rays_max_abs_diff": eager_diff,
-                                      "compact_equals_full": True},
-                      "kernel_work": {k: v["work"] for k, v in kern.items() if "work" in v}}))
+                                      "compact_equals_full": True,
+                                      "perlane_equals_pallas": True},
+                      "tie_check": tie,
+                      "full_wave_ties": kern["perlane_closest_sweep"]["full_wave_ties"],
+                      "kernel_work": {k: v["work"] for k, v in kern.items() if "work" in v},
+                      "prepass": {k: {f: v[f] for f in v if "prepass" in f or "ops" in f}
+                                  for k, v in kern.items() if "prepass_ms" in v}}))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
-         "replaces": KERNELS[name][1], "launches": counts[name],
+         "replaces": KERNELS[name][1],
+         "launches": (pal_counts if name in CHAINED else counts)[name],
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound"][0],
          "bound_by": kern[name]["bound"][1], "library_ms": None}

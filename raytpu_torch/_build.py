@@ -50,6 +50,15 @@ _SIGNATURES = {
     "shade_epilogue": [_P, _L, _P, _L, _P, _P, _L, _P, _P, _L, _P, _P, _L,
                        _P, _P, _L, _F, _F, _F, _P],
     "accumulate_epilogue": [_P, _P, _L, _P, _P, _L, _P, _L, _I, _F, _P],
+    "block_stats": [_P, _L, _P, _L, _L, _F, _P, _P],
+    # rays, (state | tmax, occ), n, tmin, the schedule (block lanes, bits,
+    # words, octs, succ, skip, nodes), the tables
+    "perlane_closest_sweep": [_P, _L, _P, _L, _L, _F, _L, _P, _I, _P, _P,
+                              _P, _L, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                              _P, _P, _P, _L, _P],
+    "perlane_anyhit_sweep": [_P, _L, _P, _P, _L, _F, _L, _P, _I, _P, _P, _P,
+                             _L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _P, _P],
 }
 KERNELS = tuple(_SIGNATURES)
 

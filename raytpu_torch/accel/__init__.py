@@ -1,11 +1,14 @@
 """BVH attachment for the PyTorch port (counterpart of
-``raytpu/accel/__init__.py:26-147``).
+``raytpu/accel/__init__.py:26-147`` and ``resolve_auto_tier`` :302).
 
-One threaded SAH tree per mesh, built by the native builder. The JAX
+One threaded SAH tree per mesh, built by the native builder, with its
+per-octant links for the per-lane tier. The JAX
 package's SMEM chunking (``accel/__init__.py:93-101``) exists only because
 the TPU kernels keep a tree in 1 MB of scalar memory; a GPU thread walks a
-whole mesh's tree from device memory, so the port builds no chunks. To walk
-raytpu's chunked trees instead, use
+whole mesh's tree from device memory, so the port builds no chunks, and
+no separate shadow chunk set either (``CHUNK_TRIS_SHADOW``): occlusion is
+an OR that no partition changes, so the shadow sweeps walk the same
+entries. To walk raytpu's chunked trees instead, use
 :func:`raytpu_torch.device_scene.from_raytpu`.
 """
 
@@ -19,14 +22,28 @@ import torch
 from raytpu_torch.scene import Scene
 from raytpu_torch.accel.native import Bvh, build_bvh
 from raytpu_torch.device_scene import TorchScene, corner_tables, entry_table
+from raytpu_torch.ops.mega import mesh_octant_links
 
-__all__ = ["Bvh", "attach_bvh", "build_bvh"]
+__all__ = ["Bvh", "attach_bvh", "build_bvh", "resolve_auto_tier"]
+
+
+def resolve_auto_tier(total_tris: int, spp: int, bounces: int) -> str:
+    """The tier ``traversal="auto"`` takes (``raytpu/accel/__init__.py:302``,
+    the JAX package's measured preset table): the per-lane tier for scenes
+    of at least 65,536 triangles and for spp-1 scenes with bounces, the
+    consensus megakernel ("mega") for the rest."""
+    if total_tris >= 65536:
+        return "perlane"
+    if spp == 1 and bounces >= 1:
+        return "perlane"
+    return "mega"
 
 
 def attach_bvh(tscene: TorchScene, scene: Scene, leaf_size: int) -> TorchScene:
     """Build one tree per mesh of ``scene``, concatenate the ``bvh_*``
-    arrays (node and slot indices stay mesh-local) and fill the entry
-    table, one entry per instance."""
+    arrays (node and slot indices stay mesh-local), thread each tree per
+    octant, fill the entry table, one entry per instance, and resolve the
+    traversal tier from the scene's config."""
     v0_all, e1_all, e2_all, n_soa = corner_tables(scene)
     nodes = {k: [] for k in ("aabb_min", "aabb_max", "tri_first",
                              "tri_count", "miss")}
@@ -52,18 +69,22 @@ def attach_bvh(tscene: TorchScene, scene: Scene, leaf_size: int) -> TorchScene:
     prim = np.concatenate(prims)
     traversal_list = tuple(enumerate(tscene.instance_mesh))
     materials = tscene.materials.cpu().numpy()
-    count = np.concatenate(nodes["tri_count"])
+    arrays = {k: np.concatenate(v) for k, v in nodes.items()}
+    succ, skip = mesh_octant_links(arrays["aabb_min"], arrays["aabb_max"],
+                                   arrays["tri_first"], arrays["miss"],
+                                   node_ranges)
+    cfg = scene.config
 
     def dev(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=tscene.device)
 
     return dataclasses.replace(
         tscene,
-        bvh_aabb_min=dev(np.concatenate(nodes["aabb_min"])),
-        bvh_aabb_max=dev(np.concatenate(nodes["aabb_max"])),
-        bvh_tri_first=dev(np.concatenate(nodes["tri_first"])),
-        bvh_tri_count=dev(count),
-        bvh_miss=dev(np.concatenate(nodes["miss"])),
+        bvh_aabb_min=dev(arrays["aabb_min"]),
+        bvh_aabb_max=dev(arrays["aabb_max"]),
+        bvh_tri_first=dev(arrays["tri_first"]),
+        bvh_tri_count=dev(arrays["tri_count"]),
+        bvh_miss=dev(arrays["miss"]),
         bvh_tri_v0=dev(np.concatenate(v0s)),
         bvh_tri_e1=dev(np.concatenate(e1s)),
         bvh_tri_e2=dev(np.concatenate(e2s)),
@@ -71,6 +92,11 @@ def attach_bvh(tscene: TorchScene, scene: Scene, leaf_size: int) -> TorchScene:
         bvh_tri_n_soa=dev(n_soa[:, prim.astype(np.int64)]),
         entries=dev(entry_table(traversal_list, materials, node_ranges,
                                 tri_ranges)),
+        oct_succ=dev(succ),
+        oct_skip=dev(skip),
         traversal_list=traversal_list,
-        leaf_max=int(count.max()),
+        leaf_max=int(arrays["tri_count"].max()),
+        traversal=cfg.traversal,
+        auto_tier=resolve_auto_tier(tri_acc, cfg.samples_per_pixel,
+                                    cfg.max_bounce_count),
     )

@@ -6,7 +6,10 @@ transforms and materials, the light, the packed RGB8 sky, the shading
 normals, and the threaded ``bvh_*`` arrays with an ENTRY TABLE that lists,
 per (instance, traversal mesh) in ``traversal_list`` order, the instance,
 its material, and the mesh's node base, node count and triangle base. The
-sweeps walk that table in one launch.
+sweeps walk that table in one launch. Beside the skip links, each mesh's
+nodes are threaded once per ray-direction octant, near child first
+(``oct_succ``/``oct_skip``, ``ops/mega.octant_links``), for the per-lane
+tier; ``traversal`` and ``auto_tier`` say which tier the sweeps take.
 
 Layouts match the JAX package, so buffers compare by a reshape: nodes are
 concatenated over meshes with mesh-local ``bvh_miss`` and ``bvh_tri_first``
@@ -18,11 +21,13 @@ full uint32 arithmetic).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from raytpu_torch.ops.mega import entry_perm, mesh_octant_links, world_root_boxes
 from raytpu_torch.scene import Scene
 
 ENTRY_COLS = ("inst", "mat", "node_base", "node_count", "tri_base")
@@ -58,16 +63,40 @@ class TorchScene:
     bvh_tri_prim: Optional[torch.Tensor] = None   # (T,) int32 global prim id
     bvh_tri_n_soa: Optional[torch.Tensor] = None  # (9, T) f32 BVH-slot order
     entries: Optional[torch.Tensor] = None        # (E, 5) int32, ENTRY_COLS
+    # per-octant near-first links, mesh-local like bvh_miss
+    oct_succ: Optional[torch.Tensor] = None       # (8, M) int32
+    oct_skip: Optional[torch.Tensor] = None       # (8, M) int32
     traversal_list: Tuple[Tuple[int, int], ...] = ()
     leaf_max: int = 0              # largest leaf (the plain walk's unroll)
+    # RenderConfig.traversal, and the tier "auto" resolves to ("perlane" or
+    # "mega", accel.resolve_auto_tier)
+    traversal: str = "auto"
+    auto_tier: str = "mega"
 
     def with_transforms(self, o2w: np.ndarray, w2o: np.ndarray) -> "TorchScene":
-        """Per-frame instance transform update (the refit analog)."""
+        """Per-frame instance transform update (the refit analog): a new
+        scene, so the cached properties below are computed anew."""
         return dataclasses.replace(
             self,
             o2w=torch.as_tensor(np.asarray(o2w, np.float32), device=self.device),
             w2o=torch.as_tensor(np.asarray(w2o, np.float32), device=self.device),
         )
+
+    # What the per-lane prepass needs from the transforms alone, computed
+    # at the frame's first per-lane sweep and kept for its others (device
+    # tensors, no sync).
+    @functools.cached_property
+    def root_boxes(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Each entry's world root box ``(lo, hi)``, (E, 3) each
+        (``ops/mega.world_root_boxes``)."""
+        return world_root_boxes(self)
+
+    @functools.cached_property
+    def light_order(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The shadow sweep's "light" entry order (``ops/mega.entry_perm``):
+        the permutation (E,) int64 and the entry rows in that order."""
+        perm = entry_perm(self, None, "light")
+        return perm, self.entries.index_select(0, perm)
 
 
 def corner_tables(scene: Scene):
@@ -143,8 +172,9 @@ def entry_table(traversal_list, materials, node_ranges, tri_ranges) -> np.ndarra
 
 def from_raytpu(dev, static, device) -> TorchScene:
     """Carry a JAX ``DeviceScene`` + ``SceneStatic`` across unchanged: the
-    same chunked ``bvh_*`` arrays and the same ``traversal_list``, so both
-    packages walk the identical trees in the identical order.
+    same chunked ``bvh_*`` arrays, the same ``traversal_list`` and the same
+    traversal tier, so both packages walk the identical trees in the
+    identical order. The octant links are threaded per chunk.
 
     ``dev``/``static`` are read through ``np.asarray`` only; this module
     never imports JAX."""
@@ -157,6 +187,10 @@ def from_raytpu(dev, static, device) -> TorchScene:
 
     materials = np.asarray(dev.materials, np.int32)
     count = np.asarray(dev.bvh_tri_count)
+    succ, skip = mesh_octant_links(
+        np.asarray(dev.bvh_aabb_min), np.asarray(dev.bvh_aabb_max),
+        np.asarray(dev.bvh_tri_first), np.asarray(dev.bvh_miss),
+        static.mesh_node_ranges)
     return TorchScene(
         device=device,
         o2w=t(dev.o2w),
@@ -182,6 +216,10 @@ def from_raytpu(dev, static, device) -> TorchScene:
         entries=t(entry_table(static.traversal_list, materials,
                               static.mesh_node_ranges,
                               static.mesh_bvh_tri_ranges)),
+        oct_succ=t(succ),
+        oct_skip=t(skip),
         traversal_list=tuple(static.traversal_list),
         leaf_max=int(count.max()),
+        traversal=static.traversal,
+        auto_tier=static.auto_tier,
     )

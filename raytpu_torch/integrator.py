@@ -16,6 +16,15 @@ the raygen and the sky run through their kernel wrappers (CUDA tensors
 launch the hand-written kernels); ``make_trace_state``, the sort and the
 bookkeeping are plain PyTorch, as they are plain XLA in the JAX loop.
 
+The sweeps follow the scene's traversal tier as the JAX package routes
+them (``raytpu/ops/trace.py:491-547``, ``_use_perlane`` :550): the per-lane
+sweeps (K7 prepass, K1, K2; ``ops/perlane.py``) under "perlane" and under
+"auto" where the scene resolved to it, on the first bounce only under
+"hybrid"; the chained sweeps (K10a, K10b; ``ops/traverse.py``) under
+"pallas" and "xla", and under "auto" resolved to "mega" until the
+consensus kernels are ported. A wave that is not whole blocks of
+``BLOCK_PACKETS`` takes the chained sweeps, as in the JAX package.
+
 Host syncs per frame (each counted in ``stats["host_syncs"]``): the loop
 condition once per bounce iteration (``any(window > 0)`` at full width,
 the live prefix length ``n_eff`` on the compacted path), and the
@@ -28,6 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -49,6 +59,13 @@ from raytpu_torch.ops.epilogue import (
     shade_epilogue,
     shade_epilogue_ref,
 )
+from raytpu_torch.ops.mega import BLOCK_PACKETS
+from raytpu_torch.ops.perlane import (
+    perlane_anyhit_sweep,
+    perlane_anyhit_sweep_ref,
+    perlane_closest_sweep,
+    perlane_closest_sweep_ref,
+)
 from raytpu_torch.ops.raygen import primary_rays_soa, raygen_packed, raygen_packed_ref
 from raytpu_torch.ops.sky import sample_cubemap_u32, sample_cubemap_u32_ref
 from raytpu_torch.ops.trace import any_hit_wave, closest_hit_wave
@@ -62,35 +79,50 @@ from raytpu_torch.ops.traverse import (
 
 __all__ = [
     "RenderStatic", "primary_rays_soa", "render_packets", "render_frame",
-    "detile", "tiled_pixels", "plain_kernels",
+    "detile", "tiled_pixels", "kernels", "plain_kernels",
 ]
 
 SEG_PACKETS = 64  # packet-count granule of the JAX package (ops/mega.py)
 
 # every traversal tier of the JAX package computes the same hits; the port
-# has one walk for all of them
+# walks them with the per-lane or the chained sweeps (_perlane)
 _TRAVERSALS = ("auto", "pallas", "xla", "perlane", "mega", "hybrid")
 
-# the frame's six kernel wrappers, looked up at call time so that
+# the frame's kernel wrappers, looked up at call time so that
 # plain_kernels() can swap in their plain versions
 _KERNELS = {"raygen": raygen_packed, "closest": closest_sweep,
-            "anyhit": anyhit_sweep, "sky": sample_cubemap_u32,
+            "anyhit": anyhit_sweep, "perlane_closest": perlane_closest_sweep,
+            "perlane_anyhit": perlane_anyhit_sweep, "sky": sample_cubemap_u32,
             "shade": shade_epilogue, "accumulate": accumulate_epilogue}
 _PLAIN = {"raygen": raygen_packed_ref, "closest": closest_sweep_ref,
-          "anyhit": anyhit_sweep_ref, "sky": sample_cubemap_u32_ref,
-          "shade": shade_epilogue_ref, "accumulate": accumulate_epilogue_ref}
+          "anyhit": anyhit_sweep_ref,
+          "perlane_closest": perlane_closest_sweep_ref,
+          "perlane_anyhit": perlane_anyhit_sweep_ref,
+          "sky": sample_cubemap_u32_ref, "shade": shade_epilogue_ref,
+          "accumulate": accumulate_epilogue_ref}
 
 
 @contextlib.contextmanager
-def plain_kernels():
-    """Within the block, frames run each kernel's plain PyTorch version on
-    any device: the reference the kernel path is held against on the card."""
+def kernels(**fns):
+    """Within the block, frames call ``fns`` in place of the kernel
+    wrappers of those names (``raygen``, ``closest``, ``anyhit``,
+    ``perlane_closest``, ``perlane_anyhit``, ``sky``, ``shade``,
+    ``accumulate``), with the wrappers' arguments."""
+    unknown = set(fns) - set(_KERNELS)
+    if unknown:
+        raise KeyError(f"no kernel wrapper named {sorted(unknown)}")
     saved = dict(_KERNELS)
-    _KERNELS.update(_PLAIN)
+    _KERNELS.update(fns)
     try:
         yield
     finally:
         _KERNELS.update(saved)
+
+
+def plain_kernels():
+    """Within the block, frames run each kernel's plain PyTorch version on
+    any device: the reference the kernel path is held against on the card."""
+    return kernels(**_PLAIN)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,7 +134,9 @@ class RenderStatic:
     ``bounce_core``, which only ``wavefront="full"`` composes with (the XLA
     body's per-iteration resort is not ported). ``ladder``: "auto" moves the
     compacted loop to smaller waves as the live prefix shrinks
-    (``_wave_rungs``), "off" keeps the one budget."""
+    (``_wave_rungs``), "off" keeps the one budget. ``shadow_order``: the
+    per-lane shadow sweep's entry order (``raytpu/integrator.py:129``),
+    "light" (nearest the light first) or "origin" (by entry depth)."""
 
     width: int
     height: int
@@ -114,6 +148,7 @@ class RenderStatic:
     ladder: str = "auto"
     tile: int = 32
     fold_spp: bool = True
+    shadow_order: str = "light"
 
     def __post_init__(self):
         if not self.fold_spp:
@@ -125,7 +160,8 @@ class RenderStatic:
                 "(only 'bilinear')")
         for name, allowed in (("wavefront", ("full", "compact")),
                               ("fused", ("on", "off")),
-                              ("ladder", ("auto", "off"))):
+                              ("ladder", ("auto", "off")),
+                              ("shadow_order", ("light", "origin"))):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"{name}={getattr(self, name)!r}: use one "
                                  f"of {allowed}")
@@ -157,10 +193,7 @@ class RenderStatic:
         if config.sky_rebin == "on":
             raise ValueError("RenderConfig.sky_rebin='on' is a rejected TPU "
                              "experiment and is not ported")
-        if config.traversal not in _TRAVERSALS:
-            raise ValueError(
-                f"RenderConfig.traversal={config.traversal!r} is not ported "
-                f"(one walk serves {_TRAVERSALS})")
+        _check_traversal(config.traversal)
         if config.bvh_builder not in ("auto", "native", "sah"):
             raise ValueError(
                 f"RenderConfig.bvh_builder={config.bvh_builder!r} is not "
@@ -173,6 +206,43 @@ class RenderStatic:
             skybox_filter=config.skybox_filter,
             wavefront=config.wavefront,
         )
+
+
+def _check_traversal(traversal: str) -> None:
+    if traversal not in _TRAVERSALS:
+        raise ValueError(f"traversal={traversal!r} is not ported (the "
+                         f"sweeps serve {_TRAVERSALS})")
+
+
+def _perlane(ts: TorchScene, p: int, primary: bool) -> bool:
+    """Whether the sweeps of a wave of ``p`` packets take the per-lane tier
+    (``raytpu/ops/trace.py:550`` ``_use_perlane``, without its TPU test):
+    under "perlane", under "auto" where the scene resolved to it, and under
+    "hybrid" on the ``primary`` (first-bounce) sweeps; and only for whole
+    blocks of ``BLOCK_PACKETS``."""
+    _check_traversal(ts.traversal)
+    wanted = (ts.traversal == "perlane"
+              or (ts.traversal == "auto" and ts.auto_tier == "perlane")
+              or (ts.traversal == "hybrid" and primary))
+    return wanted and p % BLOCK_PACKETS == 0
+
+
+def frame_tier(ts: TorchScene, p: int) -> str:
+    """The sweeps a frame of ``p`` packets takes: "perlane" (every bounce),
+    "hybrid" (the first bounce per-lane) or "pallas" (the chained sweeps)."""
+    if _perlane(ts, p, primary=False):
+        return "perlane"
+    return "hybrid" if _perlane(ts, p, primary=True) else "pallas"
+
+
+def _sweeps(ts: TorchScene, rs, p: int, primary: bool):
+    """``(closest, anyhit)`` sweep functions for a wave of ``p`` packets,
+    with the same arguments whichever the tier."""
+    if _perlane(ts, p, primary):
+        return (_KERNELS["perlane_closest"],
+                functools.partial(_KERNELS["perlane_anyhit"],
+                                  order=rs.shadow_order))
+    return _KERNELS["closest"], _KERNELS["anyhit"]
 
 
 def _count(stats, key, mask):
@@ -202,13 +272,14 @@ def _shadow_always(rs) -> bool:
     return rs.max_bounce_count <= 4 and rs.samples_per_pixel > 1
 
 
-def _bounce_core(ts, rs, o, d, tmp, active, miss_rec, decay, stats):
-    """One bounce at full width (``integrator.py:651-736``): closest trace,
-    miss record, shadow + Blinn-Phong, mirror/refract continuations."""
+def _bounce_core(ts, rs, o, d, tmp, active, miss_rec, decay, stats, sweeps):
+    """One bounce at full width (``integrator.py:651-736``) through the
+    ``sweeps`` (:func:`_sweeps`): closest trace, miss record, shadow +
+    Blinn-Phong, mirror/refract continuations."""
     _count(stats, "closest_rays", active)
     lane_tmax = torch.where(active, torch.full_like(o[0], RAY_TMAX),
                             torch.zeros_like(o[0]))
-    hit = closest_hit_wave(ts, o, d, RAY_TMIN, lane_tmax, _KERNELS["closest"])
+    hit = closest_hit_wave(ts, o, d, RAY_TMIN, lane_tmax, sweeps[0])
     hit_mask = active & hit.valid
     miss_rec = miss_rec | (active & ~hit.valid)
 
@@ -231,7 +302,7 @@ def _bounce_core(ts, rs, o, d, tmp, active, miss_rec, decay, stats):
         occluded = any_hit_wave(
             ts, shadow_o, l, RAY_TMIN,
             torch.where(lit_candidate, light_dist, torch.zeros_like(light_dist)),
-            _KERNELS["anyhit"],
+            sweeps[1],
         )
     else:
         occluded = torch.zeros_like(lit_candidate)
@@ -275,7 +346,8 @@ def _trace_sample(ts: TorchScene, rs: RenderStatic, o, d,
     # inclusive bounce cap (shader.rgen:84); exits once every lane is done
     while j <= rs.max_bounce_count and _any(active, stats):
         o, d, tmp, active, miss_rec = _bounce_core(
-            ts, rs, o, d, tmp, active, miss_rec, decay, stats)
+            ts, rs, o, d, tmp, active, miss_rec, decay, stats,
+            _sweeps(ts, rs, p, primary=j == 0))
         j += 1
     # at loop exit d is each miss lane's miss direction (no carry needed)
     return _deferred_sky(ts, miss_rec, d, tmp)
@@ -312,19 +384,21 @@ def _wave_rungs(p: int, budget: int, max_rungs: int = 3) -> list:
     return rungs
 
 
-def _fused_step(ts, rs, rays, win, tmp, miss, decay_p, stats):
+def _fused_step(ts, rs, rays, win, tmp, miss, decay_p, stats, primary):
     """One fused bounce over a wave (``_trace_sample_fused.step`` :448):
-    closest sweep, shade pass, shadow sweep (or its skip), accumulate pass.
+    closest sweep, shade pass, shadow sweep (or its skip), accumulate pass,
+    the sweeps by tier (:func:`_sweeps`; ``primary`` for the first bounce).
     ``rays``, ``tmp`` and ``miss`` are updated in place, ``win`` too: the
     arguments may be waves ``x[:, s:s+b]`` of the loop's buffers."""
+    closest, anyhit = _sweeps(ts, rs, rays.shape[1], primary)
     _count(stats, "closest_rays", win > 0.0)
-    st = _KERNELS["closest"](ts, rays, RAY_TMIN, make_trace_state(win))
+    st = closest(ts, rays, RAY_TMIN, make_trace_state(win))
     srays, swin, ab, lit, _, nwin, _ = _KERNELS["shade"](
         rays, st, miss, ts.light[:3], ts.light[3])
     occ = torch.zeros_like(lit)
     if _shadow_always(rs) or _any(lit != 0, stats):   # (:463-472)
         _count(stats, "shadow_rays", lit != 0)
-        _KERNELS["anyhit"](ts, srays, RAY_TMIN, swin, occ)
+        anyhit(ts, srays, RAY_TMIN, swin, occ)
     _KERNELS["accumulate"](occ, ab, lit, tmp, decay_p, ts.light[:3],
                            ts.light[3])
     win.copy_(nwin)
@@ -363,10 +437,10 @@ def _trace_sample_fused(ts: TorchScene, rs: RenderStatic, rays: torch.Tensor,
     if not budget:
         j = 0
         while j <= rs.max_bounce_count and _any(win > 0.0, stats):
-            _fused_step(ts, rs, rays, win, tmp, miss, decay_p, stats)
+            _fused_step(ts, rs, rays, win, tmp, miss, decay_p, stats, j == 0)
             j += 1
     else:
-        _fused_step(ts, rs, rays, win, tmp, miss, decay_p, stats)   # j = 0
+        _fused_step(ts, rs, rays, win, tmp, miss, decay_p, stats, True)  # j = 0
         j = 1
         plive = (win > 0.0).any(dim=1)
         order = torch.argsort((~plive).to(torch.int32), stable=True)
@@ -395,7 +469,7 @@ def _trace_sample_fused(ts: TorchScene, rs: RenderStatic, rays: torch.Tensor,
                 for s in range(0, ne, b):
                     _fused_step(ts, rs, rays[:, s:s + b], win[s:s + b],
                                 tmp[:, s:s + b], miss[s:s + b],
-                                decay_s[s:s + b], stats)
+                                decay_s[s:s + b], stats, False)
                 j += 1
                 ne = None
         rays = rays.index_select(1, inv)
@@ -417,10 +491,12 @@ def render_packets(ts: TorchScene, rs: RenderStatic, camera: torch.Tensor,
 
     ``rays6`` replaces the raygen: the packed (6, spp*P, K) primary rays of
     the folded wave (left unchanged). ``stats``, if a dict, receives device
-    counters of the rays traced (``closest_rays``, ``shadow_rays``) and the
-    host count ``host_syncs``."""
+    counters of the rays traced (``closest_rays``, ``shadow_rays``), the
+    host count ``host_syncs`` and the sweeps' ``tier`` (:func:`frame_tier`)."""
     p, k = px.shape
     spp = rs.samples_per_pixel
+    if stats is not None:
+        stats["tier"] = frame_tier(ts, p * spp)
     pxs = px.repeat_interleave(spp, dim=0)
     pys = py.repeat_interleave(spp, dim=0)
     act = active0.repeat_interleave(spp, dim=0)

@@ -1,0 +1,175 @@
+"""Per-lane sweeps: K1 and K2 of the JAX package's per-lane tier
+(counterpart of ``raytpu/ops/perlane.py:1633`` ``perlane_closest_sweep`` and
+``:1862`` ``perlane_anyhit_sweep``).
+
+They compute the chained sweeps' function (``ops/traverse.py``: the closest
+hit over every entry merged into the 9-plane state with strict
+``t < best_t``; occlusion within ``(tmin, tmax)`` OR-merged into ``occ``)
+and take the JAX tier's schedule, which decides exact ties:
+
+* per call, the prepass of ``ops/mega.py`` (:func:`block_stats`, K7, then
+  :func:`chunk_block_hits`) gives a block hit bitmask, each block's octant
+  and each entry's depth;
+* entries in stable depth order (closest) or ``order`` (shadow, default
+  ``"light"``, ``raytpu/integrator.py:129``);
+* a lane skips an entry whose bit for its block is 0;
+* inside an entry a lane walks near child first with its BLOCK's octant,
+  along the scene's ``oct_succ``/``oct_skip`` links (the TPU kernel's tie
+  order; a ray's own octant is a later option).
+
+The TPU kernel's treelet banks, quantized boxes, pair step and deferred-leaf
+queue are TPU scheduling that only add candidate tests; the CUDA kernels
+(``csrc/perlane.cu``) walk the f32 ``bvh_*`` nodes instead. The wrappers
+take a CPU tensor to the plain version, launch the kernel for a CUDA tensor
+(or raise), and raise unless the wave is whole blocks of ``BLOCK_PACKETS``.
+The prepass's tensors stay on the device; only the plain versions read them
+back.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raytpu_torch import _build
+from raytpu_torch.device_scene import TorchScene
+from raytpu_torch.ops.mega import (
+    BLOCK_PACKETS,
+    block_stats,
+    block_stats_ref,
+    check_blocks,
+    chunk_block_hits,
+    entry_perm,
+)
+from raytpu_torch.ops.traverse import ST_T, anyhit_ref, closest_ref, table_ptrs
+
+
+def prepass(ts: TorchScene, rays: torch.Tensor, window: torch.Tensor,
+            tmin: float, order: str, stats_fn=block_stats):
+    """The per-call schedule of a sweep: ``(bits, octs, entries)``, the
+    bitmask rows (E, ceil(PB/32)) int32 and the entry rows (E, 5) int32,
+    both in walk order, and the blocks' octants (PB,) int32. The "light"
+    order depends on the transforms only: it is the scene's
+    ``light_order``, computed once per transform update."""
+    bits, octs, depth = chunk_block_hits(ts, rays, window, tmin, stats_fn)
+    if order == "light":
+        perm, entries = ts.light_order
+    else:
+        perm = entry_perm(ts, depth, order)
+        entries = ts.entries.index_select(0, perm)
+    return bits.index_select(0, perm), octs, entries
+
+
+def _launch_operands(k: str, ts: TorchScene, rays, bits, octs, entries):
+    """The operands the two C entry points share after the per-call ones:
+    the lanes per block, the bitmask, octants and links, then the tables
+    with the entries in walk order."""
+    m = ts.bvh_aabb_min.shape[0]
+    c = _build.check_operand
+    i32 = torch.int32
+    return (
+        BLOCK_PACKETS * rays.shape[2],
+        c(k, "bits", bits, None, i32), bits.shape[1],
+        c(k, "octs", octs, (rays.shape[1] // BLOCK_PACKETS,), i32),
+        c(k, "oct_succ", ts.oct_succ, (8, m), i32),
+        c(k, "oct_skip", ts.oct_skip, (8, m), i32), m,
+        *table_ptrs(k, ts, entries),
+    )
+
+
+def perlane_closest_sweep(ts: TorchScene, rays: torch.Tensor, tmin: float,
+                          state: torch.Tensor) -> torch.Tensor:
+    """Closest hit of ``rays`` (6, P, K) over the entries in depth order,
+    culled by block and walked near child first, merged into ``state``
+    (9, P, K) in place; returns ``state``. CPU tensors take
+    :func:`perlane_closest_sweep_ref`; CUDA tensors launch K7 and
+    ``rt_perlane_closest_sweep``."""
+    if rays.device.type == "cpu":
+        return perlane_closest_sweep_ref(ts, rays, tmin, state)
+    check_blocks("perlane_closest_sweep", rays.shape[1])
+    return launch_closest(ts, rays, tmin, state,
+                          prepass(ts, rays, state[ST_T], tmin, "origin"))
+
+
+def launch_closest(ts: TorchScene, rays: torch.Tensor, tmin: float,
+                   state: torch.Tensor, schedule) -> torch.Tensor:
+    """K1 alone, on a :func:`prepass` ``schedule`` of these rays."""
+    k = "perlane_closest_sweep"
+    t = ts.bvh_tri_v0.shape[0]
+    _build.launch(
+        k,
+        *_build.check_planes(k, "rays", rays, (6, *rays.shape[1:])),
+        *_build.check_planes(k, "state", state, (9, *rays.shape[1:])),
+        rays[0].numel(), float(tmin),
+        *_launch_operands(k, ts, rays, *schedule),
+        _build.check_operand(k, "bvh_tri_n_soa", ts.bvh_tri_n_soa, (9, t)),
+        t,
+    )
+    return state
+
+
+def perlane_anyhit_sweep(ts: TorchScene, rays: torch.Tensor, tmin: float,
+                         tmax: torch.Tensor, occ: torch.Tensor,
+                         order: str = "light") -> torch.Tensor:
+    """Occlusion of ``rays`` (6, P, K) within ``(tmin, tmax)`` over the
+    entries in ``order``, culled by block, OR-merged into the int32 ``occ``
+    (P, K) in place; returns ``occ``. CPU tensors take
+    :func:`perlane_anyhit_sweep_ref`; CUDA tensors launch K7 and
+    ``rt_perlane_anyhit_sweep``."""
+    if rays.device.type == "cpu":
+        return perlane_anyhit_sweep_ref(ts, rays, tmin, tmax, occ, order)
+    check_blocks("perlane_anyhit_sweep", rays.shape[1])
+    return launch_anyhit(ts, rays, tmin, tmax, occ,
+                         prepass(ts, rays, tmax, tmin, order))
+
+
+def launch_anyhit(ts: TorchScene, rays: torch.Tensor, tmin: float,
+                  tmax: torch.Tensor, occ: torch.Tensor,
+                  schedule) -> torch.Tensor:
+    """K2 alone, on a :func:`prepass` ``schedule`` of these rays."""
+    k = "perlane_anyhit_sweep"
+    _build.launch(
+        k,
+        *_build.check_planes(k, "rays", rays, (6, *rays.shape[1:])),
+        _build.check_operand(k, "tmax", tmax, rays.shape[1:]),
+        _build.check_operand(k, "occ", occ, rays.shape[1:], torch.int32),
+        rays[0].numel(), float(tmin),
+        *_launch_operands(k, ts, rays, *schedule),
+    )
+    return occ
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _plain_schedule(ts: TorchScene, rays, window, tmin: float, order: str):
+    """The prepass through K7's plain version, as the plain walks take it:
+    entry rows in walk order, which lanes walk each row (E, P*K) bool, and
+    the links at each lane's block octant."""
+    p, k = rays.shape[1:]
+    check_blocks("per-lane sweep", p)
+    bits, octs, entries = prepass(ts, rays, window, tmin, order, block_stats_ref)
+    block = torch.arange(p * k, device=rays.device) // (BLOCK_PACKETS * k)
+    walks = ((bits[:, block >> 5].long() >> (block & 31)) & 1).bool()
+    base = octs.long()[block] * ts.oct_succ.shape[1]
+    links = (ts.oct_succ.reshape(-1), ts.oct_skip.reshape(-1), base)
+    return entries.cpu().tolist(), walks, links
+
+
+def perlane_closest_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
+                              state: torch.Tensor, slots=None,
+                              counts=None) -> torch.Tensor:
+    """Plain PyTorch :func:`perlane_closest_sweep`: the plain closest walk
+    (``ops/traverse.closest_ref``) with the per-lane schedule. ``slots``
+    and ``counts`` as for ``traverse.closest_sweep_ref``."""
+    rows, walks, links = _plain_schedule(ts, rays, state[ST_T], tmin, "origin")
+    return closest_ref(ts, rays, tmin, state, rows, walks, links, slots, counts)
+
+
+def perlane_anyhit_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
+                             tmax: torch.Tensor, occ: torch.Tensor,
+                             order: str = "light",
+                             counts=None) -> torch.Tensor:
+    """Plain PyTorch :func:`perlane_anyhit_sweep`."""
+    rows, walks, links = _plain_schedule(ts, rays, tmax, tmin, order)
+    return anyhit_ref(ts, rays, tmin, tmax, occ, rows, walks, links, counts)

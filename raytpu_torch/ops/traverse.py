@@ -58,16 +58,19 @@ def unpack_state(state: torch.Tensor):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _table_ptrs(kernel: str, ts: TorchScene):
-    """Validated device pointers of the entry table and BVH arrays, in the
-    order the C entry points take them (after the per-call operands)."""
+def table_ptrs(kernel: str, ts: TorchScene, entries=None):
+    """Validated device pointers of the entry table (``entries``, if given,
+    in place of ``ts.entries``: the rows in another walk order) and BVH
+    arrays, in the order the C entry points take them (after the per-call
+    operands)."""
     m = ts.bvh_aabb_min.shape[0]
     t = ts.bvh_tri_v0.shape[0]
-    e = ts.entries.shape[0]
+    entries = ts.entries if entries is None else entries
+    e = entries.shape[0]
     c = _build.check_operand
     i32 = torch.int32
     return (
-        c(kernel, "entries", ts.entries, (e, 5), i32), e,
+        c(kernel, "entries", entries, (e, 5), i32), e,
         c(kernel, "w2o", ts.w2o, (ts.w2o.shape[0], 3, 4)),
         c(kernel, "bvh_aabb_min", ts.bvh_aabb_min, (m, 3)),
         c(kernel, "bvh_aabb_max", ts.bvh_aabb_max, (m, 3)),
@@ -94,7 +97,7 @@ def closest_sweep(ts: TorchScene, rays: torch.Tensor, tmin: float,
         k,
         *_build.check_planes(k, "rays", rays, (6, *rays.shape[1:])),
         *_build.check_planes(k, "state", state, (9, *rays.shape[1:])),
-        n, float(tmin), *_table_ptrs(k, ts),
+        n, float(tmin), *table_ptrs(k, ts),
         _build.check_operand(k, "bvh_tri_n_soa", ts.bvh_tri_n_soa, (9, t)),
         t,
     )
@@ -116,7 +119,7 @@ def anyhit_sweep(ts: TorchScene, rays: torch.Tensor, tmin: float,
         *_build.check_planes(k, "rays", rays, (6, *rays.shape[1:])),
         _build.check_operand(k, "tmax", tmax, rays.shape[1:]),
         _build.check_operand(k, "occ", occ, rays.shape[1:], torch.int32),
-        n, float(tmin), *_table_ptrs(k, ts),
+        n, float(tmin), *table_ptrs(k, ts),
     )
     return occ
 
@@ -146,16 +149,52 @@ def _object_rays(ts: TorchScene, inst: int, ow, dw):
     return m, o, d, tuple(safe_inverse(x) for x in d)
 
 
+# bytes of one row of each table a walk reads, for the rows hook of
+# :func:`_walk` ("triangle": the v0, e1, e2 rows of one slot)
+ROW_BYTES = {"bvh_tri_first": 4, "bvh_tri_count": 4, "bvh_aabb": 24,
+             "bvh_miss": 4, "oct_succ": 4, "oct_skip": 4, "triangle": 36,
+             "bvh_tri_n_soa": 36}
+
+
+def _read_rows(counts, table: str, rows: torch.Tensor, n_rows: int) -> None:
+    """Mark ``rows`` of ``table`` (``n_rows`` rows) as read, if ``counts``
+    has the ``rows`` dict of :func:`_walk`."""
+    seen = None if counts is None else counts.get("rows")
+    if seen is None:
+        return
+    if table not in seen:
+        seen[table] = torch.zeros(n_rows, dtype=torch.bool, device=rows.device)
+    seen[table][rows] = True
+
+
+def rows_bytes(counts) -> int:
+    """The bytes of the distinct table rows a walk read (each row once),
+    from the ``rows`` dict of its ``counts``."""
+    return sum(int(seen.sum()) * ROW_BYTES[table]
+               for table, seen in counts["rows"].items())
+
+
 def _walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
-          tmin: float, window: torch.Tensor, on_hit, counts=None) -> None:
+          tmin: float, window: torch.Tensor, on_hit, counts=None,
+          links=None) -> None:
     """Lock-step skip-link walk of one entry's tree for all lanes of ``o``
     (component tuples of (L,) tensors). ``window`` (L,) is the open upper
     bound, updated in place by ``on_hit(lanes, slot, t, u, v, hit)``, which
     also decides whether a lane keeps walking (it returns the lanes that
     stop). A lane's visits and tests happen in the order the CUDA thread
     makes them, so ``counts``, if a dict, receives the kernel's work too:
-    node visits (``nodes``) and Moller-Trumbore tests (``tests``)."""
+    node visits (``nodes``) and Moller-Trumbore tests (``tests``). If it
+    holds a dict ``rows``, that receives, per table, a bool mask of the rows
+    the kernel reads (:data:`ROW_BYTES`; :func:`rows_bytes` sums them).
+
+    Without ``links`` the walk takes build order: an inner node's box hit
+    continues at ``node + 1``, a miss or a finished leaf at ``bvh_miss``.
+    With ``links = (succ, skip, base)`` it takes flat per-octant tables
+    (``ops/mega.octant_links``) at each lane's offset ``base`` (L,): a hit
+    continues at ``succ[base + g]``, a miss or a leaf at ``skip[base + g]``
+    (``g`` the node's row in the concatenated tables)."""
     dev = window.device
+    m = ts.bvh_tri_first.shape[0]
     lanes = torch.arange(window.shape[0], device=dev)
     node = torch.zeros_like(lanes)
     while lanes.numel():
@@ -163,9 +202,13 @@ def _walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
             counts["nodes"] = counts.get("nodes", 0) + lanes.numel()
         g = node + nb
         first = ts.bvh_tri_first[g].long()
-        miss = ts.bvh_miss[g].long()
+        if links is None:
+            skip = ts.bvh_miss[g].long()
+        else:
+            at = links[2][lanes] + g
+            skip = links[1][at].long()
         leaf = first >= 0
-        nxt = miss.clone()
+        nxt = skip.clone()
 
         inner = ~leaf
         if bool(inner.any()):
@@ -176,7 +219,19 @@ def _walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
                 tuple(ts.bvh_aabb_max[gi, a] for a in range(3)),
                 tmin, window[li],
             )
-            nxt[inner] = torch.where(box, node[inner] + 1, miss[inner])
+            succ = node[inner] + 1 if links is None else links[0][at[inner]].long()
+            nxt[inner] = torch.where(box, succ, skip[inner])
+
+        if counts is not None and "rows" in counts:
+            descend = nxt != skip       # lanes that took the succ link
+            _read_rows(counts, "bvh_tri_first", g, m)
+            _read_rows(counts, "bvh_aabb", g[inner], m)
+            _read_rows(counts, "bvh_tri_count", g[leaf], m)
+            if links is None:
+                _read_rows(counts, "bvh_miss", g[~descend], m)
+            else:
+                _read_rows(counts, "oct_skip", at[~descend], links[1].numel())
+                _read_rows(counts, "oct_succ", at[descend], links[0].numel())
 
         stop = torch.zeros_like(leaf)
         if bool(leaf.any()):
@@ -189,6 +244,7 @@ def _walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
                 kl, s = ll[sel], tb + f[sel] + k
                 if counts is not None:
                     counts["tests"] = counts.get("tests", 0) + kl.numel()
+                    _read_rows(counts, "triangle", s, ts.bvh_tri_v0.shape[0])
                 tri = (ts.bvh_tri_v0[s], ts.bvh_tri_e1[s], ts.bvh_tri_e2[s])
                 t, u, v, hit = moller_trumbore(
                     tuple(x[kl] for x in o), tuple(x[kl] for x in d),
@@ -202,14 +258,15 @@ def _walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
         lanes, node = lanes[keep], node[keep]
 
 
-def closest_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
-                      state: torch.Tensor, slots=None,
-                      counts=None) -> torch.Tensor:
-    """Plain PyTorch :func:`closest_sweep` (same function, same tables,
-    same operation order as ``rt_closest_sweep``). If given, ``slots``
-    (P, K) int64 receives each improved lane's BVH slot, the triangle that
-    won (for comparisons with the JAX walks, which report prims), and
-    ``counts`` the walk's node visits and triangle tests (:func:`_walk`)."""
+def closest_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
+                state: torch.Tensor, rows, walks=None, links=None,
+                slots=None, counts=None) -> torch.Tensor:
+    """The plain closest sweep over the entry ``rows`` (inst, mat,
+    node_base, node_count, tri_base) in walk order. ``walks`` (E, P*K)
+    bool, if given, says which lanes walk which row (others skip it);
+    ``links`` (succ, skip, base) with ``base`` (P*K,) per lane, if given,
+    replace build order (:func:`_walk`). ``slots`` and ``counts`` as for
+    :func:`closest_sweep_ref`."""
     flat = state.reshape(9, -1)  # a copy if state is a strided wave
     rflat = rays.reshape(6, -1)
     live = (flat[ST_T] > tmin).nonzero().squeeze(1)
@@ -225,27 +282,37 @@ def closest_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
     res_f = torch.zeros((5, n_lane), dtype=torch.float32, device=dev)  # n, u, v
     res_s = torch.zeros(n_lane, dtype=torch.long, device=dev)  # winning slot
     n_soa = ts.bvh_tri_n_soa
+    every = torch.arange(n_lane, device=dev)
 
-    for inst, mat, nb, nc, tb in _entry_rows(ts):
-        m, o, d, d_inv = _object_rays(ts, inst, ow, dw)
-        bs = torch.full((n_lane,), -1, dtype=torch.long, device=dev)
-        bu = torch.zeros(n_lane, dtype=torch.float32, device=dev)
+    for e, (inst, mat, nb, nc, tb) in enumerate(rows):
+        sub = every if walks is None else walks[e, live].nonzero().squeeze(1)
+        if sub.numel() == 0:
+            continue
+        m, o, d, d_inv = _object_rays(ts, inst, tuple(x[sub] for x in ow),
+                                      tuple(x[sub] for x in dw))
+        win = bt[sub]
+        bs = torch.full(sub.shape, -1, dtype=torch.long, device=dev)
+        bu = torch.zeros(sub.shape, dtype=torch.float32, device=dev)
         bv = torch.zeros_like(bu)
 
         def on_hit(kl, s, t, u, v, hit):
             h = kl[hit]
-            bt[h] = t[hit]
+            win[h] = t[hit]
             bs[h] = s[hit]
             bu[h] = u[hit]
             bv[h] = v[hit]
             return torch.zeros_like(hit)
 
-        _walk(ts, nb, nc, tb, o, d, d_inv, tmin, bt, on_hit, counts)
+        _walk(ts, nb, nc, tb, o, d, d_inv, tmin, win, on_hit, counts,
+              None if links is None else (*links[:2], links[2][live[sub]]))
+        bt[sub] = win
 
-        w_ = (bs >= 0).nonzero().squeeze(1)
-        if w_.numel() == 0:
+        won = (bs >= 0).nonzero().squeeze(1)
+        if won.numel() == 0:
             continue
-        s, u, v = bs[w_], bu[w_], bv[w_]
+        w_ = sub[won]
+        s, u, v = bs[won], bu[won], bv[won]
+        _read_rows(counts, "bvh_tri_n_soa", s, n_soa.shape[1])
         w = 1.0 - u - v
         no = [w * n_soa[c, s] + u * n_soa[3 + c, s] + v * n_soa[6 + c, s]
               for c in range(3)]
@@ -273,19 +340,20 @@ def closest_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
     return state
 
 
-def anyhit_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
-                     tmax: torch.Tensor, occ: torch.Tensor,
-                     counts=None) -> torch.Tensor:
-    """Plain PyTorch :func:`anyhit_sweep`: a lane stops at its first hit
-    and skips the remaining entries. ``counts`` as for
-    :func:`closest_sweep_ref`."""
+def anyhit_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
+               tmax: torch.Tensor, occ: torch.Tensor, rows, walks=None,
+               links=None, counts=None) -> torch.Tensor:
+    """The plain shadow sweep over the entry ``rows`` in walk order; a lane
+    stops at its first hit and skips the remaining rows. ``walks`` and
+    ``links`` as for :func:`closest_ref`."""
     oflat = occ.reshape(-1)
     tflat = tmax.reshape(-1)
     rflat = rays.reshape(6, -1)
-    lanes = ((oflat == 0) & (tflat > tmin)).nonzero().squeeze(1)
-    for inst, _mat, nb, nc, tb in _entry_rows(ts):
+    pending = (oflat == 0) & (tflat > tmin)
+    for e, (inst, _mat, nb, nc, tb) in enumerate(rows):
+        lanes = (pending if walks is None else pending & walks[e]).nonzero().squeeze(1)
         if lanes.numel() == 0:
-            break
+            continue
         ow = tuple(rflat[c, lanes] for c in range(3))
         dw = tuple(rflat[3 + c, lanes] for c in range(3))
         _, o, d, d_inv = _object_rays(ts, inst, ow, dw)
@@ -297,7 +365,31 @@ def anyhit_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
             return hit
 
         _walk(ts, nb, nc, tb, o, d, d_inv, tmin, tflat[lanes].clone(), on_hit,
-              counts)
+              counts, None if links is None else (*links[:2], links[2][lanes]))
         oflat[lanes[found]] = 1
-        lanes = lanes[~found]
+        pending[lanes[found]] = False
+    if oflat.data_ptr() != occ.data_ptr():
+        occ.copy_(oflat.view(occ.shape))
     return occ
+
+
+def closest_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
+                      state: torch.Tensor, slots=None,
+                      counts=None) -> torch.Tensor:
+    """Plain PyTorch :func:`closest_sweep` (same function, same tables,
+    same operation order as ``rt_closest_sweep``). If given, ``slots``
+    (P, K) int64 receives each improved lane's BVH slot, the triangle that
+    won (for comparisons with the JAX walks, which report prims), and
+    ``counts`` the walk's node visits and triangle tests (:func:`_walk`)."""
+    return closest_ref(ts, rays, tmin, state, _entry_rows(ts), slots=slots,
+                       counts=counts)
+
+
+def anyhit_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
+                     tmax: torch.Tensor, occ: torch.Tensor,
+                     counts=None) -> torch.Tensor:
+    """Plain PyTorch :func:`anyhit_sweep`: a lane stops at its first hit
+    and skips the remaining entries. ``counts`` as for
+    :func:`closest_sweep_ref`."""
+    return anyhit_ref(ts, rays, tmin, tmax, occ, _entry_rows(ts),
+                      counts=counts)

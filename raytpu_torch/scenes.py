@@ -10,6 +10,8 @@ through the fused, compacted bounce loop.
 * :func:`two_box_scene`: the two boxes of ``__graft_entry__.py:20-69``;
 * :func:`mixed_scene`: mirror ``spin``, diffuse ``static`` and refractive
   ``orbit`` instances, so every material and sky misses occur;
+* :func:`tie_scene`: two coincident boxes of different materials, where
+  any difference in how two traversal tiers break exact ties shows;
 * :func:`config4_standin` / :func:`reference_standin`: the shapes of the
   JAX presets ``config4`` and ``reference`` (``raytpu/presets.py:67,121``)
   without their files: ``generate_highpoly(depth=4)``, scaled to the
@@ -106,6 +108,26 @@ def mixed_scene(width=64, height=48, spp=1, bounces=3, depth=2,
         generate_highpoly(depth=depth, radius=2.0, name="blob"),
     ]
     return load_scene(cfg, meshes=meshes, skybox=procedural_skybox(sky_size))
+
+
+def tie_scene(width=128, height=96, **config) -> Scene:
+    """The JAX bench's tie-prone scene (``raytpu/bench.py:366``
+    ``tie_scene_config``) without its files: two ``static`` instances of
+    the same box at the identity, mirror and diffuse, so that every
+    triangle is hit at exactly the same t through two entries, at spp 2
+    and 2 bounces in front of the generated sky. Tiers that break the tie
+    differently render different pixels. ``config`` overrides RenderConfig
+    fields."""
+    cfg = RenderConfig(
+        objects=(
+            ObjectConfig("box_a", MaterialType.MIRROR, "static"),
+            ObjectConfig("box_b", MaterialType.DIFFUSE, "static"),
+        ),
+        width=width, height=height, samples_per_pixel=2, max_bounce_count=2,
+    ).replace(**config)
+    return load_scene(cfg, meshes=[box_mesh((0, 0, 0), 1.0),
+                                   box_mesh((0, 0, 0), 1.0)],
+                      skybox=procedural_skybox(16))
 
 
 def _standin(width, height, bounces) -> Scene:

@@ -6,13 +6,15 @@ machine with the card and no JAX (the conftest imports JAX unless
     RAYTPU_TEST_TPU=1 python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from raytpu_torch import _build, scenes
 from raytpu_torch.integrator import plain_kernels, render_frame
-from raytpu_torch.ops import epilogue, raygen, sky, traverse
+from raytpu_torch.ops import epilogue, mega, perlane, raygen, sky, traverse
 from raytpu_torch.render import Renderer
 
 pytestmark = pytest.mark.cuda
@@ -76,15 +78,28 @@ def test_raygen_and_sky(rig):
 
 
 def test_frame_goes_through_kernels(rig):
+    """The chained-tier frame (auto -> mega on this scene) and the per-lane
+    frame together launch every kernel, each tier its own sweeps, and
+    render the same pixels."""
     r, _ = rig
-    _build.reset_launch_counts()
-    img = r.render()
-    counts = _build.launch_counts()
-    assert all(counts[k] > 0 for k in _build.KERNELS), counts
+    assert r.tscene.auto_tier == "mega"
+    ts_pl = dataclasses.replace(r.tscene, traversal="perlane")
+    counts, imgs = {}, {}
+    for name, ts in (("pallas", r.tscene), ("perlane", ts_pl)):
+        _build.reset_launch_counts()
+        imgs[name] = render_frame(ts, r.render_static, r.camera_tensor())
+        counts[name] = _build.launch_counts()
+    per_lane = ("block_stats", "perlane_closest_sweep", "perlane_anyhit_sweep")
+    chained = ("closest_sweep", "anyhit_sweep")
+    assert all(counts["pallas"][k] == 0 for k in per_lane), counts
+    assert all(counts["perlane"][k] == 0 for k in chained), counts
+    assert all(counts["pallas"][k] + counts["perlane"][k] > 0
+               for k in _build.KERNELS), counts
+    assert torch.equal(imgs["pallas"], imgs["perlane"])
     with plain_kernels():
-        plain = render_frame(r.tscene, r.render_static, r.camera_tensor())
-    assert torch.isfinite(img).all()
-    assert (img - plain).abs().max() <= 1e-2  # raygen sinf ulps move jitter
+        plain = render_frame(ts_pl, r.render_static, r.camera_tensor())
+    assert torch.isfinite(imgs["perlane"]).all()
+    assert (imgs["perlane"] - plain).abs().max() <= 1e-2  # raygen sinf ulps
 
 
 def _wave_inputs(r, rays, p0, b):
@@ -130,6 +145,53 @@ def test_epilogue_kernels_match_plain(rig, strided):
         tmps.append(tmp)
     assert _ulps(*tmps) <= 2
     assert (tmps[0] != 1.0).any()
+
+
+@pytest.mark.parametrize("strided", [False, True])
+def test_block_stats_kernel_exact(rig, strided):
+    """K7 against its plain version, on a whole buffer and on a wave of
+    it whose planes lie apart."""
+    _, rays = rig
+    p0, b = (8, 8) if strided else (0, rays.shape[1])
+    wave = rays[:, p0:p0 + b]
+    assert wave.is_contiguous() != strided
+    win = torch.full(wave.shape[1:], 1e4, device="cuda")
+    win.view(-1)[::3] = 0.0
+    win[:, :17] = 0.0
+    got = mega.block_stats(wave, win, 1e-3)
+    want = mega.block_stats_ref(wave, win, 1e-3)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    dead = mega.block_stats(wave, torch.zeros_like(win), 1e-3)
+    assert (dead[:, 16] == 0).all() and (dead[:, :3] == 3e38).all()
+
+
+@pytest.mark.parametrize("strided", [False, True])
+def test_perlane_sweeps_bitwise(rig, strided):
+    """K1/K2 against their plain versions and against K10a/K10b, bit for
+    bit, on a whole buffer and on a strided wave."""
+    r, rays = rig
+    ts = r.tscene
+    p0, b = (8, 8) if strided else (0, rays.shape[1])
+    wave = rays[:, p0:p0 + b]
+    win = torch.full(wave.shape[1:], 1e4, device="cuda")
+    win.view(-1)[::5] = 0.0
+    st = traverse.make_trace_state(win)
+    got = perlane.perlane_closest_sweep(ts, wave, 1e-3, st.clone())
+    for want in (perlane.perlane_closest_sweep_ref(ts, wave, 1e-3, st.clone()),
+                 traverse.closest_sweep(ts, wave, 1e-3, st.clone())):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (got[traverse.ST_VALID].view(torch.int32) != 0).float().mean() > 0.2
+
+    tmax = win * 0.002
+    occ = torch.zeros(wave.shape[1:], dtype=torch.int32, device="cuda")
+    want = traverse.anyhit_sweep(ts, wave, 1e-3, tmax, occ.clone())
+    assert (want != 0).any()
+    for order in ("light", "origin"):
+        got = perlane.perlane_anyhit_sweep(ts, wave, 1e-3, tmax, occ.clone(),
+                                           order)
+        plain = perlane.perlane_anyhit_sweep_ref(ts, wave, 1e-3, tmax,
+                                                 occ.clone(), order)
+        assert torch.equal(got, plain) and torch.equal(got, want)
 
 
 def _ulps(a, b):

@@ -18,8 +18,10 @@ Both packages render one host scene (``tests/torch_twin.py``).
     64x48 wave), which would move every jitter sample.
 (b) End to end: the port's ``Renderer.render_np()`` against raytpu's
     ``Renderer`` frame, SSIM > 0.98 (the goldens' bar).
-(c) The kernel tier: (a) at 32x32 against raytpu with ``traversal="pallas"``
-    (the chained Pallas kernels, interpret mode).
+(c) The kernel tiers: (a) at 32x32 against raytpu with ``traversal="pallas"``
+    (the chained Pallas kernels, interpret mode) and ``"perlane"`` (the
+    port's per-lane sweeps; raytpu's per-lane kernels run only on a TPU,
+    so off it raytpu renders the same function through its chained tier).
 
 Tolerances. XLA:CPU contracts ``a*b + c`` into fused multiply-adds; the
 port rounds every operation. The hits agree, but t differs by a few ulps
@@ -54,6 +56,7 @@ from raytpu_torch.device_scene import from_raytpu
 from raytpu_torch.integrator import (
     RenderStatic,
     detile,
+    frame_tier,
     render_packets,
     tiled_pixels,
 )
@@ -77,11 +80,12 @@ def _jax_frame(scene, static, rs, o, d, s_idx, act):
 
 
 def _same_rays_frames(width, height, spp, bounces, scene_fn=scenes.mixed_scene,
-                      short_cap=None, eager=False, **cfg):
+                      short_cap=None, eager=False, tier=None, **cfg):
     """(port frame, raytpu frame) from the same primary rays, the port's
     through its default fused loop; with ``short_cap``, also the port's
     frame at that bounce cap; with ``eager``, also the port's frame through
-    its eager ``fused="off"`` body."""
+    its eager ``fused="off"`` body. ``tier``, if given, is the port's
+    expected ``frame_tier``."""
     jscene, scene = twin(scene_fn(width, height, spp, bounces, **cfg))
     jr = JaxRenderer(jscene)
     jr.set_transforms(T_ANIM)
@@ -107,6 +111,7 @@ def _same_rays_frames(width, height, spp, bounces, scene_fn=scenes.mixed_scene,
                                  s_idx, act))
 
     ts = from_raytpu(jr.device_scene, jr.static, "cpu")
+    assert tier is None or frame_tier(ts, n_pk * spp) == tier
     rs = RenderStatic.from_config(scene.config)
     (tpx, tpy), t_in = tiled_pixels(rs, "cpu")
     tpx, tpy, t_in = tpx[:n_pk], tpy[:n_pk], t_in[:n_pk]
@@ -153,9 +158,10 @@ def test_renderer_frame_ssim_against_raytpu():
     assert ssim(got, want) > 0.98
 
 
-def test_kernel_tier_frame_matches():
+@pytest.mark.parametrize("traversal", ["pallas", "perlane"])
+def test_kernel_tier_frame_matches(traversal):
     got, want = _same_rays_frames(32, 32, 1, 2, scene_fn=scenes.two_box_scene,
-                                  traversal="pallas")
+                                  tier=traversal, traversal=traversal)
     assert want.std() > 0.05
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 

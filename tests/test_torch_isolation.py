@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from raytpu_torch import _build, scenes
-from raytpu_torch.ops import epilogue, raygen, sky, traverse
+from raytpu_torch.ops import epilogue, mega, perlane, raygen, sky, traverse
 from raytpu_torch.render import Renderer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -40,7 +40,7 @@ def test_port_never_imports_jax():
         "mods = [m.name for m in pkgutil.walk_packages("
         "raytpu_torch.__path__, 'raytpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 22, mods\n"
+        "assert len(mods) >= 24, mods\n"
     )
 
 
@@ -112,6 +112,20 @@ def test_cpu_wrappers_take_plain_path(small):
     epilogue.accumulate_epilogue_ref(occ0, ab, lit, tmps[1], decay, light[:3], light[3])
     assert torch.equal(*tmps)
 
+    # the per-lane tier's wrappers, on whole blocks of 8 packets
+    prays = rays.repeat(1, 4, 1)
+    pwin = torch.full(prays.shape[1:], 1e4)
+    assert torch.equal(mega.block_stats(prays, pwin, 1e-3),
+                       mega.block_stats_ref(prays, pwin, 1e-3))
+    pst = traverse.make_trace_state(pwin)
+    got = perlane.perlane_closest_sweep(ts, prays, 1e-3, pst.clone())
+    want = perlane.perlane_closest_sweep_ref(ts, prays, 1e-3, pst.clone())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    pocc = torch.zeros(prays.shape[1:], dtype=torch.int32)
+    assert torch.equal(
+        perlane.perlane_anyhit_sweep(ts, prays, 1e-3, pwin, pocc.clone()),
+        perlane.perlane_anyhit_sweep_ref(ts, prays, 1e-3, pwin, pocc.clone()))
+
     img = r.render_np()
     assert np.isfinite(img).all()
     assert _build.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
@@ -144,6 +158,16 @@ def test_non_cpu_tensor_needs_cuda(small):
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         epilogue.accumulate_epilogue(miss, ab, miss, state[:3], px[:, 0],
                                      (5.0, 5.0, 5.0), 1.0)
+    prays = meta_rays.repeat(1, 4, 1)
+    pwin = torch.zeros(prays.shape[1:], device="meta")
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        mega.block_stats(prays, pwin, 1e-3)
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        perlane.perlane_closest_sweep(r.tscene, prays, 1e-3,
+                                      state.repeat(1, 4, 1))
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        perlane.perlane_anyhit_sweep(r.tscene, prays, 1e-3, pwin,
+                                     pwin.to(torch.int32))
     assert _build.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
 
 
@@ -177,7 +201,8 @@ def test_unported_config_values_raise():
     RenderStatic(32, 32, 2, 1, wavefront="full", fused="off")
     with pytest.raises(ValueError, match="compact"):
         RenderStatic(32, 32, 2, 1, wavefront="compact", fused="off")
-    for bad in (dict(fused="auto"), dict(ladder="on")):
+    for bad in (dict(fused="auto"), dict(ladder="on"),
+                dict(shadow_order="far")):
         with pytest.raises(ValueError):
             RenderStatic(32, 32, 2, 1, **bad)
 

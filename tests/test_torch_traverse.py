@@ -8,6 +8,12 @@ raytpu's own chunked ``bvh_*`` arrays (``from_raytpu``), on 8 packets x
 * the hit triangle against ``trace.closest_hit`` (``bvh_closest``): exact;
 * ``anyhit_sweep_ref`` flags against ``pallas_anyhit_chain``: exact.
 
+The per-lane tier's plain sweeps (``perlane_closest_sweep_ref``,
+``perlane_anyhit_sweep_ref``: K1 and K2's function, culled by block,
+entries reordered, walks near child first) are held to the same bars as
+further cases: the per-lane Pallas kernels run only on a TPU, where
+``raytpu.bench.bit_identity_check`` holds them to this same chain.
+
 The chains call raytpu's kernels ``_closest_kernel3``/``_anyhit_kernel3``
 through the ``pallas_call`` of ``pallas_*_chain`` with each entry's tables
 (``_mesh_tables``) passed as operands rather than closed over, so that one
@@ -42,7 +48,7 @@ from raytpu.ops import traverse_pallas as tp
 from raytpu.render import Renderer as JaxRenderer
 from raytpu_torch import scenes
 from raytpu_torch.device_scene import from_raytpu
-from raytpu_torch.ops import traverse
+from raytpu_torch.ops import perlane, traverse
 from tests.torch_twin import raytpu_twin
 
 P, K = 8, tp.PACKET_K
@@ -184,12 +190,19 @@ def _within_ulps(a, b, n):
     return np.abs(a - b) <= tol
 
 
-def test_closest_ref_matches_pallas_chain_and_bvh_closest(rig):
+CLOSEST = {"chained": traverse.closest_sweep_ref,
+           "perlane": perlane.perlane_closest_sweep_ref}
+ANYHIT = {"chained": traverse.anyhit_sweep_ref,
+          "perlane": perlane.perlane_anyhit_sweep_ref}
+
+
+@pytest.mark.parametrize("sweep", ["chained", "perlane"])
+def test_closest_ref_matches_pallas_chain_and_bvh_closest(rig, sweep):
     ts, jax_side = rig
     rays, win, _ = _inputs()
 
     slots = torch.full((P, K), -1, dtype=torch.long)
-    got = traverse.closest_sweep_ref(
+    got = CLOSEST[sweep](
         ts, torch.from_numpy(rays), TMIN,
         traverse.make_trace_state(torch.from_numpy(win)), slots).numpy()
     want = jax_side["state"]
@@ -213,10 +226,11 @@ def test_closest_ref_matches_pallas_chain_and_bvh_closest(rig):
         np.where(hit, gi[traverse.ST_INST], -1).ravel(), jax_side["inst"])
 
 
-def test_anyhit_ref_matches_pallas_chain(rig):
+@pytest.mark.parametrize("sweep", ["chained", "perlane"])
+def test_anyhit_ref_matches_pallas_chain(rig, sweep):
     ts, jax_side = rig
     rays, _, tmax = _inputs()
-    got = traverse.anyhit_sweep_ref(
+    got = ANYHIT[sweep](
         ts, torch.from_numpy(rays), TMIN, torch.from_numpy(tmax),
         torch.zeros((P, K), dtype=torch.int32)).numpy()
     want = jax_side["occ"]
