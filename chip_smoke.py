@@ -5,11 +5,12 @@
     python3 chip_smoke.py --profile DIR  # profiler tables into DIR
                                          # (default build/profile/)
 
-Builds the nine hand-written CUDA kernels from ``raytpu_torch/csrc`` and
+Builds the eleven hand-written CUDA kernels from ``raytpu_torch/csrc`` and
 the BVHs, holds every kernel against its plain PyTorch version on the card
-at the main path's shapes (and the per-lane sweeps K1/K2 against the
-chained sweeps K10a/K10b, bit for bit), then renders through ``Renderer``
-on the default fused and compacted bounce loop:
+at the main path's shapes (and the per-lane sweeps K1/K2 and the consensus
+sweeps K8/K9 against the chained sweeps K10a/K10b, bit for bit), then
+renders through ``Renderer`` on the default fused and compacted bounce
+loop:
 
 * the config4 stand-in (1920x1080, 4 spp, 3 bounces, 327,680-triangle
   orbiting mesh) on its default tier, per-lane (``traversal="auto"``
@@ -23,20 +24,29 @@ on the default fused and compacted bounce loop:
 * two config4 frames through the eager ``fused="off"`` body and two
   through the fused loop at full width (no compaction);
 * the reference-default stand-in (800x600, 4 spp, 63 bounces), per-lane;
+* the config3 and config2 stand-ins (1280x720, 4 spp, 3 bounces,
+  refractive Cornell-box mesh; 800x600, 4 spp, 2 bounces, mirror teapot
+  stand-in), whose ``traversal="auto"`` resolves to the consensus tier:
+  first K8/K9 on the primary wave (against their plain versions on a
+  slice, against K1/K2 and K10a/K10b on the whole wave, only proven exact
+  ties may differ, and timed beside them), then 5 frames that must launch
+  K7/K8/K9 and not K1/K2/K10a/K10b, the same frames on the pallas tier
+  (same rays, equal pixels), and one profiled frame of each tier;
 * at 256x192 (P = 256, budget 64, so compaction engages): the compacted
-  frame against the full-width fused frame and the chained tier's frame
-  (bit for bit), the eager frame from the same rays, and the plain path
-  (SSIM, and max abs diff from the same primary rays);
+  frame against the full-width fused frame and the chained and consensus
+  tiers' frames (bit for bit), the eager frame from the same rays, and the
+  plain path (SSIM, and max abs diff from the same primary rays);
 * the tie scene (two coincident boxes of different materials) through
-  both tiers: no pixel may differ.
+  every tier: no pixel may differ.
 
 Any failed check raises and exits non-zero. It imports nothing of JAX or
 raytpu.
 
 The last three lines: the frames and checks as one JSON object, the
 per-kernel JSON line (launches counted during the frames of the path that
-runs the kernel: the default config4 frames, or the ``traversal="pallas"``
-ones for K10a/K10b; errors against the plain versions, times, bounds), and
+runs the kernel: the default config4 frames, the default config3 frames
+for K8/K9, or the config4 ``traversal="pallas"`` ones for K10a/K10b;
+errors against the plain versions, times, bounds), and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -70,9 +80,14 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                               "raytpu/ops/perlane.py:1490"),
     "perlane_anyhit_sweep": ("raytpu_torch/csrc/perlane.cu",
                              "raytpu/ops/perlane.py:1720"),
+    "mega_closest_sweep": ("raytpu_torch/csrc/consensus.cu",
+                           "raytpu/ops/mega.py:719"),
+    "mega_anyhit_sweep": ("raytpu_torch/csrc/consensus.cu",
+                          "raytpu/ops/mega.py:1090"),
 }
 CHAINED = ("closest_sweep", "anyhit_sweep")          # traversal="pallas"
 PER_LANE = ("block_stats", "perlane_closest_sweep", "perlane_anyhit_sweep")
+CONSENSUS = ("mega_closest_sweep", "mega_anyhit_sweep")  # after K7 ("mega")
 SWEEP_PACKETS = 256
 # Lanes (packet, lane) of the config4 stand-in's primary wave
 # (set_transforms(0.05), the raygen kernel's rays) where K1 and K10a keep two
@@ -80,6 +95,16 @@ SWEEP_PACKETS = 256
 # tie that the walk order breaks (ROADMAP queue 3). The full-wave comparison
 # allows exactly these lanes, each shown to be a tie by exact_ties().
 EXACT_TIES = [(3983, 110)]
+# The same for K8 against K1 and against K10a on the primary waves of the
+# config3 and config2 stand-ins (their fixed pose): on config3, four rays
+# that meet an edge where two walls of the room join (prims 5 and 9, 1 and
+# 8, 2 and 9) hit both walls' triangles at the same t; K8 and K1 keep the
+# one their octant's order reaches first, K10a the one build order does.
+CONSENSUS_TIES = {
+    "config3_standin": {"K1": [], "K10a": [(1037, 582), (1067, 582),
+                                          (1560, 32), (1803, 480)]},
+    "config2_standin": {"K1": [], "K10a": []},
+}
 RAYGEN_DIR_TOL = 1e-5  # kernel vs plain raygen, same f32 ops on one card
 EPILOGUE_ULPS = 2      # shade/accumulate kernel vs plain version, f32 ulps
 
@@ -111,7 +136,7 @@ def import_port():
         sys.path.insert(0, str(REPO))
     import torch  # noqa: F401
     from raytpu_torch import _build, config, integrator, render, scene, scenes  # noqa: F401
-    from raytpu_torch.ops import epilogue, mega, perlane, raygen, sky, traverse, vec3  # noqa: F401
+    from raytpu_torch.ops import consensus, epilogue, mega, perlane, raygen, sky, traverse, vec3  # noqa: F401
     from raytpu_torch.utils import ssim  # noqa: F401
 
 
@@ -163,15 +188,25 @@ def differing_lanes(a, b) -> str:
     return f"{int(diff.sum())} lanes differ, {int(tied.sum())} of them exact t ties"
 
 
-def exact_ties(ts, rays, win, k1, k10) -> list:
-    """The lanes where K1's state ``k1`` and K10a's ``k10`` differ, each
-    shown to be an exact tie: the same t bits, both valid, and the triangle
-    each walk kept (from the plain walks over the lane's block, which must
-    reproduce the kernel's state there) hit by the ray at exactly that t.
-    Returns one record per lane."""
+def plain_closest(name: str):
+    """The plain version of closest sweep ``name`` ("K1", "K8", "K10a")."""
+    from raytpu_torch.ops import consensus, perlane, traverse
+
+    return {"K1": perlane.perlane_closest_sweep_ref,
+            "K8": consensus.mega_closest_sweep_ref,
+            "K10a": traverse.closest_sweep_ref}[name]
+
+
+def exact_ties(ts, rays, win, k1, k10, names=("K1", "K10a")) -> list:
+    """The lanes where the states ``k1`` and ``k10`` of the closest sweeps
+    ``names`` (default K1's and K10a's) differ, each shown to be an exact
+    tie: the same t bits, both valid, and the triangle each walk kept (from
+    the plain walks over the lane's block, which must reproduce the
+    kernel's state there) hit by the ray at exactly that t. Returns one
+    record per lane."""
     import torch
     from raytpu_torch.config import RAY_TMIN
-    from raytpu_torch.ops import perlane, traverse
+    from raytpu_torch.ops import traverse
     from raytpu_torch.ops.intersect import moller_trumbore
 
     a, b = k1.view(torch.int32), k10.view(torch.int32)
@@ -179,15 +214,15 @@ def exact_ties(ts, rays, win, k1, k10) -> list:
     for p, k in (a != b).any(dim=0).nonzero().tolist():
         lane = f"lane (packet {p}, {k})"
         check(a[0, p, k] == b[0, p, k] and a[1, p, k] != 0 and b[1, p, k] != 0,
-              f"{lane}: K1 and K10a differ in t or validity, not an exact tie")
+              f"{lane}: {names[0]} and {names[1]} differ in t or validity, "
+              f"not an exact tie")
         blk = slice(p - p % 8, p - p % 8 + 8)   # the lane's culling block
         r = rays[:, blk].contiguous()
         st = traverse.make_trace_state(win[blk].contiguous())
         rec = {"lane": [p, k], "t": float(k1[0, p, k])}
-        for name, full, sweep in (("K1", k1, perlane.perlane_closest_sweep_ref),
-                                  ("K10a", k10, traverse.closest_sweep_ref)):
+        for name, full in zip(names, (k1, k10)):
             slots = torch.full(st.shape[1:], -1, dtype=torch.long, device=st.device)
-            got = sweep(ts, r, RAY_TMIN, st.clone(), slots=slots)
+            got = plain_closest(name)(ts, r, RAY_TMIN, st.clone(), slots=slots)
             check(torch.equal(got.view(torch.int32)[:, p % 8, k],
                               full.view(torch.int32)[:, p, k]),
                   f"{lane}: the plain walk reproduces {name}'s state")
@@ -203,7 +238,7 @@ def exact_ties(ts, rays, win, k1, k10) -> list:
                   f"{lane}: {name}'s triangle is hit at exactly t")
             rec[name] = {"inst": inst, "slot": slot,
                          "prim": int(ts.bvh_tri_prim[slot])}
-        check(rec["K1"] != rec["K10a"], f"{lane}: two different triangles")
+        check(rec[names[0]] != rec[names[1]], f"{lane}: two different triangles")
         ties.append(rec)
     return ties
 
@@ -218,8 +253,8 @@ def ulps(a, b):
 
 
 def sweep_slice(rs, n_packets: int):
-    """Packet indices of the folded config4 wave around the frame centre:
-    a square block of tiles, every sample of each tile."""
+    """Packet indices of a frame's folded wave around the frame centre: a
+    square block of tiles, every sample of each tile."""
     spp = rs.samples_per_pixel
     w_t = -(-rs.width // rs.tile)
     h_t = -(-rs.height // rs.tile)
@@ -270,6 +305,27 @@ def anyhit_lane_bytes(tmax, occ0, occ1, tmin: float) -> int:
     live = int((pend & (tmax > tmin)).sum())
     newly = int((pend & (occ1 != 0)).sum())
     return 4 * occ0.numel() + 4 * int(pend.sum()) + 24 * live + 4 * newly
+
+
+def shadow_rays(ts, rays, state):
+    """Shadow rays from the hits of ``state`` (a closest sweep of ``rays``)
+    toward the light, every hit lane whatever its material: ``(rays (6, P,
+    K), window (P, K))``, the window the light distance (0 off the hits)."""
+    import torch
+    from raytpu_torch.ops import traverse
+    from raytpu_torch.ops import vec3 as v3
+
+    t, vmask, _, _, nrm, _, _ = traverse.unpack_state(state)
+    o = (rays[0], rays[1], rays[2])
+    d = (rays[3], rays[4], rays[5])
+    nrm = v3.normalize(nrm)
+    pos = v3.add(o, v3.scale(torch.where(vmask, t, 0.0), d))
+    so = v3.add(pos, v3.scale(1e-2, nrm))
+    to_l = tuple(ts.light_pos[c] - pos[c] for c in range(3))
+    dist = v3.norm(to_l)
+    ld = v3.scale(1.0 / torch.clamp_min(dist, 1e-30), to_l)
+    return (torch.stack((*so, *ld)).contiguous(),
+            torch.where(vmask, dist, 0.0).contiguous())
 
 
 def compare_epilogue(r, rk, full_st, act, s_row, res, gpu: str) -> None:
@@ -345,8 +401,7 @@ def compare_kernels(r, gpu: str) -> dict:
     import torch
     from raytpu_torch.config import RAY_TMAX, RAY_TMIN
     from raytpu_torch.integrator import tiled_pixels
-    from raytpu_torch.ops import mega, perlane, raygen, sky, traverse
-    from raytpu_torch.ops import vec3 as v3
+    from raytpu_torch.ops import perlane, raygen, sky, traverse
 
     ts, rs, dev = r.tscene, r.render_static, r.device
     spp = rs.samples_per_pixel
@@ -438,18 +493,7 @@ def compare_kernels(r, gpu: str) -> dict:
           f"{counts['nodes'] / live:.1f} node visits, {counts['tests'] / live:.1f} "
           f"triangle tests", flush=True)
 
-    # shadow rays from the hits toward the light, window = light distance
-    t, vmask, _, _, nrm, _, _ = traverse.unpack_state(sp_)
-    o = (rays[0], rays[1], rays[2])
-    d = (rays[3], rays[4], rays[5])
-    nrm = v3.normalize(nrm)
-    pos = v3.add(o, v3.scale(torch.where(vmask, t, 0.0), d))
-    so = v3.add(pos, v3.scale(1e-2, nrm))
-    to_l = tuple(ts.light_pos[c] - pos[c] for c in range(3))
-    dist = v3.norm(to_l)
-    ld = v3.scale(1.0 / torch.clamp_min(dist, 1e-30), to_l)
-    srays = torch.stack((*so, *ld)).contiguous()
-    tmax = torch.where(vmask, dist, 0.0).contiguous()
+    srays, tmax = shadow_rays(ts, rays, sp_)
     occ0 = torch.zeros(tmax.shape, dtype=torch.int32, device=dev)
     ok_ = traverse.anyhit_sweep(ts, srays, RAY_TMIN, tmax, occ0.clone())
     counts = {"rows": {}}
@@ -627,6 +671,162 @@ def compare_perlane(ts, rays, win, st0, k10a, srays, tmax, occ0, k10b,
           f"visits, {work['tests'] / live:.1f} triangle tests", flush=True)
 
 
+def primary_wave(r):
+    """The raygen kernel's folded primary wave of ``r``'s frame and its
+    in-frame lanes: ``(rays (6, P, K), act (P, K))``."""
+    import torch
+    from raytpu_torch.integrator import tiled_pixels
+    from raytpu_torch.ops import raygen
+
+    rs, dev = r.render_static, r.device
+    spp = rs.samples_per_pixel
+    (px, py), in_frame = tiled_pixels(rs, dev)
+    s_row = torch.arange(spp, dtype=torch.float32, device=dev).repeat(px.shape[0])
+    rays = raygen.raygen_packed(r.camera_tensor(), s_row, px.repeat_interleave(spp, 0),
+                                py.repeat_interleave(spp, 0), spp, rs.width, rs.height)
+    return rays, in_frame.repeat_interleave(spp, 0)
+
+
+def compare_consensus(r, label: str, gpu: str):
+    """K8 and K9 on the primary wave of the consensus-tier stand-in ``r``
+    (the raygen kernel's rays, shadow rays from K8's hits toward the
+    light):
+
+    * on a ``SWEEP_PACKETS`` slice: against their plain versions and their
+      wrappers' launches, bit for bit; the plain walks' work (K8's, warps
+      over the wide links, beside K1's, lanes over the octant links); the
+      kernels alone timed beside K1/K2 and K10a/K10b;
+    * on the whole wave: against K1/K2 and K10a/K10b, where only proven
+      exact ties may differ (:func:`exact_ties`), exactly those pinned in
+      ``CONSENSUS_TIES[label]``; timed beside them.
+
+    Returns the two kernels' results and the tied lanes."""
+    import torch
+    from raytpu_torch.config import RAY_TMAX, RAY_TMIN
+    from raytpu_torch.ops import consensus, perlane, traverse
+
+    ts = r.tscene
+    rk, act = primary_wave(r)
+    idx = torch.tensor(sweep_slice(r.render_static, SWEEP_PACKETS), device=r.device)
+    rays = rk[:, idx].contiguous()
+    win = torch.where(act[idx], RAY_TMAX, 0.0).float().contiguous()
+    st0 = traverse.make_trace_state(win)
+    res = {}
+
+    def timed(k8, k1, k10):
+        return dict(ms=cuda_ms(k8, 3, 10), perlane_ms=cuda_ms(k1, 3, 10),
+                    chained_ms=cuda_ms(k10, 3, 10))
+
+    sched = perlane.prepass(ts, rays, win, RAY_TMIN, "origin")
+    k8 = consensus.launch_closest(ts, rays, RAY_TMIN, st0.clone(), sched)
+    work, work1 = {"rows": {}}, {"rows": {}}
+    p8 = consensus.mega_closest_sweep_ref(ts, rays, RAY_TMIN, st0.clone(), counts=work)
+    perlane.perlane_closest_sweep_ref(ts, rays, RAY_TMIN, st0.clone(), counts=work1)
+    wrapped = consensus.mega_closest_sweep(ts, rays, RAY_TMIN, st0.clone())
+    for other, what in ((p8, "its plain version"), (wrapped, "its wrapper's launch")):
+        check(torch.equal(k8.view(torch.int32), other.view(torch.int32)),
+              f"{label}: mega_closest_sweep equals {what} bit for bit "
+              f"({differing_lanes(k8, other)})")
+    hit_frac = (k8[traverse.ST_VALID].view(torch.int32) != 0).float().mean().item()
+    check(hit_frac > 0.05, f"{label}: the closest slice hits something ({hit_frac})")
+    live = int((win > RAY_TMIN).sum().item())
+    res["mega_closest_sweep"] = dict(
+        max_abs_err=(k8 - p8)[[0, 4, 5, 6, 7, 8]].abs().max().item(),
+        **timed(lambda: consensus.launch_closest(ts, rays, RAY_TMIN, st0.clone(), sched),
+                lambda: perlane.launch_closest(ts, rays, RAY_TMIN, st0.clone(), sched),
+                lambda: traverse.closest_sweep(ts, rays, RAY_TMIN, st0.clone())),
+        plain_ms=cuda_ms(lambda: consensus.mega_closest_sweep_ref(
+            ts, rays, RAY_TMIN, st0.clone()), 1, 2),
+        shape=list(rays.shape),
+        bound=sweep_bound(work, closest_lane_bytes(st0, k8, RAY_TMIN),
+                          nbytes(ts.w2o, *sched)),
+        work=walk_work(work, live), perlane_work=walk_work(work1, live))
+
+    srays, tmax = shadow_rays(ts, rays, k8)
+    occ0 = torch.zeros(tmax.shape, dtype=torch.int32, device=r.device)
+    ssched = perlane.prepass(ts, srays, tmax, RAY_TMIN, "light")
+    k9 = consensus.launch_anyhit(ts, srays, RAY_TMIN, tmax, occ0.clone(), ssched)
+    work, work2 = {"rows": {}}, {"rows": {}}
+    p9 = consensus.mega_anyhit_sweep_ref(ts, srays, RAY_TMIN, tmax, occ0.clone(),
+                                         counts=work)
+    perlane.perlane_anyhit_sweep_ref(ts, srays, RAY_TMIN, tmax, occ0.clone(),
+                                     counts=work2)
+    wrapped = consensus.mega_anyhit_sweep(ts, srays, RAY_TMIN, tmax, occ0.clone())
+    for other, what in ((p9, "its plain version"), (wrapped, "its wrapper's launch")):
+        check(torch.equal(k9, other), f"{label}: mega_anyhit_sweep equals {what}")
+    occ_frac = (k9 != 0).float().mean().item()
+    slive = int((tmax > RAY_TMIN).sum().item())
+    res["mega_anyhit_sweep"] = dict(
+        max_abs_err=(k9 - p9).abs().max().item(),
+        **timed(lambda: consensus.launch_anyhit(ts, srays, RAY_TMIN, tmax, occ0.clone(),
+                                                ssched),
+                lambda: perlane.launch_anyhit(ts, srays, RAY_TMIN, tmax, occ0.clone(),
+                                              ssched),
+                lambda: traverse.anyhit_sweep(ts, srays, RAY_TMIN, tmax, occ0.clone())),
+        plain_ms=cuda_ms(lambda: consensus.mega_anyhit_sweep_ref(
+            ts, srays, RAY_TMIN, tmax, occ0.clone()), 1, 2),
+        shape=list(srays.shape),
+        bound=sweep_bound(work, anyhit_lane_bytes(tmax, occ0, k9, RAY_TMIN),
+                          nbytes(ts.w2o, *ssched)),
+        work=walk_work(work, slive), perlane_work=walk_work(work2, slive))
+    for name, what in (("mega_closest_sweep", f"hit {hit_frac:.3f}"),
+                       ("mega_anyhit_sweep", f"occluded {occ_frac:.3f}")):
+        v = res[name]
+        n = v["work"]["rays"]
+        print(f"{label} {name} {v['shape']}: bit for bit equal to its plain version "
+              f"and its wrapper, {what}; per live ray, plain consensus walk over the "
+              f"wide links {v['work']['nodes'] / n:.1f} node visits and "
+              f"{v['work']['tests'] / n:.1f} triangle tests, plain per-lane walk over "
+              f"the octant links {v['perlane_work']['nodes'] / n:.1f} and "
+              f"{v['perlane_work']['tests'] / n:.1f}; kernel {v['ms']:.4f} ms, per-lane "
+              f"{v['perlane_ms']:.4f} ms, chained {v['chained_ms']:.4f} ms, plain "
+              f"{v['plain_ms']:.4f} ms, bound {v['bound'][0]:.4f} ms ({v['bound'][1]}) "
+              f"[{gpu}]", flush=True)
+
+    # the whole primary wave
+    full_win = torch.where(act, RAY_TMAX, 0.0).float()
+    full_st = traverse.make_trace_state(full_win)
+    fsched = perlane.prepass(ts, rk, full_win, RAY_TMIN, "origin")
+    k8 = consensus.launch_closest(ts, rk, RAY_TMIN, full_st.clone(), fsched)
+    k1 = perlane.launch_closest(ts, rk, RAY_TMIN, full_st.clone(), fsched)
+    k10 = traverse.closest_sweep(ts, rk, RAY_TMIN, full_st.clone())
+    ties = {}
+    for name, other in (("K1", k1), ("K10a", k10)):
+        found = exact_ties(ts, rk, full_win, k8, other, ("K8", name))
+        print(f"{label} mega_closest_sweep vs {name} on the full primary wave "
+              f"{list(rk.shape)}: {differing_lanes(k8, other)}; exact ties {found}",
+              flush=True)
+        pinned = CONSENSUS_TIES[label][name]
+        check([tuple(t["lane"]) for t in found] == pinned,
+              f"{label}: K8 and {name} differ on exactly the known tied lanes "
+              f"{pinned}")
+        ties[name] = found
+    res["mega_closest_sweep"]["full_wave"] = timed(
+        lambda: consensus.launch_closest(ts, rk, RAY_TMIN, full_st.clone(), fsched),
+        lambda: perlane.launch_closest(ts, rk, RAY_TMIN, full_st.clone(), fsched),
+        lambda: traverse.closest_sweep(ts, rk, RAY_TMIN, full_st.clone()))
+    srays, tmax = shadow_rays(ts, rk, k8)
+    occ0 = torch.zeros(tmax.shape, dtype=torch.int32, device=r.device)
+    fss = perlane.prepass(ts, srays, tmax, RAY_TMIN, "light")
+    k9 = consensus.launch_anyhit(ts, srays, RAY_TMIN, tmax, occ0.clone(), fss)
+    for other, what in ((perlane.launch_anyhit(ts, srays, RAY_TMIN, tmax, occ0.clone(),
+                                               fss), "K2"),
+                        (traverse.anyhit_sweep(ts, srays, RAY_TMIN, tmax, occ0.clone()),
+                         "K10b")):
+        check(torch.equal(k9, other),
+              f"{label}: K9's occlusion equals {what}'s on the full primary wave")
+    res["mega_anyhit_sweep"]["full_wave"] = timed(
+        lambda: consensus.launch_anyhit(ts, srays, RAY_TMIN, tmax, occ0.clone(), fss),
+        lambda: perlane.launch_anyhit(ts, srays, RAY_TMIN, tmax, occ0.clone(), fss),
+        lambda: traverse.anyhit_sweep(ts, srays, RAY_TMIN, tmax, occ0.clone()))
+    for name in CONSENSUS:
+        v = res[name]["full_wave"]
+        print(f"time {label} {name} full primary wave {list(rk.shape)}: kernel "
+              f"{v['ms']:.4f} ms, per-lane {v['perlane_ms']:.4f} ms, chained "
+              f"{v['chained_ms']:.4f} ms [{gpu}]", flush=True)
+    return res, ties
+
+
 def render_frames(r, n_frames: int, t0: float, dt: float, label: str, gpu: str,
                   tier: str) -> dict:
     """Warm-up frame, then ``n_frames`` with advancing transforms, from the
@@ -680,16 +880,60 @@ def check_launches(counts: dict, label: str, idle) -> dict:
     return counts
 
 
+def standin_tiers(r, label: str, gpu: str, prof_dir: Path, n_tied: int):
+    """A consensus-tier stand-in's default frames (they must launch K7,
+    K8 and K9 and none of K1/K2/K10a/K10b), the same frames on the pallas
+    tier (the same rays, and no pixel differing but for the ``n_tied``
+    lanes proven exact ties), and one profiled frame of each, and of the
+    per-lane tier. Returns the record and the default frames' launch
+    counts."""
+    from raytpu_torch import _build
+
+    ts = r.tscene
+    check((ts.traversal, ts.auto_tier) == ("auto", "mega"),
+          f"{label} resolves to the consensus tier ({ts.traversal}, {ts.auto_tier})")
+    _build.reset_launch_counts()
+    mega = render_frames(r, 5, 0.0, 0.0, label, gpu, "mega")
+    counts = _build.launch_counts()
+    mega["launches"] = check_launches(counts, f"{label} frames",
+                                      idle=CHAINED + PER_LANE[1:])
+    mega["profile"] = profile_frame(r, prof_dir / f"profile_{label}.txt", label, gpu)
+    img = r.render()
+    r.tscene = dataclasses.replace(ts, traversal="pallas")
+    _build.reset_launch_counts()
+    pal = render_frames(r, 5, 0.0, 0.0, f"{label}_pallas", gpu, "pallas")
+    check(pal["rays"] == mega["rays"], f"{label}: both tiers trace the same rays")
+    pal["launches"] = check_launches(_build.launch_counts(),
+                                     f"{label} pallas-tier frames",
+                                     idle=PER_LANE + CONSENSUS)
+    pal["profile"] = profile_frame(r, prof_dir / f"profile_{label}_pallas.txt",
+                                   f"{label}_pallas", gpu)
+    n_diff = int((r.render() != img).any(dim=-1).sum().item())
+    # K1/K2 per launch on the same waves, beside K8/K9 and K10a/K10b
+    r.tscene = dataclasses.replace(ts, traversal="perlane")
+    perlane_profile = profile_frame(r, prof_dir / f"profile_{label}_perlane.txt",
+                                    f"{label}_perlane", gpu)
+    r.tscene = ts
+    print(f"{label}: pixels differing between the consensus and the pallas tier "
+          f"{n_diff} (lanes proven exact ties on the primary wave: {n_tied})",
+          flush=True)
+    check(n_diff <= n_tied, f"{label}: the consensus and pallas frames differ only "
+          f"in tied pixels ({n_diff} pixels)")
+    return {"mega": mega, "pallas": pal, "perlane_profile": perlane_profile,
+            "pixels_differing": n_diff}, counts
+
+
 def tie_check(r) -> dict:
     """The tie scene (two coincident boxes, mirror and diffuse) through the
-    pallas tier and the per-lane and hybrid tiers: the pixels that differ
-    (the JAX bench's ``tie_check``, whose bar is 0)."""
+    pallas tier and the per-lane, hybrid, consensus and auto (consensus)
+    tiers: the pixels that differ (the JAX bench's ``tie_check``, whose bar
+    is 0)."""
     import torch
     from raytpu_torch.integrator import render_frame
 
     frames = {trav: render_frame(dataclasses.replace(r.tscene, traversal=trav),
                                  r.render_static, r.camera_tensor())
-              for trav in ("pallas", "perlane", "hybrid")}
+              for trav in ("pallas", "perlane", "hybrid", "mega", "auto")}
     n_diff = {trav: int((img != frames["pallas"]).any(dim=-1).sum().item())
               for trav, img in frames.items() if trav != "pallas"}
     rs = r.render_static
@@ -821,7 +1065,7 @@ def profile_frame(r, path: Path, label: str, gpu: str) -> dict:
     launches.sort(key=lambda e: e.time_range.start)
     sweep_ms = {name: [e.time_range.elapsed_us() / 1e3 for e in launches
                        if kernel_named(name, e.name)]
-                for name in CHAINED + PER_LANE[1:]}
+                for name in CHAINED + PER_LANE[1:] + CONSENSUS}
     sweep_ms = {k: v for k, v in sweep_ms.items() if v}
     table = events.table(sort_by="device_time_total", row_limit=40)
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -900,7 +1144,7 @@ def main() -> int:
     c4 = render_frames(r4, 5, 0.05, 0.05, "config4_standin", gpu, "perlane")
     counts = _build.launch_counts()
     check(set(counts) == set(KERNELS), f"chip_smoke lists every kernel ({counts})")
-    c4["launches"] = check_launches(counts, "config4 frames", idle=CHAINED)
+    c4["launches"] = check_launches(counts, "config4 frames", idle=CHAINED + CONSENSUS)
     c4["profile"] = profile_frame(r4, prof_dir / "profile_config4.txt",
                                   "config4_standin", gpu)
 
@@ -911,7 +1155,7 @@ def main() -> int:
     check(pal4["rays"] == c4["rays"], "both tiers trace the same rays in the same frames")
     pal_counts = _build.launch_counts()
     pal4["launches"] = check_launches(pal_counts, "config4 pallas-tier frames",
-                                      idle=PER_LANE)
+                                      idle=PER_LANE + CONSENSUS)
     pal4["profile"] = profile_frame(r4, prof_dir / "profile_config4_pallas.txt",
                                     "config4_standin_pallas", gpu)
     r4.tscene = dataclasses.replace(r4.tscene, traversal="auto")
@@ -931,10 +1175,33 @@ def main() -> int:
     _build.reset_launch_counts()
     ref = render_frames(rr, 2, 0.05, 0.05, "reference_standin", gpu, "perlane")
     ref["launches"] = check_launches(_build.launch_counts(), "reference frames",
-                                     idle=CHAINED)
+                                     idle=CHAINED + CONSENSUS)
     ref["profile"] = profile_frame(rr, prof_dir / "profile_reference.txt",
                                    "reference_standin", gpu)
     del rr
+
+    # the consensus tier's stand-ins: config3 (its frames count K8/K9's
+    # launches for the kernels line), then config2
+    cons, cons_kern, cons_counts = {}, {}, None
+    for label, make in (("config3_standin", scenes.config3_standin),
+                        ("config2_standin", scenes.config2_standin)):
+        start = time.perf_counter()
+        rc = Renderer(make())
+        torch.cuda.synchronize()
+        tsc = rc.tscene
+        print(f"{label}: scene + BVH {time.perf_counter() - start:.2f} s "
+              f"({tsc.bvh_aabb_min.shape[0]} nodes, {tsc.bvh_tri_v0.shape[0]} "
+              f"triangles, {len(tsc.traversal_list)} entries)", flush=True)
+        check(rc.render_static.fused == "on" and rc.render_static.wavefront == "compact",
+              f"{label} renders the default path")
+        res, ties = compare_consensus(rc, label, gpu)
+        cons[label], counts_c = standin_tiers(rc, label, gpu, prof_dir,
+                                              len(ties["K10a"]))
+        cons[label]["full_wave_ties"] = ties
+        cons[label]["kernels"] = res
+        if cons_counts is None:
+            cons_kern, cons_counts = res, counts_c
+        del rc
 
     small = Renderer(load_scene(scene4.config.replace(width=256, height=192),
                                 meshes=scene4.meshes, skybox=scene4.skybox))
@@ -949,8 +1216,11 @@ def main() -> int:
     img_pal = render_frame(dataclasses.replace(small.tscene, traversal="pallas"), rs_s, cam)
     check(torch.equal(img_k, img_pal),
           "256x192 per-lane frame equals the pallas-tier frame bit for bit")
+    img_mega = render_frame(dataclasses.replace(small.tscene, traversal="mega"), rs_s, cam)
+    check(torch.equal(img_mega, img_k),
+          "256x192 consensus-tier frame equals the per-lane frame bit for bit")
     print("256x192 compacted per-lane frame vs full-width fused frame and vs the "
-          "pallas-tier frame on the card: bit for bit", flush=True)
+          "pallas-tier and consensus-tier frames on the card: bit for bit", flush=True)
     with plain_kernels():
         img_p = render_frame(small.tscene, rs_s, cam).cpu().numpy()
     img_k = img_k.cpu().numpy()
@@ -976,20 +1246,27 @@ def main() -> int:
                       "config4_standin_pallas": pal4, "config4_tier_waves": waves4,
                       "config4_standin_eager": eager4,
                       "config4_standin_full_width": full4, "reference_standin": ref,
+                      **cons,
                       "small_frame": {"ssim": s, "max_abs_diff": diff,
                                       "same_rays_max_abs_diff": same,
                                       "eager_same_rays_max_abs_diff": eager_diff,
                                       "compact_equals_full": True,
-                                      "perlane_equals_pallas": True},
+                                      "perlane_equals_pallas": True,
+                                      "mega_equals_perlane": True},
                       "tie_check": tie,
                       "full_wave_ties": kern["perlane_closest_sweep"]["full_wave_ties"],
                       "kernel_work": {k: v["work"] for k, v in kern.items() if "work" in v},
                       "prepass": {k: {f: v[f] for f in v if "prepass" in f or "ops" in f}
                                   for k, v in kern.items() if "prepass_ms" in v}}))
+    kern.update(cons_kern)
+
+    def launches(name):
+        return (pal_counts if name in CHAINED
+                else cons_counts if name in CONSENSUS else counts)[name]
+
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
-         "replaces": KERNELS[name][1],
-         "launches": (pal_counts if name in CHAINED else counts)[name],
+         "replaces": KERNELS[name][1], "launches": launches(name),
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound"][0],
          "bound_by": kern[name]["bound"][1], "library_ms": None}

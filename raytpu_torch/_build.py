@@ -60,6 +60,10 @@ _SIGNATURES = {
                              _L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                              _P, _P],
 }
+# the consensus sweeps take the per-lane sweeps' arguments (the wide links
+# in place of the octant links)
+_SIGNATURES["mega_closest_sweep"] = _SIGNATURES["perlane_closest_sweep"]
+_SIGNATURES["mega_anyhit_sweep"] = _SIGNATURES["perlane_anyhit_sweep"]
 KERNELS = tuple(_SIGNATURES)
 
 _launches = dict.fromkeys(KERNELS, 0)

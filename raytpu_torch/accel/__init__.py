@@ -2,7 +2,8 @@
 ``raytpu/accel/__init__.py:26-147`` and ``resolve_auto_tier`` :302).
 
 One threaded SAH tree per mesh, built by the native builder, with its
-per-octant links for the per-lane tier. The JAX
+per-octant links for the per-lane tier and their wide rethreading for the
+consensus tier. The JAX
 package's SMEM chunking (``accel/__init__.py:93-101``) exists only because
 the TPU kernels keep a tree in 1 MB of scalar memory; a GPU thread walks a
 whole mesh's tree from device memory, so the port builds no chunks, and
@@ -22,7 +23,7 @@ import torch
 from raytpu_torch.scene import Scene
 from raytpu_torch.accel.native import Bvh, build_bvh
 from raytpu_torch.device_scene import TorchScene, corner_tables, entry_table
-from raytpu_torch.ops.mega import mesh_octant_links
+from raytpu_torch.ops.mega import mesh_octant_links, mesh_wide_links
 
 __all__ = ["Bvh", "attach_bvh", "build_bvh", "resolve_auto_tier"]
 
@@ -42,7 +43,7 @@ def resolve_auto_tier(total_tris: int, spp: int, bounces: int) -> str:
 def attach_bvh(tscene: TorchScene, scene: Scene, leaf_size: int) -> TorchScene:
     """Build one tree per mesh of ``scene``, concatenate the ``bvh_*``
     arrays (node and slot indices stay mesh-local), thread each tree per
-    octant, fill the entry table, one entry per instance, and resolve the
+    octant, plain and wide, fill the entry table, one entry per instance, and resolve the
     traversal tier from the scene's config."""
     v0_all, e1_all, e2_all, n_soa = corner_tables(scene)
     nodes = {k: [] for k in ("aabb_min", "aabb_max", "tri_first",
@@ -73,6 +74,8 @@ def attach_bvh(tscene: TorchScene, scene: Scene, leaf_size: int) -> TorchScene:
     succ, skip = mesh_octant_links(arrays["aabb_min"], arrays["aabb_max"],
                                    arrays["tri_first"], arrays["miss"],
                                    node_ranges)
+    wide = mesh_wide_links(succ, skip, arrays["tri_first"], arrays["miss"],
+                           node_ranges)
     cfg = scene.config
 
     def dev(a):
@@ -94,6 +97,8 @@ def attach_bvh(tscene: TorchScene, scene: Scene, leaf_size: int) -> TorchScene:
                                 tri_ranges)),
         oct_succ=dev(succ),
         oct_skip=dev(skip),
+        wide_succ=dev(wide[0]),
+        wide_skip=dev(wide[1]),
         traversal_list=traversal_list,
         leaf_max=int(arrays["tri_count"].max()),
         traversal=cfg.traversal,

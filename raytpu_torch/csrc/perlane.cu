@@ -33,37 +33,11 @@
 
 namespace {
 
-struct Schedule {
-  long long block_lanes;  // lanes per culling block
-  const int* bits;        // (E, n_words) int32 bit words, walk order
-  int n_words;
-  const int* octs;        // (PB,) int32 block octants
-  const int* succ;        // (8, M) int32 near-child links
-  const int* skip;        // (8, M) int32 skip links
-  long long n_nodes;      // M
-};
-
-// The lane's block word pointer, bit and octant links.
-struct LaneSchedule {
-  const int* word;
-  unsigned bit;
-  const int* succ;
-  const int* skip;
-};
-
-__device__ __forceinline__ LaneSchedule lane_schedule(const Schedule& sc,
-                                                      long long i) {
-  const long long b = i / sc.block_lanes;
-  const long long off = (long long)sc.octs[b] * sc.n_nodes;
-  return LaneSchedule{sc.bits + (b >> 5), 1u << (b & 31), sc.succ + off,
-                      sc.skip + off};
-}
-
 __global__ void perlane_closest_sweep_kernel(const float* __restrict__ rays,
                                              long long rays_s,
                                              float* __restrict__ state,
                                              long long st_s, long long n,
-                                             float tmin, Schedule sc,
+                                             float tmin, rt::Schedule sc,
                                              rt::Tables tab,
                                              const float* __restrict__ n_soa,
                                              long long n_tris) {
@@ -72,18 +46,18 @@ __global__ void perlane_closest_sweep_kernel(const float* __restrict__ rays,
   float bt = state[rt::ST_T * st_s + i];
   if (!(bt > tmin)) return;  // dead lane (window 0): never walks
 
-  const LaneSchedule ls = lane_schedule(sc, i);
+  const rt::LaneSchedule ls = rt::lane_schedule(sc, i);
   float ow[3], dw[3];
   rt::load_ray(rays, rays_s, i, ow, dw);
   rt::Hit hit;
   for (int e = 0; e < tab.n_entries; ++e) {
-    if (!((unsigned)ls.word[(long long)e * sc.n_words] & ls.bit)) continue;
+    if (!ls.walks(sc, e)) continue;
     const rt::Entry en = rt::load_entry(tab, e);
     float o[3], d[3], d_inv[3];
     const float* m = rt::object_ray(tab, en, ow, dw, o, d, d_inv);
     float bu = 0.f, bv = 0.f;
-    const int bs = rt::closest_in_entry(tab, en, ls.succ, ls.skip, o, d,
-                                        d_inv, tmin, &bt, &bu, &bv);
+    const int bs = rt::closest_in_entry<false>(tab, en, ls.succ, ls.skip, o,
+                                               d, d_inv, tmin, &bt, &bu, &bv);
     if (bs >= 0) rt::record_hit(&hit, en, m, n_soa, n_tris, bs, bu, bv);
   }
   if (hit.improved) rt::write_hit(state, st_s, i, bt, hit);
@@ -94,35 +68,27 @@ __global__ void perlane_anyhit_sweep_kernel(const float* __restrict__ rays,
                                             const float* __restrict__ tmax,
                                             int* __restrict__ occ,
                                             long long n, float tmin,
-                                            Schedule sc, rt::Tables tab) {
+                                            rt::Schedule sc, rt::Tables tab) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   if (occ[i] != 0) return;  // OR-merge: already occluded
   const float tm = tmax[i];
   if (!(tm > tmin)) return;
 
-  const LaneSchedule ls = lane_schedule(sc, i);
+  const rt::LaneSchedule ls = rt::lane_schedule(sc, i);
   float ow[3], dw[3];
   rt::load_ray(rays, rays_s, i, ow, dw);
   for (int e = 0; e < tab.n_entries; ++e) {
-    if (!((unsigned)ls.word[(long long)e * sc.n_words] & ls.bit)) continue;
+    if (!ls.walks(sc, e)) continue;
     const rt::Entry en = rt::load_entry(tab, e);
     float o[3], d[3], d_inv[3];
     rt::object_ray(tab, en, ow, dw, o, d, d_inv);
-    if (rt::occluded_in_entry(tab, en, ls.succ, ls.skip, o, d, d_inv, tmin,
-                              tm)) {
+    if (rt::occluded_in_entry<false>(tab, en, ls.succ, ls.skip, o, d, d_inv,
+                                     tmin, tm, false)) {
       occ[i] = 1;  // first hit ends the lane's whole sweep
       return;
     }
   }
-}
-
-Schedule make_schedule(long long block_lanes, const void* bits, int n_words,
-                       const void* octs, const void* succ, const void* skip,
-                       long long n_nodes) {
-  return Schedule{block_lanes,       (const int*)bits, n_words,
-                  (const int*)octs,  (const int*)succ, (const int*)skip,
-                  n_nodes};
 }
 
 }  // namespace
@@ -140,8 +106,8 @@ int rt_perlane_closest_sweep(
     const void* miss, const void* v0, const void* e1, const void* e2,
     const void* n_soa, long long n_tris, void* stream) {
   if (n > 0) {
-    Schedule sc = make_schedule(block_lanes, bits, n_words, octs, succ, skip,
-                                n_nodes);
+    rt::Schedule sc = rt::make_schedule(block_lanes, bits, n_words, octs,
+                                        succ, skip, n_nodes);
     rt::Tables tab = rt::make_tables(entries, n_entries, w2o, bmin, bmax,
                                      first, count, miss, v0, e1, e2);
     perlane_closest_sweep_kernel<<<rt::grid_for(n), rt::BLOCK, 0,
@@ -163,8 +129,8 @@ int rt_perlane_anyhit_sweep(
     const void* miss, const void* v0, const void* e1, const void* e2,
     void* stream) {
   if (n > 0) {
-    Schedule sc = make_schedule(block_lanes, bits, n_words, octs, succ, skip,
-                                n_nodes);
+    rt::Schedule sc = rt::make_schedule(block_lanes, bits, n_words, octs,
+                                        succ, skip, n_nodes);
     rt::Tables tab = rt::make_tables(entries, n_entries, w2o, bmin, bmax,
                                      first, count, miss, v0, e1, e2);
     perlane_anyhit_sweep_kernel<<<rt::grid_for(n), rt::BLOCK, 0,

@@ -51,8 +51,8 @@ __global__ void closest_sweep_kernel(const float* __restrict__ rays,
     float o[3], d[3], d_inv[3];
     const float* m = rt::object_ray(tab, en, ow, dw, o, d, d_inv);
     float bu = 0.f, bv = 0.f;
-    const int bs = rt::closest_in_entry(tab, en, nullptr, tab.miss, o, d,
-                                        d_inv, tmin, &bt, &bu, &bv);
+    const int bs = rt::closest_in_entry<false>(tab, en, nullptr, tab.miss, o,
+                                               d, d_inv, tmin, &bt, &bu, &bv);
     if (bs >= 0) rt::record_hit(&hit, en, m, n_soa, n_tris, bs, bu, bv);
   }
   if (hit.improved) rt::write_hit(state, st_s, i, bt, hit);
@@ -75,8 +75,8 @@ __global__ void anyhit_sweep_kernel(const float* __restrict__ rays,
     const rt::Entry en = rt::load_entry(tab, e);
     float o[3], d[3], d_inv[3];
     rt::object_ray(tab, en, ow, dw, o, d, d_inv);
-    if (rt::occluded_in_entry(tab, en, nullptr, tab.miss, o, d, d_inv, tmin,
-                              tm)) {
+    if (rt::occluded_in_entry<false>(tab, en, nullptr, tab.miss, o, d, d_inv,
+                                     tmin, tm, false)) {
       occ[i] = 1;  // first hit ends the lane's whole sweep
       return;
     }

@@ -1,20 +1,35 @@
 // One ray's walk of one entry's tree, shared by the chained sweeps
-// (traverse.cu, K10a/K10b) and the per-lane sweeps (perlane.cu, K1/K2).
+// (traverse.cu, K10a/K10b), the per-lane sweeps (perlane.cu, K1/K2) and the
+// consensus sweeps (consensus.cu, K8/K9).
 //
-// The walk is stackless: from the root, a leaf's triangles are tested on
-// arrival, with no box test at the leaf (raytpu/ops/traverse.py:117-127),
-// and an inner node descends when rt::slab hits within (tmin, best_t). What
-// differs between the tiers is only where the walk goes next:
+// The walk is stackless: from the root, an inner node descends when rt::slab
+// hits within (tmin, best_t), and a leaf's triangles are tested. Where the
+// walk goes next is given as `succ` (nullptr for node + 1) and `skip`,
+// indexed by the node's row g = node_base + node in the concatenated tables:
 //   - build order (K10a/K10b): a hit continues at node + 1, a miss or a
 //     finished leaf at bvh_miss;
 //   - near child first (K1/K2): the per-octant succ/skip links of
-//     raytpu/ops/mega.py:128 (octant_links), one (M,) row per octant.
-// Both are given as `succ` (nullptr for node + 1) and `skip`, indexed by the
-// node's row g = node_base + node in the concatenated tables. Node ids in
-// every link table are mesh-local, like bvh_miss.
+//     raytpu/ops/mega.py:128 (octant_links), one (M,) row per octant;
+//   - wide (K8/K9): the same links with every other interior level dropped
+//     (raytpu/ops/mega.py:198, widen_octant_links).
+// Node ids in every link table are mesh-local, like bvh_miss.
+//
+// Who decides, the template argument kWarp:
+//   - false, each lane alone: a leaf is tested on arrival, with no box test
+//     (raytpu/ops/traverse.py:117-127), an inner node on the lane's own box;
+//   - true, the consensus walk of raytpu/ops/mega.py:640 (K8/K9): the 32
+//     lanes of a warp walk one node pointer. Every lane tests the box of
+//     every node, leaves included, against its own window; where any lane's
+//     box hits (__any_sync), the warp descends, or tests the leaf's
+//     triangles for every lane. A lane's candidates are then a superset of
+//     its own walk's, and Moller-Trumbore with strict t < best_t is exact
+//     per lane, so the hits are the same; only which of two triangles hit
+//     at exactly the same t is kept can depend on the walk. The caller
+//     keeps the warp converged: whole warps, warp-uniform entries and links.
 //
 // The plain versions (raytpu_torch/ops/traverse.py::_walk, closest_ref,
-// anyhit_ref) make the same tests in the same order.
+// anyhit_ref, with `consensus` for kWarp) make the same tests in the same
+// order.
 #pragma once
 
 #include "common.cuh"
@@ -68,8 +83,28 @@ __device__ __forceinline__ const float* object_ray(const Tables& tab,
   return m;
 }
 
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// Whether the walk continues below node g (or tests the leaf g): the lane's
+// own decision, or the warp's vote on every lane's box.
+template <bool kWarp>
+__device__ __forceinline__ bool descend(const Tables& tab, int g, bool leaf,
+                                        bool walking, const float* o,
+                                        const float* d_inv, float tmin,
+                                        float tfar) {
+  if constexpr (kWarp) {
+    return __any_sync(kFullWarp, walking && slab(o, d_inv, tab.bmin + 3 * g,
+                                                 tab.bmax + 3 * g, tmin, tfar));
+  } else {
+    return leaf || slab(o, d_inv, tab.bmin + 3 * g, tab.bmax + 3 * g, tmin,
+                        tfar);
+  }
+}
+
 // Closest hit in one entry: lowers *bt on each strict improvement and
-// returns the winning BVH slot (-1 if none), with its u, v.
+// returns the winning BVH slot (-1 if none), with its u, v. A lane whose *bt
+// is not above tmin can take no hit, and does not vote.
+template <bool kWarp>
 __device__ __forceinline__ int closest_in_entry(
     const Tables& tab, const Entry& en, const int* succ, const int* skip,
     const float* o, const float* d, const float* d_inv, float tmin, float* bt,
@@ -79,54 +114,66 @@ __device__ __forceinline__ int closest_in_entry(
   while (node != en.nc) {
     const int g = en.nb + node;
     const int f = tab.first[g];
+    const bool go = descend<kWarp>(tab, g, f >= 0, *bt > tmin, o, d_inv, tmin,
+                                   *bt);
     if (f >= 0) {
-      const int cnt = tab.count[g];
-      for (int k = 0; k < cnt; ++k) {
-        const long long s = (long long)en.tb + f + k;
-        float t, u, v;
-        if (moller_trumbore(o, d, tab.v0 + 3 * s, tab.e1 + 3 * s,
-                            tab.e2 + 3 * s, tmin, *bt, &t, &u, &v)) {
-          *bt = t;
-          bs = (int)s;
-          *bu = u;
-          *bv = v;
+      if (go) {
+        const int cnt = tab.count[g];
+        for (int k = 0; k < cnt; ++k) {
+          const long long s = (long long)en.tb + f + k;
+          float t, u, v;
+          if (moller_trumbore(o, d, tab.v0 + 3 * s, tab.e1 + 3 * s,
+                              tab.e2 + 3 * s, tmin, *bt, &t, &u, &v)) {
+            *bt = t;
+            bs = (int)s;
+            *bu = u;
+            *bv = v;
+          }
         }
       }
       node = skip[g];
-    } else if (slab(o, d_inv, tab.bmin + 3 * g, tab.bmax + 3 * g, tmin, *bt)) {
-      node = succ ? succ[g] : node + 1;
     } else {
-      node = skip[g];
+      node = go ? (succ ? succ[g] : node + 1) : skip[g];
     }
   }
   return bs;
 }
 
-// Any hit in one entry within (tmin, tm).
+// Any hit in one entry within (tmin, tm): whether the lane is `done` after
+// it (occluded, or done on entry: then it tests nothing and does not vote).
+// Alone, a lane returns at its first hit; a warp returns once every lane is
+// done.
+template <bool kWarp>
 __device__ __forceinline__ bool occluded_in_entry(
     const Tables& tab, const Entry& en, const int* succ, const int* skip,
-    const float* o, const float* d, const float* d_inv, float tmin, float tm) {
+    const float* o, const float* d, const float* d_inv, float tmin, float tm,
+    bool done) {
   int node = 0;
   while (node != en.nc) {
     const int g = en.nb + node;
     const int f = tab.first[g];
+    const bool go = descend<kWarp>(tab, g, f >= 0, !done, o, d_inv, tmin, tm);
     if (f >= 0) {
-      const int cnt = tab.count[g];
-      for (int k = 0; k < cnt; ++k) {
-        const long long s = (long long)en.tb + f + k;
-        float t, u, v;
-        if (moller_trumbore(o, d, tab.v0 + 3 * s, tab.e1 + 3 * s,
-                            tab.e2 + 3 * s, tmin, tm, &t, &u, &v))
-          return true;
+      if (go) {
+        const int cnt = tab.count[g];
+        for (int k = 0; k < cnt && !done; ++k) {
+          const long long s = (long long)en.tb + f + k;
+          float t, u, v;
+          done = moller_trumbore(o, d, tab.v0 + 3 * s, tab.e1 + 3 * s,
+                                 tab.e2 + 3 * s, tmin, tm, &t, &u, &v);
+        }
+      }
+      if constexpr (kWarp) {
+        if (__all_sync(kFullWarp, done)) return true;
+      } else {
+        if (done) return true;
       }
       node = skip[g];
-    } else if (slab(o, d_inv, tab.bmin + 3 * g, tab.bmax + 3 * g, tmin, tm)) {
-      node = succ ? succ[g] : node + 1;
     } else {
-      node = skip[g];
+      node = go ? (succ ? succ[g] : node + 1) : skip[g];
     }
   }
-  return false;
+  return done;
 }
 
 // The hit a sweep merges into the state: the last entry that improved t.
@@ -180,6 +227,49 @@ __device__ __forceinline__ void load_ray(const float* rays, long long rays_s,
     ow[c] = rays[c * rays_s + i];
     dw[c] = rays[(3 + c) * rays_s + i];
   }
+}
+
+// The per-call schedule of the per-lane and consensus sweeps (the prepass
+// of raytpu_torch/ops/mega.py): a lane skips an entry whose bit for its
+// block is 0 (bits: (E, n_words) int32 words in walk order, bit b % 32 of
+// word b / 32 for block b = lane / block_lanes) and walks with its BLOCK's
+// octant row of the links (octs[b]).
+struct Schedule {
+  long long block_lanes;  // lanes per culling block
+  const int* bits;        // (E, n_words) int32 bit words, walk order
+  int n_words;
+  const int* octs;        // (PB,) int32 block octants
+  const int* succ;        // (8, M) int32 links: hit on an inner node
+  const int* skip;        // (8, M) int32 links: miss, or a finished leaf
+  long long n_nodes;      // M
+};
+
+inline Schedule make_schedule(long long block_lanes, const void* bits,
+                              int n_words, const void* octs, const void* succ,
+                              const void* skip, long long n_nodes) {
+  return Schedule{block_lanes,      (const int*)bits, n_words,
+                  (const int*)octs, (const int*)succ, (const int*)skip,
+                  n_nodes};
+}
+
+// Lane i's block word pointer, bit and octant links.
+struct LaneSchedule {
+  const int* word;
+  unsigned bit;
+  const int* succ;
+  const int* skip;
+
+  __device__ __forceinline__ bool walks(const Schedule& sc, int e) const {
+    return ((unsigned)word[(long long)e * sc.n_words] & bit) != 0;
+  }
+};
+
+__device__ __forceinline__ LaneSchedule lane_schedule(const Schedule& sc,
+                                                      long long i) {
+  const long long b = i / sc.block_lanes;
+  const long long off = (long long)sc.octs[b] * sc.n_nodes;
+  return LaneSchedule{sc.bits + (b >> 5), 1u << (b & 31), sc.succ + off,
+                      sc.skip + off};
 }
 
 }  // namespace rt

@@ -8,8 +8,11 @@ per (instance, traversal mesh) in ``traversal_list`` order, the instance,
 its material, and the mesh's node base, node count and triangle base. The
 sweeps walk that table in one launch. Beside the skip links, each mesh's
 nodes are threaded once per ray-direction octant, near child first
-(``oct_succ``/``oct_skip``, ``ops/mega.octant_links``), for the per-lane
-tier; ``traversal`` and ``auto_tier`` say which tier the sweeps take.
+(``oct_succ``/``oct_skip``, ``ops/mega.octant_links``) for the per-lane
+tier, and once more with every other interior level dropped
+(``wide_succ``/``wide_skip``, ``ops/mega.widen_octant_links``) for the
+consensus tier; ``traversal`` and ``auto_tier`` say which tier the sweeps
+take.
 
 Layouts match the JAX package, so buffers compare by a reshape: nodes are
 concatenated over meshes with mesh-local ``bvh_miss`` and ``bvh_tri_first``
@@ -27,7 +30,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from raytpu_torch.ops.mega import entry_perm, mesh_octant_links, world_root_boxes
+from raytpu_torch.ops.mega import (
+    entry_perm,
+    mesh_octant_links,
+    mesh_wide_links,
+    world_root_boxes,
+)
 from raytpu_torch.scene import Scene
 
 ENTRY_COLS = ("inst", "mat", "node_base", "node_count", "tri_base")
@@ -66,6 +74,10 @@ class TorchScene:
     # per-octant near-first links, mesh-local like bvh_miss
     oct_succ: Optional[torch.Tensor] = None       # (8, M) int32
     oct_skip: Optional[torch.Tensor] = None       # (8, M) int32
+    # the same links with every other interior level dropped (the consensus
+    # walk's wide links, ops/mega.widen_octant_links)
+    wide_succ: Optional[torch.Tensor] = None      # (8, M) int32
+    wide_skip: Optional[torch.Tensor] = None      # (8, M) int32
     traversal_list: Tuple[Tuple[int, int], ...] = ()
     leaf_max: int = 0              # largest leaf (the plain walk's unroll)
     # RenderConfig.traversal, and the tier "auto" resolves to ("perlane" or
@@ -174,7 +186,8 @@ def from_raytpu(dev, static, device) -> TorchScene:
     """Carry a JAX ``DeviceScene`` + ``SceneStatic`` across unchanged: the
     same chunked ``bvh_*`` arrays, the same ``traversal_list`` and the same
     traversal tier, so both packages walk the identical trees in the
-    identical order. The octant links are threaded per chunk.
+    identical order. The octant links, plain and wide, are threaded per
+    chunk.
 
     ``dev``/``static`` are read through ``np.asarray`` only; this module
     never imports JAX."""
@@ -187,10 +200,11 @@ def from_raytpu(dev, static, device) -> TorchScene:
 
     materials = np.asarray(dev.materials, np.int32)
     count = np.asarray(dev.bvh_tri_count)
+    first, miss = np.asarray(dev.bvh_tri_first), np.asarray(dev.bvh_miss)
     succ, skip = mesh_octant_links(
-        np.asarray(dev.bvh_aabb_min), np.asarray(dev.bvh_aabb_max),
-        np.asarray(dev.bvh_tri_first), np.asarray(dev.bvh_miss),
-        static.mesh_node_ranges)
+        np.asarray(dev.bvh_aabb_min), np.asarray(dev.bvh_aabb_max), first,
+        miss, static.mesh_node_ranges)
+    wide = mesh_wide_links(succ, skip, first, miss, static.mesh_node_ranges)
     return TorchScene(
         device=device,
         o2w=t(dev.o2w),
@@ -218,6 +232,8 @@ def from_raytpu(dev, static, device) -> TorchScene:
                               static.mesh_bvh_tri_ranges)),
         oct_succ=t(succ),
         oct_skip=t(skip),
+        wide_succ=t(wide[0]),
+        wide_skip=t(wide[1]),
         traversal_list=tuple(static.traversal_list),
         leaf_max=int(count.max()),
         traversal=static.traversal,

@@ -17,13 +17,15 @@ launch the hand-written kernels); ``make_trace_state``, the sort and the
 bookkeeping are plain PyTorch, as they are plain XLA in the JAX loop.
 
 The sweeps follow the scene's traversal tier as the JAX package routes
-them (``raytpu/ops/trace.py:491-547``, ``_use_perlane`` :550): the per-lane
-sweeps (K7 prepass, K1, K2; ``ops/perlane.py``) under "perlane" and under
-"auto" where the scene resolved to it, on the first bounce only under
-"hybrid"; the chained sweeps (K10a, K10b; ``ops/traverse.py``) under
-"pallas" and "xla", and under "auto" resolved to "mega" until the
-consensus kernels are ported. A wave that is not whole blocks of
-``BLOCK_PACKETS`` takes the chained sweeps, as in the JAX package.
+them (``raytpu/ops/trace.py:491-547``, ``_use_perlane`` :550, ``_use_mega``
+:580): the per-lane sweeps (K7 prepass, K1, K2; ``ops/perlane.py``) under
+"perlane", under "auto" where the scene resolved to it, and on the first
+bounce under "hybrid"; the consensus sweeps (K7 prepass, K8, K9;
+``ops/consensus.py``) under "mega", under "auto" resolved to "mega", and
+on the later bounces under "hybrid"; the chained sweeps (K10a, K10b;
+``ops/traverse.py``) under "pallas" and "xla". A wave that is not whole
+blocks of ``BLOCK_PACKETS`` takes the chained sweeps, as in the JAX
+package.
 
 Host syncs per frame (each counted in ``stats["host_syncs"]``): the loop
 condition once per bounce iteration (``any(window > 0)`` at full width,
@@ -52,6 +54,12 @@ from raytpu_torch.config import (
 from raytpu_torch.device_scene import TorchScene
 from raytpu_torch.ops import shade
 from raytpu_torch.ops import vec3 as v3
+from raytpu_torch.ops.consensus import (
+    mega_anyhit_sweep,
+    mega_anyhit_sweep_ref,
+    mega_closest_sweep,
+    mega_closest_sweep_ref,
+)
 from raytpu_torch.ops.epilogue import (
     BP,
     accumulate_epilogue,
@@ -85,19 +93,23 @@ __all__ = [
 SEG_PACKETS = 64  # packet-count granule of the JAX package (ops/mega.py)
 
 # every traversal tier of the JAX package computes the same hits; the port
-# walks them with the per-lane or the chained sweeps (_perlane)
+# walks them with the per-lane, the consensus or the chained sweeps (_tier)
 _TRAVERSALS = ("auto", "pallas", "xla", "perlane", "mega", "hybrid")
 
 # the frame's kernel wrappers, looked up at call time so that
 # plain_kernels() can swap in their plain versions
 _KERNELS = {"raygen": raygen_packed, "closest": closest_sweep,
             "anyhit": anyhit_sweep, "perlane_closest": perlane_closest_sweep,
-            "perlane_anyhit": perlane_anyhit_sweep, "sky": sample_cubemap_u32,
+            "perlane_anyhit": perlane_anyhit_sweep,
+            "mega_closest": mega_closest_sweep,
+            "mega_anyhit": mega_anyhit_sweep, "sky": sample_cubemap_u32,
             "shade": shade_epilogue, "accumulate": accumulate_epilogue}
 _PLAIN = {"raygen": raygen_packed_ref, "closest": closest_sweep_ref,
           "anyhit": anyhit_sweep_ref,
           "perlane_closest": perlane_closest_sweep_ref,
           "perlane_anyhit": perlane_anyhit_sweep_ref,
+          "mega_closest": mega_closest_sweep_ref,
+          "mega_anyhit": mega_anyhit_sweep_ref,
           "sky": sample_cubemap_u32_ref, "shade": shade_epilogue_ref,
           "accumulate": accumulate_epilogue_ref}
 
@@ -106,8 +118,9 @@ _PLAIN = {"raygen": raygen_packed_ref, "closest": closest_sweep_ref,
 def kernels(**fns):
     """Within the block, frames call ``fns`` in place of the kernel
     wrappers of those names (``raygen``, ``closest``, ``anyhit``,
-    ``perlane_closest``, ``perlane_anyhit``, ``sky``, ``shade``,
-    ``accumulate``), with the wrappers' arguments."""
+    ``perlane_closest``, ``perlane_anyhit``, ``mega_closest``,
+    ``mega_anyhit``, ``sky``, ``shade``, ``accumulate``), with the
+    wrappers' arguments."""
     unknown = set(fns) - set(_KERNELS)
     if unknown:
         raise KeyError(f"no kernel wrapper named {sorted(unknown)}")
@@ -135,8 +148,9 @@ class RenderStatic:
     body's per-iteration resort is not ported). ``ladder``: "auto" moves the
     compacted loop to smaller waves as the live prefix shrinks
     (``_wave_rungs``), "off" keeps the one budget. ``shadow_order``: the
-    per-lane shadow sweep's entry order (``raytpu/integrator.py:129``),
-    "light" (nearest the light first) or "origin" (by entry depth)."""
+    per-lane and consensus shadow sweeps' entry order
+    (``raytpu/integrator.py:129``), "light" (nearest the light first) or
+    "origin" (by entry depth)."""
 
     width: int
     height: int
@@ -214,35 +228,43 @@ def _check_traversal(traversal: str) -> None:
                          f"sweeps serve {_TRAVERSALS})")
 
 
-def _perlane(ts: TorchScene, p: int, primary: bool) -> bool:
-    """Whether the sweeps of a wave of ``p`` packets take the per-lane tier
-    (``raytpu/ops/trace.py:550`` ``_use_perlane``, without its TPU test):
-    under "perlane", under "auto" where the scene resolved to it, and under
-    "hybrid" on the ``primary`` (first-bounce) sweeps; and only for whole
-    blocks of ``BLOCK_PACKETS``."""
+def _tier(ts: TorchScene, p: int, primary: bool) -> str:
+    """The sweeps a wave of ``p`` packets takes (``raytpu/ops/trace.py:550``
+    ``_use_perlane`` and :580 ``_use_mega``, without their TPU test):
+    "perlane" under "perlane", under "auto" where the scene resolved to it,
+    and under "hybrid" on the ``primary`` (first-bounce) sweeps; "mega"
+    under "mega", under "auto" resolved to "mega" and under "hybrid" on
+    the later ones; "pallas" (the chained sweeps) under "pallas" and "xla",
+    and for any wave that is not whole blocks of ``BLOCK_PACKETS``."""
     _check_traversal(ts.traversal)
-    wanted = (ts.traversal == "perlane"
-              or (ts.traversal == "auto" and ts.auto_tier == "perlane")
-              or (ts.traversal == "hybrid" and primary))
-    return wanted and p % BLOCK_PACKETS == 0
+    if p % BLOCK_PACKETS:
+        return "pallas"
+    if (ts.traversal == "perlane"
+            or (ts.traversal == "auto" and ts.auto_tier == "perlane")
+            or (ts.traversal == "hybrid" and primary)):
+        return "perlane"
+    if ts.traversal in ("auto", "mega", "hybrid"):
+        return "mega"
+    return "pallas"
 
 
 def frame_tier(ts: TorchScene, p: int) -> str:
-    """The sweeps a frame of ``p`` packets takes: "perlane" (every bounce),
-    "hybrid" (the first bounce per-lane) or "pallas" (the chained sweeps)."""
-    if _perlane(ts, p, primary=False):
-        return "perlane"
-    return "hybrid" if _perlane(ts, p, primary=True) else "pallas"
+    """The sweeps a frame of ``p`` packets takes: "perlane", "mega" or
+    "pallas" (the chained sweeps) on every bounce, or "hybrid" (per-lane on
+    the first bounce, consensus on the later ones)."""
+    first, later = _tier(ts, p, True), _tier(ts, p, False)
+    return first if first == later else "hybrid"
 
 
 def _sweeps(ts: TorchScene, rs, p: int, primary: bool):
     """``(closest, anyhit)`` sweep functions for a wave of ``p`` packets,
     with the same arguments whichever the tier."""
-    if _perlane(ts, p, primary):
-        return (_KERNELS["perlane_closest"],
-                functools.partial(_KERNELS["perlane_anyhit"],
-                                  order=rs.shadow_order))
-    return _KERNELS["closest"], _KERNELS["anyhit"]
+    tier = _tier(ts, p, primary)
+    if tier == "pallas":
+        return _KERNELS["closest"], _KERNELS["anyhit"]
+    return (_KERNELS[f"{tier}_closest"],
+            functools.partial(_KERNELS[f"{tier}_anyhit"],
+                              order=rs.shadow_order))
 
 
 def _count(stats, key, mask):

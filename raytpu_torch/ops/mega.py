@@ -1,5 +1,5 @@
-"""Culling prepass of the per-lane tier (counterpart of
-``raytpu/ops/mega.py:125-195`` and ``:347-554``).
+"""Culling prepass of the per-lane and consensus tiers, and their link
+tables (counterpart of ``raytpu/ops/mega.py:125-317`` and ``:347-554``).
 
 Per sweep, the rays of a wave are grouped into blocks of ``BLOCK_PACKETS``
 packets, relative to the wave's first packet. :func:`block_stats` (K7, the
@@ -9,7 +9,10 @@ values; :func:`chunk_block_hits` turns the rows into a conservative
 entry's mean entry depth; :func:`entry_perm` orders the entries. The
 per-lane sweeps (``ops/perlane.py``) skip the entries a lane's block misses
 and walk each entry near child first with the block's octant, along the
-links :func:`octant_links` threads per octant.
+links :func:`octant_links` threads per octant; the consensus sweeps
+(``ops/consensus.py``) walk the same schedule along the wide links
+:func:`mesh_wide_links` makes of them (:func:`widen_octant_links`, with
+the treelet roots of :func:`treelet_partition` kept).
 
 Everything after the stats row is plain PyTorch on the device, a few tens
 of small ops per sweep with no host sync, as it is plain XLA in the JAX
@@ -98,6 +101,108 @@ def mesh_octant_links(aabb_min, aabb_max, first, miss, node_ranges):
     pairs = [octant_links(aabb_min[b:b + n], aabb_max[b:b + n],
                           first[b:b + n], miss[b:b + n])
              for b, n in node_ranges]
+    return tuple(np.ascontiguousarray(np.concatenate(x, axis=1))
+                 for x in zip(*pairs))
+
+
+# the per-lane tier's treelet size cap (raytpu/ops/perlane.py:106): the
+# wide links keep the treelet roots that cap defines
+NODE_CAP = 127
+# interior levels kept by the wide links: every other one, a stackless BVH4
+# (raytpu/ops/mega.py:268-276, MEGA_WIDE_STRIDE)
+WIDE_STRIDE = 2
+
+
+def treelet_partition(first: np.ndarray, miss: np.ndarray):
+    """Greedy DFS cut of one flat skip-link tree into subtrees of at most
+    ``NODE_CAP`` nodes (``raytpu/ops/perlane.py:215``): the subtree of node
+    ``i`` spans ``[i, miss[i])``. Returns ``(tid, n_treelets)``, ``tid[i]``
+    the treelet of node ``i`` or ``n_treelets`` for top-tree nodes."""
+    n = first.shape[0]
+    span = miss - np.arange(n)
+    tid = np.full(n, -1, np.int64)
+    nt = 0
+    i = 0
+    while i < n:
+        if span[i] <= NODE_CAP:
+            tid[i:miss[i]] = nt
+            nt += 1
+            i = miss[i]
+        else:
+            i += 1            # too big: a top node, descend
+    top = tid < 0
+    tid[top] = nt
+    assert not (top & (first >= 0)).any(), "leaf in top tree"
+    return tid, nt
+
+
+def widen_octant_links(succ: np.ndarray, skip: np.ndarray, first: np.ndarray,
+                       miss: np.ndarray, keep_extra: np.ndarray = None):
+    """Wide rethreading of one tree's per-octant links for the consensus
+    walk (``raytpu/ops/mega.py:198``): every interior node whose depth is
+    not a multiple of ``WIDE_STRIDE`` (and not in ``keep_extra``) leaves each
+    octant's threading, so a hit on a kept interior node continues at the
+    next kept node of the octant's preorder, its grandchild level. Leaves
+    stay, with their own box tests, and keep their preorder. Dropped nodes
+    get terminator links (they are unreachable). Returns ``(succ, skip)``,
+    each (8, n) int32.
+
+    The same values as raytpu's; the sequential parts (depths, the always-
+    hit walk) loop over Python lists and the rest is vectorized, so a tree
+    of 75,890 nodes threads in a fraction of a second."""
+    n = first.shape[0]
+    leaf = first >= 0
+    par = np.full(n, -1, np.int64)
+    ii = np.flatnonzero(~leaf)
+    if ii.size:
+        par[ii + 1] = ii
+        par[np.minimum(miss[ii + 1], n - 1)] = ii
+    par_l = par.tolist()
+    depth = [0] * n
+    for i in range(1, n):
+        if par_l[i] >= 0:
+            depth[i] = depth[par_l[i]] + 1
+    retained = leaf | (np.asarray(depth, np.int64) % WIDE_STRIDE == 0)
+    if keep_extra is not None:
+        retained |= keep_extra
+    pref = np.concatenate([[0], np.cumsum(retained)])
+    out_succ = np.full_like(succ, n)
+    out_skip = np.full_like(skip, n)
+    for o in range(OCTANTS):
+        # the octant's preorder: the always-hit walk, every node once
+        step = np.where(leaf, skip[o], succ[o]).tolist()
+        order = [0] * n
+        x = 0
+        for k in range(n):
+            order[k] = x
+            x = step[x]
+        assert x == n
+        order = np.asarray(order, np.int64)
+        filt = order[retained[order]]
+        # the first kept node after each kept node's subtree
+        j = np.arange(filt.size) + pref[miss[filt]] - pref[filt]
+        tgt_skip = np.where(j < filt.size, filt[np.minimum(j, filt.size - 1)], n)
+        out_skip[o, filt] = tgt_skip
+        # an interior subtree holds kept leaves: its next kept node in
+        # preorder lies inside it
+        out_succ[o, filt] = np.where(leaf[filt], tgt_skip,
+                                     np.append(filt[1:], n))
+    return out_succ.astype(np.int32), out_skip.astype(np.int32)
+
+
+def mesh_wide_links(succ, skip, first, miss, node_ranges):
+    """:func:`widen_octant_links` of every traversal mesh's slice of the
+    (8, M) octant links ``succ``/``skip`` (:func:`mesh_octant_links`),
+    keeping each mesh's treelet roots threaded, as ``pack_mega_tables``
+    does (``raytpu/ops/mega.py:304-317``), side by side: ``(succ, skip)``,
+    each (8, M) int32, mesh-local like ``bvh_miss``."""
+    pairs = []
+    for b, n in node_ranges:
+        f, m = first[b:b + n], miss[b:b + n]
+        tid, nt = treelet_partition(f, m)
+        roots = (tid < nt) & np.concatenate([[True], tid[1:] != tid[:-1]])
+        pairs.append(widen_octant_links(succ[:, b:b + n], skip[:, b:b + n],
+                                        f, m, keep_extra=roots))
     return tuple(np.ascontiguousarray(np.concatenate(x, axis=1))
                  for x in zip(*pairs))
 

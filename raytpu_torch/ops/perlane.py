@@ -59,10 +59,11 @@ def prepass(ts: TorchScene, rays: torch.Tensor, window: torch.Tensor,
     return bits.index_select(0, perm), octs, entries
 
 
-def _launch_operands(k: str, ts: TorchScene, rays, bits, octs, entries):
-    """The operands the two C entry points share after the per-call ones:
-    the lanes per block, the bitmask, octants and links, then the tables
-    with the entries in walk order."""
+def _launch_operands(k: str, ts: TorchScene, rays, schedule, links):
+    """The operands the C entry points share after the per-call ones: the
+    lanes per block, the bitmask, octants and ``links`` (succ, skip), then
+    the tables with the entries in walk order."""
+    bits, octs, entries = schedule
     m = ts.bvh_aabb_min.shape[0]
     c = _build.check_operand
     i32 = torch.int32
@@ -70,8 +71,8 @@ def _launch_operands(k: str, ts: TorchScene, rays, bits, octs, entries):
         BLOCK_PACKETS * rays.shape[2],
         c(k, "bits", bits, None, i32), bits.shape[1],
         c(k, "octs", octs, (rays.shape[1] // BLOCK_PACKETS,), i32),
-        c(k, "oct_succ", ts.oct_succ, (8, m), i32),
-        c(k, "oct_skip", ts.oct_skip, (8, m), i32), m,
+        c(k, "succ", links[0], (8, m), i32),
+        c(k, "skip", links[1], (8, m), i32), m,
         *table_ptrs(k, ts, entries),
     )
 
@@ -91,16 +92,21 @@ def perlane_closest_sweep(ts: TorchScene, rays: torch.Tensor, tmin: float,
 
 
 def launch_closest(ts: TorchScene, rays: torch.Tensor, tmin: float,
-                   state: torch.Tensor, schedule) -> torch.Tensor:
-    """K1 alone, on a :func:`prepass` ``schedule`` of these rays."""
-    k = "perlane_closest_sweep"
+                   state: torch.Tensor, schedule,
+                   kernel: str = "perlane_closest_sweep",
+                   links=None) -> torch.Tensor:
+    """K1 alone, on a :func:`prepass` ``schedule`` of these rays; or
+    ``kernel``, a sweep with K1's arguments, along ``links`` (succ, skip)
+    in place of the scene's octant links."""
+    k = kernel
     t = ts.bvh_tri_v0.shape[0]
     _build.launch(
         k,
         *_build.check_planes(k, "rays", rays, (6, *rays.shape[1:])),
         *_build.check_planes(k, "state", state, (9, *rays.shape[1:])),
         rays[0].numel(), float(tmin),
-        *_launch_operands(k, ts, rays, *schedule),
+        *_launch_operands(k, ts, rays, schedule,
+                          links or (ts.oct_succ, ts.oct_skip)),
         _build.check_operand(k, "bvh_tri_n_soa", ts.bvh_tri_n_soa, (9, t)),
         t,
     )
@@ -123,17 +129,20 @@ def perlane_anyhit_sweep(ts: TorchScene, rays: torch.Tensor, tmin: float,
 
 
 def launch_anyhit(ts: TorchScene, rays: torch.Tensor, tmin: float,
-                  tmax: torch.Tensor, occ: torch.Tensor,
-                  schedule) -> torch.Tensor:
-    """K2 alone, on a :func:`prepass` ``schedule`` of these rays."""
-    k = "perlane_anyhit_sweep"
+                  tmax: torch.Tensor, occ: torch.Tensor, schedule,
+                  kernel: str = "perlane_anyhit_sweep",
+                  links=None) -> torch.Tensor:
+    """K2 alone, on a :func:`prepass` ``schedule`` of these rays; or
+    ``kernel`` along ``links``, as for :func:`launch_closest`."""
+    k = kernel
     _build.launch(
         k,
         *_build.check_planes(k, "rays", rays, (6, *rays.shape[1:])),
         _build.check_operand(k, "tmax", tmax, rays.shape[1:]),
         _build.check_operand(k, "occ", occ, rays.shape[1:], torch.int32),
         rays[0].numel(), float(tmin),
-        *_launch_operands(k, ts, rays, *schedule),
+        *_launch_operands(k, ts, rays, schedule,
+                          links or (ts.oct_succ, ts.oct_skip)),
     )
     return occ
 
@@ -142,18 +151,21 @@ def launch_anyhit(ts: TorchScene, rays: torch.Tensor, tmin: float,
 # plain versions
 # ---------------------------------------------------------------------------
 
-def _plain_schedule(ts: TorchScene, rays, window, tmin: float, order: str):
+def plain_schedule(ts: TorchScene, rays, window, tmin: float, order: str,
+                   links=None):
     """The prepass through K7's plain version, as the plain walks take it:
     entry rows in walk order, which lanes walk each row (E, P*K) bool, and
-    the links at each lane's block octant."""
+    the ``links`` (succ, skip; default the scene's octant links) at each
+    lane's block octant."""
     p, k = rays.shape[1:]
     check_blocks("per-lane sweep", p)
+    succ, skip = links or (ts.oct_succ, ts.oct_skip)
     bits, octs, entries = prepass(ts, rays, window, tmin, order, block_stats_ref)
     block = torch.arange(p * k, device=rays.device) // (BLOCK_PACKETS * k)
     walks = ((bits[:, block >> 5].long() >> (block & 31)) & 1).bool()
-    base = octs.long()[block] * ts.oct_succ.shape[1]
-    links = (ts.oct_succ.reshape(-1), ts.oct_skip.reshape(-1), base)
-    return entries.cpu().tolist(), walks, links
+    base = octs.long()[block] * succ.shape[1]
+    return (entries.cpu().tolist(), walks,
+            (succ.reshape(-1), skip.reshape(-1), base))
 
 
 def perlane_closest_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
@@ -162,7 +174,7 @@ def perlane_closest_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
     """Plain PyTorch :func:`perlane_closest_sweep`: the plain closest walk
     (``ops/traverse.closest_ref``) with the per-lane schedule. ``slots``
     and ``counts`` as for ``traverse.closest_sweep_ref``."""
-    rows, walks, links = _plain_schedule(ts, rays, state[ST_T], tmin, "origin")
+    rows, walks, links = plain_schedule(ts, rays, state[ST_T], tmin, "origin")
     return closest_ref(ts, rays, tmin, state, rows, walks, links, slots, counts)
 
 
@@ -171,5 +183,5 @@ def perlane_anyhit_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
                              order: str = "light",
                              counts=None) -> torch.Tensor:
     """Plain PyTorch :func:`perlane_anyhit_sweep`."""
-    rows, walks, links = _plain_schedule(ts, rays, tmax, tmin, order)
+    rows, walks, links = plain_schedule(ts, rays, tmax, tmin, order)
     return anyhit_ref(ts, rays, tmin, tmax, occ, rows, walks, links, counts)

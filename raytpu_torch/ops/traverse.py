@@ -176,7 +176,7 @@ def rows_bytes(counts) -> int:
 
 def _walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
           tmin: float, window: torch.Tensor, on_hit, counts=None,
-          links=None) -> None:
+          links=None, groups=None) -> None:
     """Lock-step skip-link walk of one entry's tree for all lanes of ``o``
     (component tuples of (L,) tensors). ``window`` (L,) is the open upper
     bound, updated in place by ``on_hit(lanes, slot, t, u, v, hit)``, which
@@ -192,11 +192,22 @@ def _walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
     With ``links = (succ, skip, base)`` it takes flat per-octant tables
     (``ops/mega.octant_links``) at each lane's offset ``base`` (L,): a hit
     continues at ``succ[base + g]``, a miss or a leaf at ``skip[base + g]``
-    (``g`` the node's row in the concatenated tables)."""
+    (``g`` the node's row in the concatenated tables).
+
+    Without ``groups`` each lane walks alone: a leaf's triangles are tested
+    on arrival, an inner node descends on the lane's own box test. With
+    ``groups`` (L,) int64, the lanes of a group walk as one, the consensus
+    walk of ``csrc/walk.cuh`` (``kWarp``): each lane tests the box of every
+    node, leaves included, and the group descends, or tests the leaf for
+    all its lanes, where any of their boxes hit. A lane that stops leaves
+    its group, whose vote it no longer changes."""
     dev = window.device
     m = ts.bvh_tri_first.shape[0]
     lanes = torch.arange(window.shape[0], device=dev)
     node = torch.zeros_like(lanes)
+    if groups is not None:
+        _, gid = torch.unique(groups, return_inverse=True)
+        n_groups = int(gid.max()) + 1
     while lanes.numel():
         if counts is not None:
             counts["nodes"] = counts.get("nodes", 0) + lanes.numel()
@@ -204,29 +215,40 @@ def _walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
         first = ts.bvh_tri_first[g].long()
         if links is None:
             skip = ts.bvh_miss[g].long()
+            succ = node + 1
         else:
             at = links[2][lanes] + g
             skip = links[1][at].long()
+            succ = links[0][at].long()
         leaf = first >= 0
-        nxt = skip.clone()
 
-        inner = ~leaf
-        if bool(inner.any()):
-            li, gi = lanes[inner], g[inner]
-            box = slab(
+        def box(sel):
+            li, gi = lanes[sel], g[sel]
+            return slab(
                 tuple(x[li] for x in o), tuple(x[li] for x in d_inv),
                 tuple(ts.bvh_aabb_min[gi, a] for a in range(3)),
                 tuple(ts.bvh_aabb_max[gi, a] for a in range(3)),
                 tmin, window[li],
             )
-            succ = node[inner] + 1 if links is None else links[0][at[inner]].long()
-            nxt[inner] = torch.where(box, succ, skip[inner])
+
+        if groups is None:
+            boxed = ~leaf
+            go = leaf.clone()
+            if bool(boxed.any()):
+                go[boxed] = box(boxed)
+        else:
+            boxed = torch.ones_like(leaf)
+            gl = gid[lanes]
+            hits = torch.zeros(n_groups, dtype=torch.int32, device=dev)
+            go = hits.index_add_(0, gl, box(boxed).int())[gl] > 0
+        descend = go & ~leaf
+        test = go & leaf
+        nxt = torch.where(descend, succ, skip)
 
         if counts is not None and "rows" in counts:
-            descend = nxt != skip       # lanes that took the succ link
             _read_rows(counts, "bvh_tri_first", g, m)
-            _read_rows(counts, "bvh_aabb", g[inner], m)
-            _read_rows(counts, "bvh_tri_count", g[leaf], m)
+            _read_rows(counts, "bvh_aabb", g[boxed], m)
+            _read_rows(counts, "bvh_tri_count", g[test], m)
             if links is None:
                 _read_rows(counts, "bvh_miss", g[~descend], m)
             else:
@@ -234,8 +256,8 @@ def _walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
                 _read_rows(counts, "oct_succ", at[descend], links[0].numel())
 
         stop = torch.zeros_like(leaf)
-        if bool(leaf.any()):
-            lf = leaf.nonzero().squeeze(1)
+        if bool(test.any()):
+            lf = test.nonzero().squeeze(1)
             ll, f, cnt = lanes[lf], first[lf], ts.bvh_tri_count[g[lf]].long()
             for k in range(ts.leaf_max):
                 sel = k < cnt
@@ -260,13 +282,14 @@ def _walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
 
 def closest_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
                 state: torch.Tensor, rows, walks=None, links=None,
-                slots=None, counts=None) -> torch.Tensor:
+                slots=None, counts=None, consensus: int = 0) -> torch.Tensor:
     """The plain closest sweep over the entry ``rows`` (inst, mat,
     node_base, node_count, tri_base) in walk order. ``walks`` (E, P*K)
     bool, if given, says which lanes walk which row (others skip it);
     ``links`` (succ, skip, base) with ``base`` (P*K,) per lane, if given,
-    replace build order (:func:`_walk`). ``slots`` and ``counts`` as for
-    :func:`closest_sweep_ref`."""
+    replace build order (:func:`_walk`); ``consensus`` > 0 makes each run of
+    that many consecutive lanes a group of the consensus walk. ``slots``
+    and ``counts`` as for :func:`closest_sweep_ref`."""
     flat = state.reshape(9, -1)  # a copy if state is a strided wave
     rflat = rays.reshape(6, -1)
     live = (flat[ST_T] > tmin).nonzero().squeeze(1)
@@ -304,7 +327,8 @@ def closest_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
             return torch.zeros_like(hit)
 
         _walk(ts, nb, nc, tb, o, d, d_inv, tmin, win, on_hit, counts,
-              None if links is None else (*links[:2], links[2][live[sub]]))
+              None if links is None else (*links[:2], links[2][live[sub]]),
+              live[sub] // consensus if consensus else None)
         bt[sub] = win
 
         won = (bs >= 0).nonzero().squeeze(1)
@@ -342,10 +366,10 @@ def closest_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
 
 def anyhit_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
                tmax: torch.Tensor, occ: torch.Tensor, rows, walks=None,
-               links=None, counts=None) -> torch.Tensor:
+               links=None, counts=None, consensus: int = 0) -> torch.Tensor:
     """The plain shadow sweep over the entry ``rows`` in walk order; a lane
-    stops at its first hit and skips the remaining rows. ``walks`` and
-    ``links`` as for :func:`closest_ref`."""
+    stops at its first hit and skips the remaining rows. ``walks``,
+    ``links`` and ``consensus`` as for :func:`closest_ref`."""
     oflat = occ.reshape(-1)
     tflat = tmax.reshape(-1)
     rflat = rays.reshape(6, -1)
@@ -365,7 +389,8 @@ def anyhit_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
             return hit
 
         _walk(ts, nb, nc, tb, o, d, d_inv, tmin, tflat[lanes].clone(), on_hit,
-              counts, None if links is None else (*links[:2], links[2][lanes]))
+              counts, None if links is None else (*links[:2], links[2][lanes]),
+              lanes // consensus if consensus else None)
         oflat[lanes[found]] = 1
         pending[lanes[found]] = False
     if oflat.data_ptr() != occ.data_ptr():

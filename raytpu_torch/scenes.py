@@ -17,7 +17,12 @@ through the fused, compacted bounce loop.
   without their files: ``generate_highpoly(depth=4)``, scaled to the
   teapot's extent, for ``teapot.obj``; ``armadillo_standin(depth=7)``
   (327,680 triangles) for the armadillo; a generated 6x1024x1024 sky for
-  the sea skybox.
+  the sea skybox;
+* :func:`config2_standin` / :func:`config3_standin`: the presets
+  ``config2`` and ``config3`` (``raytpu/presets.py:38,51``), the mirror
+  teapot stand-in alone, and :func:`cornell_mesh` (open walls and three
+  boxes in one refractive mesh) for ``cube_scene.obj``, in front of the
+  same sky. Both resolve to the consensus tier.
 """
 
 from __future__ import annotations
@@ -128,6 +133,89 @@ def tie_scene(width=128, height=96, **config) -> Scene:
     return load_scene(cfg, meshes=[box_mesh((0, 0, 0), 1.0),
                                    box_mesh((0, 0, 0), 1.0)],
                       skybox=procedural_skybox(16))
+
+
+def _quad_mesh(quads, name: str) -> Mesh:
+    """Quads (Q, 4, 3), corners in order around each face, as a mesh of 2Q
+    triangles with flat normals (each quad has its own four vertices, as
+    ``cube.obj`` duplicates its corners); the normal is the right-hand one
+    of the corner order."""
+    q = np.asarray(quads, np.float32)
+    n = np.cross(q[:, 1] - q[:, 0], q[:, 2] - q[:, 0])
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    base = 4 * np.arange(q.shape[0], dtype=np.int32)[:, None]
+    tris = np.concatenate([base + [0, 1, 2], base + [0, 2, 3]], axis=1)
+    return Mesh(positions=q.reshape(-1, 3), normals=np.repeat(n, 4, axis=0),
+                triangles=tris.reshape(-1, 3), name=name)
+
+
+def _box_quads(center, half, yaw: float = 0.0, inward: bool = False):
+    """The six faces of a box (half extents ``half``) turned by ``yaw``
+    radians about y, normals outward (or ``inward``)."""
+    c, h = np.asarray(center, np.float64), np.asarray(half, np.float64)
+    rot = np.array([[np.cos(yaw), 0.0, np.sin(yaw)], [0.0, 1.0, 0.0],
+                    [-np.sin(yaw), 0.0, np.cos(yaw)]])
+    quads = []
+    for a in range(3):
+        u, v = (a + 1) % 3, (a + 2) % 3
+        for sign in (1.0, -1.0):
+            corners = []
+            for cu, cv in ((-1, -1), (1, -1), (1, 1), (-1, 1)):
+                p = np.zeros(3)
+                p[a], p[u], p[v] = sign * h[a], cu * h[u], cv * h[v]
+                corners.append(p)
+            if (sign < 0) != inward:   # corner order sets the normal
+                corners.reverse()
+            quads.append(c + np.asarray(corners) @ rot.T)
+    return quads
+
+
+def cornell_mesh() -> Mesh:
+    """A Cornell-box-like scene as one mesh (``cube_scene.obj``: eight
+    objects, 42 faces): five walls of a 12 x 10 x 12 room open toward the
+    default camera, normals inward, and three boxes inside it, a tall and
+    a short one turned about y and a cube above them; 23 quads, 46
+    triangles. Seen from the default camera it fills the middle of the
+    frame, and at 3 bounces some refracted paths end in total internal
+    reflection."""
+    room = _box_quads((0.0, 0.0, -4.0), (6.0, 5.0, 6.0), inward=True)
+    del room[4]                                   # the +z face: open
+    # the boxes stand sunk 0.2 into the floor: no face of theirs lies in a
+    # wall's plane, where two triangles would tie at the same t
+    boxes = (_box_quads((-2.2, -2.2, -6.0), (1.4, 3.0, 1.4), yaw=0.3)
+             + _box_quads((2.4, -3.7, -2.5), (1.5, 1.5, 1.5), yaw=-0.3)
+             + _box_quads((1.0, 2.2, -5.0), (0.9, 0.9, 0.9), yaw=0.6))
+    return _quad_mesh(room + boxes, "cornell_standin")
+
+
+def config2_standin(sky_size: int = 1024, **config) -> Scene:
+    """config2's shape (``raytpu/presets.py:38``): the mirror teapot
+    stand-in (``generate_highpoly(depth=4)`` at the teapot's extent, 5,120
+    triangles; ``teapot.obj`` has 2,256), ``static``, in front of the
+    generated 6x1024x1024 sky; 800x600, 4 spp, 2 bounces. ``sky_size`` and
+    ``config`` (RenderConfig fields) cut it down for tests."""
+    cfg = RenderConfig(
+        objects=(ObjectConfig("generated://highpoly4", MaterialType.MIRROR,
+                              "static"),),
+        width=800, height=600, samples_per_pixel=4, max_bounce_count=2,
+    ).replace(**config)
+    return load_scene(cfg, meshes=[generate_highpoly(
+        depth=4, radius=TEAPOT_RADIUS, name="teapot_standin")],
+        skybox=procedural_skybox(sky_size))
+
+
+def config3_standin(sky_size: int = 1024, **config) -> Scene:
+    """config3's shape (``raytpu/presets.py:51``): :func:`cornell_mesh`,
+    refractive and ``static``, in front of the generated sky; 1280x720,
+    4 spp, 3 bounces. ``sky_size`` and ``config`` as for
+    :func:`config2_standin`."""
+    cfg = RenderConfig(
+        objects=(ObjectConfig("generated://cornell", MaterialType.REFRACTIVE,
+                              "static"),),
+        width=1280, height=720, samples_per_pixel=4, max_bounce_count=3,
+    ).replace(**config)
+    return load_scene(cfg, meshes=[cornell_mesh()],
+                      skybox=procedural_skybox(sky_size))
 
 
 def _standin(width, height, bounces) -> Scene:

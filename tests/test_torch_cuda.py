@@ -14,7 +14,7 @@ import torch
 
 from raytpu_torch import _build, scenes
 from raytpu_torch.integrator import plain_kernels, render_frame
-from raytpu_torch.ops import epilogue, mega, perlane, raygen, sky, traverse
+from raytpu_torch.ops import consensus, epilogue, mega, perlane, raygen, sky, traverse
 from raytpu_torch.render import Renderer
 
 pytestmark = pytest.mark.cuda
@@ -78,28 +78,33 @@ def test_raygen_and_sky(rig):
 
 
 def test_frame_goes_through_kernels(rig):
-    """The chained-tier frame (auto -> mega on this scene) and the per-lane
-    frame together launch every kernel, each tier its own sweeps, and
-    render the same pixels."""
+    """The default frame (auto -> mega on this scene), the chained-tier and
+    the per-lane frames together launch every kernel, each tier its own
+    sweeps, and render the same pixels."""
     r, _ = rig
     assert r.tscene.auto_tier == "mega"
-    ts_pl = dataclasses.replace(r.tscene, traversal="perlane")
     counts, imgs = {}, {}
-    for name, ts in (("pallas", r.tscene), ("perlane", ts_pl)):
+    for trav in ("auto", "pallas", "perlane"):
+        ts = dataclasses.replace(r.tscene, traversal=trav)
         _build.reset_launch_counts()
-        imgs[name] = render_frame(ts, r.render_static, r.camera_tensor())
-        counts[name] = _build.launch_counts()
-    per_lane = ("block_stats", "perlane_closest_sweep", "perlane_anyhit_sweep")
-    chained = ("closest_sweep", "anyhit_sweep")
-    assert all(counts["pallas"][k] == 0 for k in per_lane), counts
-    assert all(counts["perlane"][k] == 0 for k in chained), counts
-    assert all(counts["pallas"][k] + counts["perlane"][k] > 0
+        imgs[trav] = render_frame(ts, r.render_static, r.camera_tensor())
+        counts[trav] = _build.launch_counts()
+    sweeps = {"auto": ("block_stats", "mega_closest_sweep", "mega_anyhit_sweep"),
+              "pallas": ("closest_sweep", "anyhit_sweep"),
+              "perlane": ("block_stats", "perlane_closest_sweep",
+                          "perlane_anyhit_sweep")}
+    every = {k for names in sweeps.values() for k in names}
+    for trav, names in sweeps.items():
+        assert all(counts[trav][k] > 0 for k in names), counts
+        assert all(counts[trav][k] == 0 for k in every - set(names)), counts
+    assert all(sum(c[k] for c in counts.values()) > 0
                for k in _build.KERNELS), counts
-    assert torch.equal(imgs["pallas"], imgs["perlane"])
+    assert torch.equal(imgs["auto"], imgs["pallas"])
+    assert torch.equal(imgs["perlane"], imgs["pallas"])
     with plain_kernels():
-        plain = render_frame(ts_pl, r.render_static, r.camera_tensor())
-    assert torch.isfinite(imgs["perlane"]).all()
-    assert (imgs["perlane"] - plain).abs().max() <= 1e-2  # raygen sinf ulps
+        plain = render_frame(r.tscene, r.render_static, r.camera_tensor())
+    assert torch.isfinite(imgs["auto"]).all()
+    assert (imgs["auto"] - plain).abs().max() <= 1e-2  # raygen sinf ulps
 
 
 def _wave_inputs(r, rays, p0, b):
@@ -192,6 +197,40 @@ def test_perlane_sweeps_bitwise(rig, strided):
         plain = perlane.perlane_anyhit_sweep_ref(ts, wave, 1e-3, tmax,
                                                  occ.clone(), order)
         assert torch.equal(got, plain) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("strided", [False, True])
+def test_consensus_sweeps_bitwise(rig, strided):
+    """K8/K9 against their plain versions and against K10a/K10b and K1/K2,
+    bit for bit, on a whole buffer and on a strided wave."""
+    r, rays = rig
+    ts = r.tscene
+    p0, b = (8, 8) if strided else (0, rays.shape[1])
+    wave = rays[:, p0:p0 + b]
+    win = torch.full(wave.shape[1:], 1e4, device="cuda")
+    win.view(-1)[::5] = 0.0
+    win[:, :64] = 0.0                  # two dead warps in every packet
+    st = traverse.make_trace_state(win)
+    got = consensus.mega_closest_sweep(ts, wave, 1e-3, st.clone())
+    for want in (consensus.mega_closest_sweep_ref(ts, wave, 1e-3, st.clone()),
+                 traverse.closest_sweep(ts, wave, 1e-3, st.clone()),
+                 perlane.perlane_closest_sweep(ts, wave, 1e-3, st.clone())):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (got[traverse.ST_VALID].view(torch.int32) != 0).float().mean() > 0.2
+
+    tmax = win * 0.002
+    occ = torch.zeros(wave.shape[1:], dtype=torch.int32, device="cuda")
+    occ[:, 100:140] = 1                  # OR-merge keeps these
+    want = traverse.anyhit_sweep(ts, wave, 1e-3, tmax, occ.clone())
+    assert (want != occ).any()
+    for order in ("light", "origin"):
+        got = consensus.mega_anyhit_sweep(ts, wave, 1e-3, tmax, occ.clone(),
+                                          order)
+        for other in (consensus.mega_anyhit_sweep_ref(ts, wave, 1e-3, tmax,
+                                                      occ.clone(), order),
+                      perlane.perlane_anyhit_sweep(ts, wave, 1e-3, tmax,
+                                                   occ.clone(), order), want):
+            assert torch.equal(got, other)
 
 
 def _ulps(a, b):

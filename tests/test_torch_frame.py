@@ -19,9 +19,10 @@ Both packages render one host scene (``tests/torch_twin.py``).
 (b) End to end: the port's ``Renderer.render_np()`` against raytpu's
     ``Renderer`` frame, SSIM > 0.98 (the goldens' bar).
 (c) The kernel tiers: (a) at 32x32 against raytpu with ``traversal="pallas"``
-    (the chained Pallas kernels, interpret mode) and ``"perlane"`` (the
-    port's per-lane sweeps; raytpu's per-lane kernels run only on a TPU,
-    so off it raytpu renders the same function through its chained tier).
+    (the chained Pallas kernels, interpret mode), ``"perlane"`` and
+    ``"mega"`` (the port's per-lane and consensus sweeps; raytpu's per-lane
+    and megakernel tiers run only on a TPU, so off it raytpu renders the
+    same function through its chained tier).
 
 Tolerances. XLA:CPU contracts ``a*b + c`` into fused multiply-adds; the
 port rounds every operation. The hits agree, but t differs by a few ulps
@@ -158,7 +159,7 @@ def test_renderer_frame_ssim_against_raytpu():
     assert ssim(got, want) > 0.98
 
 
-@pytest.mark.parametrize("traversal", ["pallas", "perlane"])
+@pytest.mark.parametrize("traversal", ["pallas", "perlane", "mega"])
 def test_kernel_tier_frame_matches(traversal):
     got, want = _same_rays_frames(32, 32, 1, 2, scene_fn=scenes.two_box_scene,
                                   tier=traversal, traversal=traversal)

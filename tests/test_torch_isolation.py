@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from raytpu_torch import _build, scenes
-from raytpu_torch.ops import epilogue, mega, perlane, raygen, sky, traverse
+from raytpu_torch.ops import consensus, epilogue, mega, perlane, raygen, sky, traverse
 from raytpu_torch.render import Renderer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -40,7 +40,7 @@ def test_port_never_imports_jax():
         "mods = [m.name for m in pkgutil.walk_packages("
         "raytpu_torch.__path__, 'raytpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 24, mods\n"
+        "assert len(mods) >= 25 and 'raytpu_torch.ops.consensus' in mods, mods\n"
     )
 
 
@@ -125,6 +125,13 @@ def test_cpu_wrappers_take_plain_path(small):
     assert torch.equal(
         perlane.perlane_anyhit_sweep(ts, prays, 1e-3, pwin, pocc.clone()),
         perlane.perlane_anyhit_sweep_ref(ts, prays, 1e-3, pwin, pocc.clone()))
+    # and the consensus tier's
+    got = consensus.mega_closest_sweep(ts, prays, 1e-3, pst.clone())
+    want = consensus.mega_closest_sweep_ref(ts, prays, 1e-3, pst.clone())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(
+        consensus.mega_anyhit_sweep(ts, prays, 1e-3, pwin, pocc.clone()),
+        consensus.mega_anyhit_sweep_ref(ts, prays, 1e-3, pwin, pocc.clone()))
 
     img = r.render_np()
     assert np.isfinite(img).all()
@@ -168,6 +175,12 @@ def test_non_cpu_tensor_needs_cuda(small):
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         perlane.perlane_anyhit_sweep(r.tscene, prays, 1e-3, pwin,
                                      pwin.to(torch.int32))
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        consensus.mega_closest_sweep(r.tscene, prays, 1e-3,
+                                     state.repeat(1, 4, 1))
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        consensus.mega_anyhit_sweep(r.tscene, prays, 1e-3, pwin,
+                                    pwin.to(torch.int32))
     assert _build.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
 
 

@@ -10,9 +10,12 @@ raytpu's own chunked ``bvh_*`` arrays (``from_raytpu``), on 8 packets x
 
 The per-lane tier's plain sweeps (``perlane_closest_sweep_ref``,
 ``perlane_anyhit_sweep_ref``: K1 and K2's function, culled by block,
-entries reordered, walks near child first) are held to the same bars as
-further cases: the per-lane Pallas kernels run only on a TPU, where
-``raytpu.bench.bit_identity_check`` holds them to this same chain.
+entries reordered, walks near child first) and the consensus tier's
+(``mega_closest_sweep_ref``, ``mega_anyhit_sweep_ref``: K8 and K9's, the
+same schedule, warps walking the wide links) are held to the same bars as
+further cases: the per-lane and megakernel Pallas kernels run only on a
+TPU, where ``raytpu.bench.bit_identity_check`` holds them to this same
+chain.
 
 The chains call raytpu's kernels ``_closest_kernel3``/``_anyhit_kernel3``
 through the ``pallas_call`` of ``pallas_*_chain`` with each entry's tables
@@ -48,7 +51,7 @@ from raytpu.ops import traverse_pallas as tp
 from raytpu.render import Renderer as JaxRenderer
 from raytpu_torch import scenes
 from raytpu_torch.device_scene import from_raytpu
-from raytpu_torch.ops import perlane, traverse
+from raytpu_torch.ops import consensus, perlane, traverse
 from tests.torch_twin import raytpu_twin
 
 P, K = 8, tp.PACKET_K
@@ -191,12 +194,14 @@ def _within_ulps(a, b, n):
 
 
 CLOSEST = {"chained": traverse.closest_sweep_ref,
-           "perlane": perlane.perlane_closest_sweep_ref}
+           "perlane": perlane.perlane_closest_sweep_ref,
+           "consensus": consensus.mega_closest_sweep_ref}
 ANYHIT = {"chained": traverse.anyhit_sweep_ref,
-          "perlane": perlane.perlane_anyhit_sweep_ref}
+          "perlane": perlane.perlane_anyhit_sweep_ref,
+          "consensus": consensus.mega_anyhit_sweep_ref}
 
 
-@pytest.mark.parametrize("sweep", ["chained", "perlane"])
+@pytest.mark.parametrize("sweep", ["chained", "perlane", "consensus"])
 def test_closest_ref_matches_pallas_chain_and_bvh_closest(rig, sweep):
     ts, jax_side = rig
     rays, win, _ = _inputs()
@@ -226,7 +231,7 @@ def test_closest_ref_matches_pallas_chain_and_bvh_closest(rig, sweep):
         np.where(hit, gi[traverse.ST_INST], -1).ravel(), jax_side["inst"])
 
 
-@pytest.mark.parametrize("sweep", ["chained", "perlane"])
+@pytest.mark.parametrize("sweep", ["chained", "perlane", "consensus"])
 def test_anyhit_ref_matches_pallas_chain(rig, sweep):
     ts, jax_side = rig
     rays, _, tmax = _inputs()
