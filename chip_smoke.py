@@ -5,10 +5,12 @@
     python3 chip_smoke.py --profile DIR  # profiler tables into DIR
                                          # (default build/profile/)
 
-Builds the eleven hand-written CUDA kernels from ``raytpu_torch/csrc`` and
-the BVHs, holds every kernel against its plain PyTorch version on the card
-at the main path's shapes (and the per-lane sweeps K1/K2 and the consensus
-sweeps K8/K9 against the chained sweeps K10a/K10b, bit for bit), then
+Builds the thirteen hand-written CUDA kernels from ``raytpu_torch/csrc``
+and the BVHs (the teapot stand-in's tree checked against a digest of the
+tree raytpu builds), holds every kernel against its plain PyTorch version
+on the card at the main path's shapes (and the per-lane sweeps K1/K2, the
+consensus sweeps K8/K9 and the per-(instance, mesh) loop on the one-mesh
+walks K11a/K11b against the chained sweeps K10a/K10b, bit for bit), then
 renders through ``Renderer`` on the default fused and compacted bounce
 loop:
 
@@ -23,6 +25,12 @@ loop:
   pallas-tier frame of the same pose (only exact ties may differ);
 * two config4 frames through the eager ``fused="off"`` body and two
   through the fused loop at full width (no compaction);
+* two config4 frames with ``traversal="xla"``, which the JAX package renders
+  through its XLA body whatever ``fused`` says: the compacted body
+  (``body_compact``) on the per-(instance, mesh) loop, which must launch
+  K11a/K11b and no packed sweep, prepass or fused shading kernel; from the
+  same primary rays the frame within 1e-5 of the fused pallas-tier frame;
+  one profiled frame;
 * the reference-default stand-in (800x600, 4 spp, 63 bounces), per-lane;
 * the config3 and config2 stand-ins (1280x720, 4 spp, 3 bounces,
   refractive Cornell-box mesh; 800x600, 4 spp, 2 bounces, mirror teapot
@@ -35,9 +43,12 @@ loop:
 * at 256x192 (P = 256, budget 64, so compaction engages): the compacted
   frame against the full-width fused frame and the chained and consensus
   tiers' frames (bit for bit), the eager frame from the same rays, and the
-  plain path (SSIM, and max abs diff from the same primary rays);
+  plain path (SSIM, and max abs diff from the same primary rays); the XLA
+  body's compacted frames against its full-width ones, bit for bit, on the
+  "xla", per-lane and pallas tiers;
 * the tie scene (two coincident boxes of different materials) through
-  every tier: no pixel may differ.
+  every tier ("xla" against the pallas tier through the same body): no
+  pixel may differ.
 
 Any failed check raises and exits non-zero. It imports nothing of JAX or
 raytpu.
@@ -45,8 +56,9 @@ raytpu.
 The last three lines: the frames and checks as one JSON object, the
 per-kernel JSON line (launches counted during the frames of the path that
 runs the kernel: the default config4 frames, the default config3 frames
-for K8/K9, or the config4 ``traversal="pallas"`` ones for K10a/K10b;
-errors against the plain versions, times, bounds), and
+for K8/K9, the config4 ``traversal="pallas"`` ones for K10a/K10b, or the
+config4 ``traversal="xla"`` ones for K11a/K11b; errors against the plain
+versions, times, bounds), and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -84,11 +96,23 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                            "raytpu/ops/mega.py:719"),
     "mega_anyhit_sweep": ("raytpu_torch/csrc/consensus.cu",
                           "raytpu/ops/mega.py:1090"),
+    "mesh_closest": ("raytpu_torch/csrc/traverse.cu",
+                     "raytpu/ops/traverse_pallas.py:115"),
+    "mesh_anyhit": ("raytpu_torch/csrc/traverse.cu",
+                    "raytpu/ops/traverse_pallas.py:217"),
 }
 CHAINED = ("closest_sweep", "anyhit_sweep")          # traversal="pallas"
 PER_LANE = ("block_stats", "perlane_closest_sweep", "perlane_anyhit_sweep")
 CONSENSUS = ("mega_closest_sweep", "mega_anyhit_sweep")  # after K7 ("mega")
+MESH = ("mesh_closest", "mesh_anyhit")    # traversal="xla", the XLA body
+FUSED = ("shade_epilogue", "accumulate_epilogue")    # the fused loop only
 SWEEP_PACKETS = 256
+# sha256 of the teapot stand-in's tree (generate_highpoly(depth=4,
+# radius=3.0), leaf size 12): its aabb_min, aabb_max, tri_first, tri_count,
+# miss and tri_order arrays, as raytpu's committed native library
+# (native/libraytpu_native.so) builds them. A host whose g++ contracts the
+# builder's float math otherwise builds another tree.
+TREE_DIGEST = "b54354457d7dfc75827a60170abac49920449bbe756799d910f4a2b5607d5f17"
 # Lanes (packet, lane) of the config4 stand-in's primary wave
 # (set_transforms(0.05), the raygen kernel's rays) where K1 and K10a keep two
 # different triangles of the armadillo stand-in hit at exactly the same t, a
@@ -513,6 +537,7 @@ def compare_kernels(r, gpu: str) -> dict:
           f"{counts['tests'] / live:.1f} triangle tests", flush=True)
 
     compare_perlane(ts, rays, win, st0, sk_, srays, tmax, occ0, ok_, res)
+    compare_meshwalk(ts, rays, win, srays, tmax, rk, act, res)
 
     # the closest kernels alone on the full primary wave, and K7 there
     full_win = torch.where(act, RAY_TMAX, 0.0).float()
@@ -543,6 +568,10 @@ def compare_kernels(r, gpu: str) -> dict:
         v = res[name]
         print(f"time {name} full primary wave {list(rk.shape)}: "
               f"{v['full_wave_ms']:.4f} ms [{gpu}]", flush=True)
+    v = res["mesh_closest"]
+    print(f"time closest_hit_loop (K11a per entry, the loop's PyTorch glue) full "
+          f"primary wave {list(rk.shape)}: {v['full_wave_ms']:.4f} ms; closest_hit_wave "
+          f"on K10a: {v['full_wave_chained_ms']:.4f} ms [{gpu}]", flush=True)
     for name in PER_LANE[1:]:
         print(f"time {name} prepass (K7 and the PyTorch schedule ops) on the "
               f"slice: {res[name]['prepass_ms']:.4f} ms [{gpu}]", flush=True)
@@ -669,6 +698,246 @@ def compare_perlane(ts, rays, win, st0, k10a, srays, tmax, occ0, k10b,
     print(f"perlane_anyhit {list(srays.shape)}: occ equal to its plain version and to "
           f"anyhit_sweep; plain walk per live ray: {work['nodes'] / live:.1f} node "
           f"visits, {work['tests'] / live:.1f} triangle tests", flush=True)
+
+
+def tree_digest(arrays) -> str:
+    """sha256 of a tree's ``(aabb_min (M, 3) f32, aabb_max, tri_first (M,)
+    int32, tri_count, miss, tri_order (T,) int32)`` numpy arrays, in that
+    order (:data:`TREE_DIGEST`)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def first_tree(ts):
+    """The first entry's tree of ``ts`` (the config4 stand-in's teapot,
+    whose prims start at 0) as :func:`tree_digest` takes it."""
+    _, _, nb, nc, tb = ts.entry_rows[0]
+    end = ts.entry_rows[1][4] if len(ts.entry_rows) > 1 else ts.bvh_tri_v0.shape[0]
+    return tuple(a.contiguous().cpu().numpy() for a in (
+        ts.bvh_aabb_min[nb:nb + nc], ts.bvh_aabb_max[nb:nb + nc],
+        ts.bvh_tri_first[nb:nb + nc], ts.bvh_tri_count[nb:nb + nc],
+        ts.bvh_miss[nb:nb + nc], ts.bvh_tri_prim[tb:end]))
+
+
+def mesh_walk_inputs(ts, rays, win, walk):
+    """What the loop hands the one-mesh walk ``walk`` (K11a's or K11b's
+    wrapper) per entry of ``ts``: ``(mesh, object-space rays, window)``, the
+    window narrowing from entry to entry as in the loop (closest walks; for
+    occlusion, occluded lanes close)."""
+    import torch
+    from raytpu_torch.config import RAY_TMIN
+    from raytpu_torch.ops import trace
+
+    out = []
+    for inst, _mat, nb, nc, tb in ts.entry_rows:
+        obj = trace.object_space(ts, inst, tuple(rays[:3]), tuple(rays[3:]))
+        out.append(((nb, nc, tb), obj, win))
+        res = walk(ts, (nb, nc, tb), obj, RAY_TMIN, win)
+        if isinstance(res, tuple):
+            win = torch.where((res[1] >= 0) & (res[0] < win), res[0], win)
+        else:
+            win = torch.where(res, 0.0, win)
+    return out
+
+
+def mesh_walks(ts, inputs, walk, **kw):
+    """``walk`` on each entry's inputs (:func:`mesh_walk_inputs`)."""
+    from raytpu_torch.config import RAY_TMIN
+
+    return [walk(ts, mesh, obj, RAY_TMIN, win, **kw) for mesh, obj, win in inputs]
+
+
+def mesh_lane_counts(ts, inputs, closest: bool) -> dict:
+    """The work of the one-mesh walks' inputs (:func:`mesh_walk_inputs`)
+    with each lane walking alone, as K10a's lanes do (no warp votes, a leaf
+    tested on arrival): node visits, triangle tests and the distinct table
+    rows read (the normal's rows too, for a closest walk), as the plain walk
+    counts them. That is what the function needs; the warp's votes add the
+    rest (the ``work`` of the JSON line)."""
+    from raytpu_torch.config import RAY_TMIN
+    from raytpu_torch.ops import traverse
+
+    counts = {"rows": {}}
+    for (nb, nc, tb), obj, win in inputs:
+        live, o, d, d_inv, _ = traverse._mesh_lanes(obj, RAY_TMIN, win)
+        if not live.numel():
+            continue
+        w = win.reshape(-1)[live].clone()
+        if closest:
+            s, u, v = traverse._closest_walk(ts, nb, nc, tb, o, d, d_inv, RAY_TMIN,
+                                             w, counts)
+            won = s >= 0
+            traverse._object_normal(ts, s[won], u[won], v[won], counts)
+        else:
+            traverse._anyhit_walk(ts, nb, nc, tb, o, d, d_inv, RAY_TMIN, w, counts)
+    return counts
+
+
+def mesh_lane_bytes(inputs, per_lane: int) -> int:
+    """What the one-mesh walks' lanes must move over the entries: the
+    window and the outputs (``per_lane`` bytes) of every lane, the rays of
+    the live ones."""
+    from raytpu_torch.config import RAY_TMIN
+
+    return sum(per_lane * w.numel() + 24 * int((w > RAY_TMIN).sum())
+               for _, _, w in inputs)
+
+
+def compare_meshwalk(ts, rays, win, srays, tmax, rk, act, res) -> None:
+    """K11a and K11b, the one-mesh walks of the per-(instance, mesh) loop:
+
+    * on the sweep slice moved to each entry's object space (both entries
+      of config4), and on the shadow rays of the slice: against their plain
+      versions, bit for bit; the kernels alone timed over both entries (one
+      sweep of the loop); the bound from the work of each lane walking
+      alone (:func:`mesh_lane_counts`), the plain walks' warp votes beside
+      it in ``work``;
+    * the loop (``trace.closest_hit_loop`` on K11a) on the whole primary
+      wave against K10a's chained sweep: valid and inst equal on every
+      lane, mat, t, u, v and the normal bit for bit, but for lanes proven
+      exact ties (:func:`loop_ties`)."""
+    import functools
+
+    import torch
+    from raytpu_torch.config import RAY_TMAX, RAY_TMIN
+    from raytpu_torch.ops import trace, traverse
+
+    live = int((win > RAY_TMIN).sum())
+    counts = {"rows": {}}
+    inputs = mesh_walk_inputs(ts, rays, win, traverse.mesh_closest)
+    got = mesh_walks(ts, inputs, traverse.mesh_closest)
+    want = mesh_walks(ts, inputs, traverse.mesh_closest_ref, counts=counts)
+    err = 0.0
+    for e, (a, b) in enumerate(zip(got, want)):
+        for x, y in zip((*a[:4], *a[4]), (*b[:4], *b[4])):
+            check(torch.equal(x.view(torch.int32), y.view(torch.int32)),
+                  f"mesh_closest equals its plain version bit for bit (entry {e})")
+            if x.dtype == torch.float32:
+                err = max(err, (x - y).abs().max().item())
+    hit = sum(float((a[1] >= 0).float().mean()) for a in got)
+    check(hit > 0.05, f"mesh_closest hits something on the slice ({hit})")
+    alone = mesh_lane_counts(ts, inputs, closest=True)
+    res["mesh_closest"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: mesh_walks(ts, inputs, traverse.mesh_closest),
+                                    3, 10),
+        plain_ms=cuda_ms(lambda: mesh_walks(ts, inputs, traverse.mesh_closest_ref),
+                         1, 2),
+        shape=list(rays.shape), entries=len(got),
+        # per entry: the window in, the t, u, v, normal and slot planes out
+        bound=sweep_bound(alone, mesh_lane_bytes(inputs, 32), 0),
+        work=dict(walk_work(counts, live), alone=walk_work(alone, live)))
+    print(f"mesh_closest {list(rays.shape)} x {len(got)} entries: bit for bit equal to "
+          f"its plain version; per live ray, the warp's walk {counts['nodes'] / live:.1f} "
+          f"node visits and {counts['tests'] / live:.1f} triangle tests, each lane alone "
+          f"{alone['nodes'] / live:.1f} and {alone['tests'] / live:.1f} (the bound's)",
+          flush=True)
+
+    counts = {"rows": {}}
+    slive = int((tmax > RAY_TMIN).sum())
+    inputs = mesh_walk_inputs(ts, srays, tmax, traverse.mesh_anyhit)
+    got = mesh_walks(ts, inputs, traverse.mesh_anyhit)
+    want = mesh_walks(ts, inputs, traverse.mesh_anyhit_ref, counts=counts)
+    alone = mesh_lane_counts(ts, inputs, closest=False)
+    for e, (a, b) in enumerate(zip(got, want)):
+        check(torch.equal(a, b), f"mesh_anyhit equals its plain version (entry {e})")
+    occ = functools.reduce(torch.logical_or, got)
+    check(torch.equal(occ, traverse.anyhit_sweep(
+        ts, srays, RAY_TMIN, tmax, torch.zeros(tmax.shape, dtype=torch.int32,
+                                               device=tmax.device)) != 0),
+          "the loop's occlusion on K11b equals K10b's")
+    res["mesh_anyhit"] = dict(
+        max_abs_err=0.0, ms=cuda_ms(lambda: mesh_walks(ts, inputs, traverse.mesh_anyhit),
+                                    3, 10),
+        plain_ms=cuda_ms(lambda: mesh_walks(ts, inputs, traverse.mesh_anyhit_ref),
+                         1, 2),
+        shape=list(srays.shape), entries=len(got),
+        # per entry: the window in, the flag out
+        bound=sweep_bound(alone, mesh_lane_bytes(inputs, 8), 0),
+        work=dict(walk_work(counts, slive), alone=walk_work(alone, slive)))
+    print(f"mesh_anyhit {list(srays.shape)} x {len(got)} entries: equal to its plain "
+          f"version, the loop's occlusion equal to K10b's, occluded "
+          f"{float(occ.float().mean()):.3f}; per live ray, the warp's walk "
+          f"{counts['nodes'] / slive:.1f} node visits and {counts['tests'] / slive:.1f} "
+          f"triangle tests, each lane alone {alone['nodes'] / slive:.1f} and "
+          f"{alone['tests'] / slive:.1f} (the bound's)", flush=True)
+
+    # the loop against K10a on the whole primary wave
+    full_win = torch.where(act, RAY_TMAX, 0.0).float()
+    o, d = tuple(rk[:3]), tuple(rk[3:])
+    slots_l = torch.full(act.shape, -1, dtype=torch.long, device=act.device)
+    loop = trace.closest_hit_loop(ts, o, d, RAY_TMIN, full_win,
+                                  walk=traverse.mesh_closest, slots=slots_l)
+    chained = trace.closest_hit_wave(ts, o, d, RAY_TMIN, full_win)
+    ties = loop_ties(ts, rk, full_win, loop, slots_l, chained)
+    res["mesh_closest"]["full_wave_ties"] = ties
+    res["mesh_closest"]["full_wave_ms"] = cuda_ms(
+        lambda: trace.closest_hit_loop(ts, o, d, RAY_TMIN, full_win), 1, 3)
+    res["mesh_closest"]["full_wave_chained_ms"] = cuda_ms(
+        lambda: trace.closest_hit_wave(ts, o, d, RAY_TMIN, full_win), 1, 3)
+
+
+def loop_ties(ts, rk, win, loop, slots_l, chained) -> list:
+    """The lanes where the loop's hit wave ``loop`` (its BVH slots
+    ``slots_l``) and K10a's ``chained`` (both of the rays ``rk`` in the
+    window ``win``) differ, each shown to be an exact tie: both valid with
+    the same instance and the same t bits, two different triangles (K10a's
+    from the plain walk of the lane's packet, which must reproduce K10a's
+    hit there), each hit by the lane's object-space ray at exactly that t.
+    Everywhere else valid, inst, mat, t, u, v and the normal are equal, bit
+    for bit, which leaves no room for another triangle but a tie."""
+    import functools
+
+    import torch
+    from raytpu_torch.config import RAY_TMIN
+    from raytpu_torch.ops import trace, traverse
+    from raytpu_torch.ops.intersect import moller_trumbore
+
+    def planes(h):
+        return (h.t, h.u, h.v, *h.n, h.mat)
+
+    check(torch.equal(loop.valid, chained.valid), "loop and K10a: valid equal on every lane")
+    check(torch.equal(loop.inst, chained.inst), "loop and K10a: inst equal on every lane")
+    check(bool(loop.valid.any()), "the loop hits something on the primary wave")
+    diff = functools.reduce(torch.logical_or, [
+        a.view(torch.int32) != b.view(torch.int32)
+        for a, b in zip(planes(loop), planes(chained))])
+    ties = []
+    for p, k in diff.nonzero().tolist():
+        lane = f"lane (packet {p}, {k})"
+        check(bool(loop.valid[p, k]) and loop.t[p, k].view(torch.int32)
+              == chained.t[p, k].view(torch.int32),
+              f"{lane}: the loop and K10a differ, and not as an exact tie")
+        slot_c = torch.full((1, rk.shape[2]), -1, dtype=torch.long, device=rk.device)
+        plain = trace.closest_hit_wave(
+            ts, tuple(rk[:3, p:p + 1]), tuple(rk[3:, p:p + 1]), RAY_TMIN,
+            win[p:p + 1], functools.partial(traverse.closest_sweep_ref, slots=slot_c))
+        check(all(torch.equal(a[0, k].view(torch.int32), b[p, k].view(torch.int32))
+                  for a, b in zip(planes(plain), planes(chained))),
+              f"{lane}: the plain walk reproduces K10a's hit")
+        check(int(slots_l[p, k]) != int(slot_c[0, k]), f"{lane}: two different triangles")
+        inst = int(loop.inst[p, k])
+        _, o, d, _ = traverse._object_rays(
+            ts, inst, tuple(rk[c, p, k:k + 1] for c in range(3)),
+            tuple(rk[3 + c, p, k:k + 1] for c in range(3)))
+        prims = {}
+        for name, slot in (("loop", int(slots_l[p, k])), ("K10a", int(slot_c[0, k]))):
+            tri = [tuple(x[slot:slot + 1, c] for c in range(3))
+                   for x in (ts.bvh_tri_v0, ts.bvh_tri_e1, ts.bvh_tri_e2)]
+            t, _, _, hit = moller_trumbore(o, d, *tri, RAY_TMIN,
+                                           torch.full_like(o[0], float("inf")))
+            check(bool(hit[0]) and t.view(torch.int32)[0] == loop.t[p, k].view(torch.int32),
+                  f"{lane}: {name}'s triangle is hit at exactly t")
+            prims[name] = int(ts.bvh_tri_prim[slot])
+        ties.append({"lane": [p, k], "t": float(loop.t[p, k]), "inst": inst,
+                     "prims": prims})
+    print(f"closest_hit_loop (K11a) vs closest_sweep (K10a) on the full primary wave "
+          f"{list(rk.shape)}: valid, inst equal on every lane; {len(ties)} lanes "
+          f"differ, each a proven exact tie: {ties}", flush=True)
+    return ties
 
 
 def primary_wave(r):
@@ -896,7 +1165,7 @@ def standin_tiers(r, label: str, gpu: str, prof_dir: Path, n_tied: int):
     mega = render_frames(r, 5, 0.0, 0.0, label, gpu, "mega")
     counts = _build.launch_counts()
     mega["launches"] = check_launches(counts, f"{label} frames",
-                                      idle=CHAINED + PER_LANE[1:])
+                                      idle=CHAINED + PER_LANE[1:] + MESH)
     mega["profile"] = profile_frame(r, prof_dir / f"profile_{label}.txt", label, gpu)
     img = r.render()
     r.tscene = dataclasses.replace(ts, traversal="pallas")
@@ -905,7 +1174,7 @@ def standin_tiers(r, label: str, gpu: str, prof_dir: Path, n_tied: int):
     check(pal["rays"] == mega["rays"], f"{label}: both tiers trace the same rays")
     pal["launches"] = check_launches(_build.launch_counts(),
                                      f"{label} pallas-tier frames",
-                                     idle=PER_LANE + CONSENSUS)
+                                     idle=PER_LANE + CONSENSUS + MESH)
     pal["profile"] = profile_frame(r, prof_dir / f"profile_{label}_pallas.txt",
                                    f"{label}_pallas", gpu)
     n_diff = int((r.render() != img).any(dim=-1).sum().item())
@@ -926,16 +1195,24 @@ def standin_tiers(r, label: str, gpu: str, prof_dir: Path, n_tied: int):
 def tie_check(r) -> dict:
     """The tie scene (two coincident boxes, mirror and diffuse) through the
     pallas tier and the per-lane, hybrid, consensus and auto (consensus)
-    tiers: the pixels that differ (the JAX bench's ``tie_check``, whose bar
-    is 0)."""
+    tiers, and "xla" (the XLA body on the per-(instance, mesh) loop) against
+    the pallas tier through the same body (the fused loop's shading kernels
+    round apart from the body): the pixels that differ (the JAX bench's
+    ``tie_check``, whose bar is 0)."""
     import torch
     from raytpu_torch.integrator import render_frame
 
-    frames = {trav: render_frame(dataclasses.replace(r.tscene, traversal=trav),
-                                 r.render_static, r.camera_tensor())
+    def frame(trav, **knobs):
+        return render_frame(dataclasses.replace(r.tscene, traversal=trav),
+                            dataclasses.replace(r.render_static, **knobs),
+                            r.camera_tensor())
+
+    frames = {trav: frame(trav)
               for trav in ("pallas", "perlane", "hybrid", "mega", "auto")}
     n_diff = {trav: int((img != frames["pallas"]).any(dim=-1).sum().item())
               for trav, img in frames.items() if trav != "pallas"}
+    n_diff["xla"] = int((frame("xla") != frame("pallas", fused="off"))
+                        .any(dim=-1).sum().item())
     rs = r.render_static
     print(f"tie scene {rs.width}x{rs.height} spp {rs.samples_per_pixel} bounces "
           f"{rs.max_bounce_count}: pixels differing from the pallas tier {n_diff}",
@@ -1009,10 +1286,10 @@ def tier_waves(r, t0: float) -> dict:
     return {"waves": waves, "tied_lanes": n_tied, "pixels_differing": n_diff}
 
 
-def same_rays_frames(r, rs_a, rs_b, plain_b: bool = False):
+def same_rays_frames(r, rs_a, rs_b, plain_b: bool = False, ts_b=None):
     """The frames of render statics ``rs_a`` and ``rs_b`` from the plain
     raygen's primary rays (``rs_b`` through the plain versions if
-    ``plain_b``)."""
+    ``plain_b``, and on the scene ``ts_b`` if given)."""
     import torch
     from raytpu_torch.integrator import plain_kernels, render_packets, tiled_pixels
     from raytpu_torch.ops.raygen import raygen_packed_ref
@@ -1024,12 +1301,13 @@ def same_rays_frames(r, rs_a, rs_b, plain_b: bool = False):
     rays6 = raygen_packed_ref(cam, s_row, px.repeat_interleave(spp, 0),
                               py.repeat_interleave(spp, 0), spp, rs_a.width,
                               rs_a.height)
+    ts_b = r.tscene if ts_b is None else ts_b
     got = render_packets(r.tscene, rs_a, cam, px, py, in_frame, rays6=rays6)
     if plain_b:
         with plain_kernels():
-            want = render_packets(r.tscene, rs_b, cam, px, py, in_frame, rays6=rays6)
+            want = render_packets(ts_b, rs_b, cam, px, py, in_frame, rays6=rays6)
     else:
-        want = render_packets(r.tscene, rs_b, cam, px, py, in_frame, rays6=rays6)
+        want = render_packets(ts_b, rs_b, cam, px, py, in_frame, rays6=rays6)
     return got, want
 
 
@@ -1065,7 +1343,7 @@ def profile_frame(r, path: Path, label: str, gpu: str) -> dict:
     launches.sort(key=lambda e: e.time_range.start)
     sweep_ms = {name: [e.time_range.elapsed_us() / 1e3 for e in launches
                        if kernel_named(name, e.name)]
-                for name in CHAINED + PER_LANE[1:] + CONSENSUS}
+                for name in CHAINED + PER_LANE[1:] + CONSENSUS + MESH}
     sweep_ms = {k: v for k, v in sweep_ms.items() if v}
     table = events.table(sort_by="device_time_total", row_limit=40)
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -1079,11 +1357,78 @@ def profile_frame(r, path: Path, label: str, gpu: str) -> dict:
                 sweep_launch_ms=sweep_ms)
 
 
+AB_FRAMES = (  # (stand-in, its tiers, the first its default, frames, t0 = dt)
+    ("config4_standin", ("perlane", "pallas"), 7, 0.05),
+    ("reference_standin", ("perlane",), 3, 0.05),
+    ("config3_standin", ("mega", "pallas"), 7, 0.0),
+    ("config2_standin", ("mega", "pallas"), 7, 0.0),
+)
+
+
+def frames_of(root: Path) -> dict:
+    """The stand-ins' frames (:data:`AB_FRAMES`) rendered by the port in
+    ``root``, a checkout of any commit since the consensus tier: its
+    kernels built there, then per stand-in and tier the median frame ms of
+    :func:`render_frames`."""
+    import torch
+
+    sys.path.insert(0, str(root))
+    import raytpu_torch
+    from raytpu_torch import _build, scenes
+    from raytpu_torch.render import Renderer
+
+    check(Path(raytpu_torch.__file__).resolve().is_relative_to(root.resolve()),
+          f"the port is imported from {root} ({raytpu_torch.__file__})")
+    _build.build()
+    _build.library()
+    gpu = gpu_line()
+    out = {}
+    for label, tiers, n, dt in AB_FRAMES:
+        r = Renderer(getattr(scenes, label)())
+        base = r.tscene
+        for tier in tiers:
+            r.tscene = dataclasses.replace(
+                base, traversal="auto" if tier == tiers[0] else tier)
+            out[f"{label}_{tier}"] = render_frames(
+                r, n, dt, dt, f"{label}_{tier}", gpu, tier)["median_ms"]
+        del r
+        torch.cuda.empty_cache()
+    return out
+
+
+def ab(parent: Path) -> int:
+    """The frames of :data:`AB_FRAMES` with the port in ``parent`` and with
+    this one, alternately in four child processes on the one card (parent,
+    this, this, parent): the medians of each run side by side."""
+    gpu = gpu_line()
+    print(gpu, flush=True)
+    runs = []
+    for root in (parent, REPO, REPO, parent):
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--frames-of", str(root)],
+                              capture_output=True, text=True, timeout=600)
+        print(proc.stdout, proc.stderr[-3000:], sep="", flush=True)
+        check(proc.returncode == 0, f"the frames of {root} rendered")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    print(f"{'frame':32s} {'parent, run 1':>14s} {'this, run 2':>12s} "
+          f"{'this, run 3':>12s} {'parent, run 4':>14s} (median ms) [{gpu}]")
+    for key in runs[0]:
+        print(f"{key:32s} " + " ".join(f"{run[key]:12.3f}" for run in runs))
+    print(json.dumps({"gpu": gpu, "order": ["parent", "this", "this", "parent"],
+                      "median_ms": runs}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=str(REPO / "build" / "profile"),
                     help="where the torch.profiler tables of one frame of each "
                     "stand-in go (default: build/profile/)")
+    ap.add_argument("--ab", metavar="PARENT",
+                    help="instead of the smoke run, time the stand-ins' frames with "
+                    "the port of PARENT (a checkout of another commit) and with "
+                    "this one, alternately in child processes")
+    ap.add_argument("--frames-of", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -1095,6 +1440,11 @@ def main() -> int:
     if not (REPO / "raytpu_torch" / "csrc").is_dir():
         print(f"chip_smoke: {REPO} holds no raytpu_torch package", file=sys.stderr)
         return 1
+    if args.frames_of:
+        print(json.dumps(frames_of(Path(args.frames_of))))
+        return 0
+    if args.ab:
+        return ab(Path(args.ab))
     import_port()
     from raytpu_torch import _build, scenes
     from raytpu_torch.integrator import frame_tier, plain_kernels, render_frame
@@ -1130,6 +1480,9 @@ def main() -> int:
           f"{t_bvh:.2f} s ({ts.bvh_aabb_min.shape[0]} nodes, "
           f"{ts.bvh_tri_v0.shape[0]} triangles, {len(ts.traversal_list)} entries)",
           flush=True)
+    digest = tree_digest(first_tree(ts))
+    print(f"teapot stand-in tree sha256 {digest} (raytpu's {TREE_DIGEST})", flush=True)
+    check(digest == TREE_DIGEST, "the port builds raytpu's tree of the teapot stand-in")
     rs4 = r4.render_static
     check(rs4.fused == "on" and rs4.wavefront == "compact",
           f"the stand-ins render the default path ({rs4})")
@@ -1144,7 +1497,8 @@ def main() -> int:
     c4 = render_frames(r4, 5, 0.05, 0.05, "config4_standin", gpu, "perlane")
     counts = _build.launch_counts()
     check(set(counts) == set(KERNELS), f"chip_smoke lists every kernel ({counts})")
-    c4["launches"] = check_launches(counts, "config4 frames", idle=CHAINED + CONSENSUS)
+    c4["launches"] = check_launches(counts, "config4 frames",
+                                    idle=CHAINED + CONSENSUS + MESH)
     c4["profile"] = profile_frame(r4, prof_dir / "profile_config4.txt",
                                   "config4_standin", gpu)
 
@@ -1155,7 +1509,7 @@ def main() -> int:
     check(pal4["rays"] == c4["rays"], "both tiers trace the same rays in the same frames")
     pal_counts = _build.launch_counts()
     pal4["launches"] = check_launches(pal_counts, "config4 pallas-tier frames",
-                                      idle=PER_LANE + CONSENSUS)
+                                      idle=PER_LANE + CONSENSUS + MESH)
     pal4["profile"] = profile_frame(r4, prof_dir / "profile_config4_pallas.txt",
                                     "config4_standin_pallas", gpu)
     r4.tscene = dataclasses.replace(r4.tscene, traversal="auto")
@@ -1168,6 +1522,28 @@ def main() -> int:
                           "perlane")
     r4.render_static = rs4
 
+    # traversal="xla": the XLA body, compacted, on the per-(instance, mesh)
+    # loop (K11a/K11b), whatever fused says
+    r4.tscene = dataclasses.replace(r4.tscene, traversal="xla")
+    _build.reset_launch_counts()
+    xla4 = render_frames(r4, 2, 0.05, 0.05, "config4_standin_xla", gpu, "xla")
+    mesh_counts = _build.launch_counts()
+    xla4["launches"] = check_launches(mesh_counts, "config4 xla frames",
+                                      idle=CHAINED + PER_LANE + CONSENSUS + FUSED)
+    xla4["profile"] = profile_frame(r4, prof_dir / "profile_config4_xla.txt",
+                                    "config4_standin_xla", gpu)
+    got, want = same_rays_frames(r4, rs4, rs4, ts_b=dataclasses.replace(
+        r4.tscene, traversal="pallas"))
+    xla4["same_rays_max_abs_diff_to_pallas"] = max(
+        (a - b).abs().max().item() for a, b in zip(got, want))
+    print(f"config4 xla frame (the body on K11a/K11b) vs the fused pallas-tier frame "
+          f"from the same primary rays: max abs diff "
+          f"{xla4['same_rays_max_abs_diff_to_pallas']:.3g}", flush=True)
+    check(xla4["same_rays_max_abs_diff_to_pallas"] <= 1e-5,
+          "config4 xla frame within 1e-5 of the fused pallas-tier frame")
+    del got, want
+    r4.tscene = dataclasses.replace(r4.tscene, traversal="auto")
+
     start = time.perf_counter()
     ref_scene = scenes.reference_standin()
     rr = Renderer(ref_scene)
@@ -1175,7 +1551,7 @@ def main() -> int:
     _build.reset_launch_counts()
     ref = render_frames(rr, 2, 0.05, 0.05, "reference_standin", gpu, "perlane")
     ref["launches"] = check_launches(_build.launch_counts(), "reference frames",
-                                     idle=CHAINED + CONSENSUS)
+                                     idle=CHAINED + CONSENSUS + MESH)
     ref["profile"] = profile_frame(rr, prof_dir / "profile_reference.txt",
                                    "reference_standin", gpu)
     del rr
@@ -1221,6 +1597,21 @@ def main() -> int:
           "256x192 consensus-tier frame equals the per-lane frame bit for bit")
     print("256x192 compacted per-lane frame vs full-width fused frame and vs the "
           "pallas-tier and consensus-tier frames on the card: bit for bit", flush=True)
+    body = {}
+    for trav in ("xla", "perlane", "pallas"):
+        ts_t = dataclasses.replace(small.tscene, traversal=trav)
+        body[trav] = render_frame(ts_t, dataclasses.replace(rs_s, fused="off"), cam)
+        check(torch.equal(body[trav], render_frame(ts_t, dataclasses.replace(
+            rs_s, fused="off", wavefront="full"), cam)),
+              f"256x192 {trav}: the compacted XLA body equals the full-width body "
+              f"bit for bit")
+    check(torch.equal(body["xla"], render_frame(dataclasses.replace(
+        small.tscene, traversal="xla"), rs_s, cam)),
+          "256x192 xla: fused='on' renders the XLA body too")
+    check(torch.equal(body["xla"], body["pallas"]),
+          "256x192: the xla body frame equals the pallas-tier body frame bit for bit")
+    print("256x192 XLA body (fused='off'), compacted vs full width on the xla, "
+          "per-lane and pallas tiers, and xla vs pallas: bit for bit", flush=True)
     with plain_kernels():
         img_p = render_frame(small.tscene, rs_s, cam).cpu().numpy()
     img_k = img_k.cpu().numpy()
@@ -1245,24 +1636,27 @@ def main() -> int:
     print(json.dumps({"gpu": gpu, "config4_standin": c4,
                       "config4_standin_pallas": pal4, "config4_tier_waves": waves4,
                       "config4_standin_eager": eager4,
-                      "config4_standin_full_width": full4, "reference_standin": ref,
+                      "config4_standin_full_width": full4,
+                      "config4_standin_xla": xla4, "reference_standin": ref,
                       **cons,
                       "small_frame": {"ssim": s, "max_abs_diff": diff,
                                       "same_rays_max_abs_diff": same,
                                       "eager_same_rays_max_abs_diff": eager_diff,
                                       "compact_equals_full": True,
                                       "perlane_equals_pallas": True,
-                                      "mega_equals_perlane": True},
+                                      "mega_equals_perlane": True,
+                                      "body_compact_equals_full": True},
                       "tie_check": tie,
                       "full_wave_ties": kern["perlane_closest_sweep"]["full_wave_ties"],
+                      "loop_full_wave_ties": kern["mesh_closest"]["full_wave_ties"],
                       "kernel_work": {k: v["work"] for k, v in kern.items() if "work" in v},
                       "prepass": {k: {f: v[f] for f in v if "prepass" in f or "ops" in f}
                                   for k, v in kern.items() if "prepass_ms" in v}}))
     kern.update(cons_kern)
 
     def launches(name):
-        return (pal_counts if name in CHAINED
-                else cons_counts if name in CONSENSUS else counts)[name]
+        return (pal_counts if name in CHAINED else cons_counts if name in CONSENSUS
+                else mesh_counts if name in MESH else counts)[name]
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],

@@ -59,6 +59,12 @@ _SIGNATURES = {
     "perlane_anyhit_sweep": [_P, _L, _P, _P, _L, _F, _L, _P, _I, _P, _P, _P,
                              _L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                              _P, _P],
+    # object-space rays, tmax, (out, its plane stride, slot | occ), n, tmin,
+    # the mesh's node base, node count and slot base, its tables
+    "mesh_closest": [_P, _L, _P, _P, _L, _P, _L, _F, _I, _I, _I, _P, _P, _P,
+                     _P, _P, _P, _P, _P, _P, _L, _P],
+    "mesh_anyhit": [_P, _L, _P, _P, _L, _F, _I, _I, _I, _P, _P, _P, _P, _P,
+                    _P, _P, _P, _P],
 }
 # the consensus sweeps take the per-lane sweeps' arguments (the wide links
 # in place of the octant links)

@@ -77,6 +77,7 @@ def attach_bvh(tscene: TorchScene, scene: Scene, leaf_size: int) -> TorchScene:
     wide = mesh_wide_links(succ, skip, arrays["tri_first"], arrays["miss"],
                            node_ranges)
     cfg = scene.config
+    entries = entry_table(traversal_list, materials, node_ranges, tri_ranges)
 
     def dev(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=tscene.device)
@@ -93,8 +94,8 @@ def attach_bvh(tscene: TorchScene, scene: Scene, leaf_size: int) -> TorchScene:
         bvh_tri_e2=dev(np.concatenate(e2s)),
         bvh_tri_prim=dev(prim),
         bvh_tri_n_soa=dev(n_soa[:, prim.astype(np.int64)]),
-        entries=dev(entry_table(traversal_list, materials, node_ranges,
-                                tri_ranges)),
+        entries=dev(entries),
+        entry_rows=tuple(map(tuple, entries.tolist())),
         oct_succ=dev(succ),
         oct_skip=dev(skip),
         wide_succ=dev(wide[0]),

@@ -1,12 +1,21 @@
 """ctypes binding of the native SAH BVH builder (counterpart of
 ``raytpu/accel/native.py``).
 
-``native/bvh_build.cpp`` is compiled from source with ``g++ -O3 -std=c++17
--fPIC -shared`` into ``build/raytpu_torch/`` at first use. The committed
-``native/libraytpu_native.so`` is not loaded: it was built with
+``native/bvh_build.cpp`` is compiled from source with ``g++ -O3 -mfma
+-std=c++17 -fPIC -shared`` into ``build/raytpu_torch/`` at first use. The
+committed ``native/libraytpu_native.so`` is not loaded: it was built with
 ``-march=native`` on another host. ``raytpu.accel.native`` is not reused
 either, because importing it runs ``raytpu/accel/__init__.py``, which
 imports JAX.
+
+Why ``-mfma``: with FMA instructions available, g++ contracts the builder's
+``a*b + c`` into fused multiply-adds, as the committed library's
+``-march=native`` build does, and some SAH splits round to another choice
+than without them. Built with ``-mfma``, the source gives the committed
+library's trees bit for bit; without it, other trees (``tests/
+test_torch_meshwalk.py`` holds the two builds equal). A host whose CPU has no
+FMA cannot build those trees, so the build raises there rather than build
+different ones.
 """
 
 from __future__ import annotations
@@ -14,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import subprocess
 import threading
 from pathlib import Path
@@ -24,7 +34,7 @@ import numpy as np
 from raytpu_torch._build import BUILD_DIR
 
 SOURCE = Path(__file__).resolve().parents[2] / "native" / "bvh_build.cpp"
-CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
+CXX_FLAGS = ("-O3", "-mfma", "-std=c++17", "-fPIC", "-shared")
 
 _lib = None
 _lock = threading.Lock()
@@ -51,7 +61,25 @@ class Bvh(NamedTuple):
         return int(self.tri_order.shape[0])
 
 
+def host_has_fma() -> bool:
+    """Whether this is an x86-64 host whose CPU reports ``fma``."""
+    if platform.machine() not in ("x86_64", "AMD64"):
+        return False
+    try:
+        with open("/proc/cpuinfo") as f:
+            return any(line.startswith("flags")
+                       and "fma" in line.split(":", 1)[1].split() for line in f)
+    except OSError:
+        return False
+
+
 def _build_library() -> Path:
+    if not host_has_fma():
+        raise RuntimeError(
+            "the native BVH builder needs an x86-64 CPU with FMA: raytpu's "
+            "trees come from a build whose float math is contracted into "
+            f"fused multiply-adds, and this host ({platform.machine()}) "
+            "reports no 'fma' in /proc/cpuinfo, so it would build other trees")
     digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode())
     out = BUILD_DIR / f"libbvh_build_{digest.hexdigest()[:16]}.so"
     if out.exists():

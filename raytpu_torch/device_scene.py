@@ -79,6 +79,9 @@ class TorchScene:
     wide_succ: Optional[torch.Tensor] = None      # (8, M) int32
     wide_skip: Optional[torch.Tensor] = None      # (8, M) int32
     traversal_list: Tuple[Tuple[int, int], ...] = ()
+    # the rows of ``entries`` on the host: the per-(instance, mesh) loop
+    # (ops/trace.closest_hit_loop) reads them without a device sync
+    entry_rows: Tuple[Tuple[int, int, int, int, int], ...] = ()
     leaf_max: int = 0              # largest leaf (the plain walk's unroll)
     # RenderConfig.traversal, and the tier "auto" resolves to ("perlane" or
     # "mega", accel.resolve_auto_tier)
@@ -205,6 +208,8 @@ def from_raytpu(dev, static, device) -> TorchScene:
         np.asarray(dev.bvh_aabb_min), np.asarray(dev.bvh_aabb_max), first,
         miss, static.mesh_node_ranges)
     wide = mesh_wide_links(succ, skip, first, miss, static.mesh_node_ranges)
+    entries = entry_table(static.traversal_list, materials,
+                          static.mesh_node_ranges, static.mesh_bvh_tri_ranges)
     return TorchScene(
         device=device,
         o2w=t(dev.o2w),
@@ -227,9 +232,8 @@ def from_raytpu(dev, static, device) -> TorchScene:
         bvh_tri_e2=t(dev.bvh_tri_e2),
         bvh_tri_prim=t(dev.bvh_tri_prim),
         bvh_tri_n_soa=t(dev.bvh_tri_n_soa),
-        entries=t(entry_table(static.traversal_list, materials,
-                              static.mesh_node_ranges,
-                              static.mesh_bvh_tri_ranges)),
+        entries=t(entries),
+        entry_rows=tuple(map(tuple, entries.tolist())),
         oct_succ=t(succ),
         oct_skip=t(skip),
         wide_succ=t(wide[0]),

@@ -1,10 +1,11 @@
 """Whitted integrator of the PyTorch port (counterpart of
 ``raytpu/integrator.py``): the fused bounce loop on the packed ABI,
 ``_trace_sample_fused`` (:379-572) with its sort-once compacted waves
-(``_wave_budget`` :239, ``_wave_rungs`` :258), the full-width XLA bounce
-body of ``_trace_sample`` (:611-898, ``bounce_core`` :651) for
-``fused="off"``, the deferred sky fetch (:575), the interleaved spp fold of
-``render_packets`` (:901-970), tile-major pixel packets (:1002),
+(``_wave_budget`` :239, ``_wave_rungs`` :258), the XLA bounce body of
+``_trace_sample`` (:611-898, ``bounce_core`` :651) with its per-iteration
+resort (``body_compact`` :748) for ``fused="off"`` and for
+``traversal="xla"``, the deferred sky fetch (:575), the interleaved spp
+fold of ``render_packets`` (:901-970), tile-major pixel packets (:1002),
 ``render_frame`` (:1047) and ``detile`` (:1092).
 
 The default path (``fused="on"``, ``wavefront="compact"``): per bounce a
@@ -23,13 +24,20 @@ them (``raytpu/ops/trace.py:491-547``, ``_use_perlane`` :550, ``_use_mega``
 bounce under "hybrid"; the consensus sweeps (K7 prepass, K8, K9;
 ``ops/consensus.py``) under "mega", under "auto" resolved to "mega", and
 on the later bounces under "hybrid"; the chained sweeps (K10a, K10b;
-``ops/traverse.py``) under "pallas" and "xla". A wave that is not whole
-blocks of ``BLOCK_PACKETS`` takes the chained sweeps, as in the JAX
-package.
+``ops/traverse.py``) under "pallas". A wave that is not whole blocks of
+``BLOCK_PACKETS`` takes the chained sweeps, as in the JAX package.
+
+"xla" is no packed tier (``_use_perlane``, ``_use_mega`` and
+``_all_pallas`` all reject it), so the JAX package's ``_use_fused``
+(:204-236) never takes the fused loop for it: an "xla" frame renders
+through the XLA body whatever ``fused`` says, and every sweep of it is the
+unpacked per-(instance, mesh) loop (``ops/trace.closest_hit_loop`` /
+``any_hit_loop``) on the one-mesh walks K11a/K11b.
 
 Host syncs per frame (each counted in ``stats["host_syncs"]``): the loop
 condition once per bounce iteration (``any(window > 0)`` at full width,
-the live prefix length ``n_eff`` on the compacted path), and the
+the live prefix length ``n_eff`` on the fused compacted path, the live
+packet count ``n_live`` in the body's compacted iterations), and the
 shadow-skip test ``any(lit)`` once per wave where the skip rule applies
 (``max_bounce_count > 4`` or spp 1). They are the loop's semantics, as
 ``lax.while_loop``/``lax.cond`` are in the JAX loop.
@@ -76,13 +84,22 @@ from raytpu_torch.ops.perlane import (
 )
 from raytpu_torch.ops.raygen import primary_rays_soa, raygen_packed, raygen_packed_ref
 from raytpu_torch.ops.sky import sample_cubemap_u32, sample_cubemap_u32_ref
-from raytpu_torch.ops.trace import any_hit_wave, closest_hit_wave
+from raytpu_torch.ops.trace import (
+    any_hit_loop,
+    any_hit_wave,
+    closest_hit_loop,
+    closest_hit_wave,
+)
 from raytpu_torch.ops.traverse import (
     anyhit_sweep,
     anyhit_sweep_ref,
     closest_sweep,
     closest_sweep_ref,
     make_trace_state,
+    mesh_anyhit,
+    mesh_anyhit_ref,
+    mesh_closest,
+    mesh_closest_ref,
 )
 
 __all__ = [
@@ -93,7 +110,8 @@ __all__ = [
 SEG_PACKETS = 64  # packet-count granule of the JAX package (ops/mega.py)
 
 # every traversal tier of the JAX package computes the same hits; the port
-# walks them with the per-lane, the consensus or the chained sweeps (_tier)
+# walks them with the per-lane, the consensus or the chained sweeps, or the
+# per-(instance, mesh) loop (_tier)
 _TRAVERSALS = ("auto", "pallas", "xla", "perlane", "mega", "hybrid")
 
 # the frame's kernel wrappers, looked up at call time so that
@@ -102,7 +120,8 @@ _KERNELS = {"raygen": raygen_packed, "closest": closest_sweep,
             "anyhit": anyhit_sweep, "perlane_closest": perlane_closest_sweep,
             "perlane_anyhit": perlane_anyhit_sweep,
             "mega_closest": mega_closest_sweep,
-            "mega_anyhit": mega_anyhit_sweep, "sky": sample_cubemap_u32,
+            "mega_anyhit": mega_anyhit_sweep, "mesh_closest": mesh_closest,
+            "mesh_anyhit": mesh_anyhit, "sky": sample_cubemap_u32,
             "shade": shade_epilogue, "accumulate": accumulate_epilogue}
 _PLAIN = {"raygen": raygen_packed_ref, "closest": closest_sweep_ref,
           "anyhit": anyhit_sweep_ref,
@@ -110,6 +129,7 @@ _PLAIN = {"raygen": raygen_packed_ref, "closest": closest_sweep_ref,
           "perlane_anyhit": perlane_anyhit_sweep_ref,
           "mega_closest": mega_closest_sweep_ref,
           "mega_anyhit": mega_anyhit_sweep_ref,
+          "mesh_closest": mesh_closest_ref, "mesh_anyhit": mesh_anyhit_ref,
           "sky": sample_cubemap_u32_ref, "shade": shade_epilogue_ref,
           "accumulate": accumulate_epilogue_ref}
 
@@ -119,8 +139,8 @@ def kernels(**fns):
     """Within the block, frames call ``fns`` in place of the kernel
     wrappers of those names (``raygen``, ``closest``, ``anyhit``,
     ``perlane_closest``, ``perlane_anyhit``, ``mega_closest``,
-    ``mega_anyhit``, ``sky``, ``shade``, ``accumulate``), with the
-    wrappers' arguments."""
+    ``mega_anyhit``, ``mesh_closest``, ``mesh_anyhit``, ``sky``, ``shade``,
+    ``accumulate``), with the wrappers' arguments."""
     unknown = set(fns) - set(_KERNELS)
     if unknown:
         raise KeyError(f"no kernel wrapper named {sorted(unknown)}")
@@ -143,9 +163,13 @@ class RenderStatic:
     """Render parameters the ported slice implements.
 
     ``fused``: "on" runs the fused bounce loop (the shade and accumulate
-    kernels on the packed buffers); "off" the eager full-width body of
-    ``bounce_core``, which only ``wavefront="full"`` composes with (the XLA
-    body's per-iteration resort is not ported). ``ladder``: "auto" moves the
+    kernels on the packed buffers); "off" the eager XLA body of
+    ``bounce_core``. ``traversal="xla"`` renders through the body whatever
+    ``fused`` says, as the JAX package does. ``wavefront``: "compact"
+    compacts the bounces after the first, in the fused loop by one
+    live-first sort, in the body by a resort every iteration
+    (``body_compact``); "full" runs every bounce at full width. Both compose
+    with either ``fused``. ``ladder``: "auto" moves the fused
     compacted loop to smaller waves as the live prefix shrinks
     (``_wave_rungs``), "off" keeps the one budget. ``shadow_order``: the
     per-lane and consensus shadow sweeps' entry order
@@ -179,10 +203,6 @@ class RenderStatic:
             if getattr(self, name) not in allowed:
                 raise ValueError(f"{name}={getattr(self, name)!r}: use one "
                                  f"of {allowed}")
-        if self.wavefront == "compact" and self.fused == "off":
-            raise ValueError(
-                "wavefront='compact' with fused='off' (the eager body's "
-                "per-iteration resort) is not ported yet")
 
     @classmethod
     def from_config(cls, config: RenderConfig) -> "RenderStatic":
@@ -208,10 +228,11 @@ class RenderStatic:
             raise ValueError("RenderConfig.sky_rebin='on' is a rejected TPU "
                              "experiment and is not ported")
         _check_traversal(config.traversal)
-        if config.bvh_builder not in ("auto", "native", "sah"):
+        if config.bvh_builder not in ("auto", "native"):
             raise ValueError(
                 f"RenderConfig.bvh_builder={config.bvh_builder!r} is not "
-                "ported yet (the port builds native SAH trees)")
+                "ported yet (the port builds the native builder's trees; "
+                "raytpu's 'sah' is its Python builder, whose trees differ)")
         return cls(
             width=config.width,
             height=config.height,
@@ -231,12 +252,15 @@ def _check_traversal(traversal: str) -> None:
 def _tier(ts: TorchScene, p: int, primary: bool) -> str:
     """The sweeps a wave of ``p`` packets takes (``raytpu/ops/trace.py:550``
     ``_use_perlane`` and :580 ``_use_mega``, without their TPU test):
+    "xla" (the per-(instance, mesh) loop) under "xla", every wave;
     "perlane" under "perlane", under "auto" where the scene resolved to it,
     and under "hybrid" on the ``primary`` (first-bounce) sweeps; "mega"
     under "mega", under "auto" resolved to "mega" and under "hybrid" on
-    the later ones; "pallas" (the chained sweeps) under "pallas" and "xla",
-    and for any wave that is not whole blocks of ``BLOCK_PACKETS``."""
+    the later ones; "pallas" (the chained sweeps) under "pallas", and for
+    any wave that is not whole blocks of ``BLOCK_PACKETS``."""
     _check_traversal(ts.traversal)
+    if ts.traversal == "xla":
+        return "xla"
     if p % BLOCK_PACKETS:
         return "pallas"
     if (ts.traversal == "perlane"
@@ -249,22 +273,44 @@ def _tier(ts: TorchScene, p: int, primary: bool) -> str:
 
 
 def frame_tier(ts: TorchScene, p: int) -> str:
-    """The sweeps a frame of ``p`` packets takes: "perlane", "mega" or
-    "pallas" (the chained sweeps) on every bounce, or "hybrid" (per-lane on
-    the first bounce, consensus on the later ones)."""
+    """The sweeps a frame of ``p`` packets takes: "perlane", "mega",
+    "pallas" (the chained sweeps) or "xla" (the per-(instance, mesh) loop)
+    on every bounce, or "hybrid" (per-lane on the first bounce, consensus on
+    the later ones)."""
     first, later = _tier(ts, p, True), _tier(ts, p, False)
     return first if first == later else "hybrid"
 
 
 def _sweeps(ts: TorchScene, rs, p: int, primary: bool):
-    """``(closest, anyhit)`` sweep functions for a wave of ``p`` packets,
-    with the same arguments whichever the tier."""
+    """``(closest, anyhit)`` packed sweep functions for a wave of ``p``
+    packets, with the same arguments whichever the packed tier."""
     tier = _tier(ts, p, primary)
     if tier == "pallas":
         return _KERNELS["closest"], _KERNELS["anyhit"]
     return (_KERNELS[f"{tier}_closest"],
             functools.partial(_KERNELS[f"{tier}_anyhit"],
                               order=rs.shadow_order))
+
+
+def _traces(ts: TorchScene, rs, p: int, primary: bool):
+    """``(closest, occlusion)`` of a wave of ``p`` packets for the XLA
+    body, each with ``closest_hit_wave``'s / ``any_hit_wave``'s arguments:
+    the per-(instance, mesh) loop on K11a/K11b under "xla", else the tier's
+    packed sweeps (:func:`_sweeps`)."""
+    if _tier(ts, p, primary) == "xla":
+        return (functools.partial(closest_hit_loop,
+                                  walk=_KERNELS["mesh_closest"]),
+                functools.partial(any_hit_loop, walk=_KERNELS["mesh_anyhit"]))
+    closest, anyhit = _sweeps(ts, rs, p, primary)
+    return (functools.partial(closest_hit_wave, sweep=closest),
+            functools.partial(any_hit_wave, sweep=anyhit))
+
+
+def _use_fused(ts: TorchScene, rs) -> bool:
+    """Whether the fused loop renders the frame (``integrator._use_fused``
+    :204, without its TPU test): ``fused="on"`` and a packed tier, which
+    "xla" is not."""
+    return rs.fused == "on" and ts.traversal != "xla"
 
 
 def _count(stats, key, mask):
@@ -294,14 +340,16 @@ def _shadow_always(rs) -> bool:
     return rs.max_bounce_count <= 4 and rs.samples_per_pixel > 1
 
 
-def _bounce_core(ts, rs, o, d, tmp, active, miss_rec, decay, stats, sweeps):
-    """One bounce at full width (``integrator.py:651-736``) through the
-    ``sweeps`` (:func:`_sweeps`): closest trace, miss record, shadow +
-    Blinn-Phong, mirror/refract continuations."""
+def _bounce_core(ts, rs, o, d, tmp, active, miss_rec, decay, stats, traces):
+    """One bounce at the width of its inputs (``integrator.py:651-736``)
+    through the ``traces`` (:func:`_traces`): closest trace, miss record,
+    shadow + Blinn-Phong, mirror/refract continuations. Per-lane results
+    depend only on the lane, so it runs alike over the full wave or a
+    compacted wave of it."""
     _count(stats, "closest_rays", active)
     lane_tmax = torch.where(active, torch.full_like(o[0], RAY_TMAX),
                             torch.zeros_like(o[0]))
-    hit = closest_hit_wave(ts, o, d, RAY_TMIN, lane_tmax, sweeps[0])
+    hit = traces[0](ts, o, d, RAY_TMIN, lane_tmax)
     hit_mask = active & hit.valid
     miss_rec = miss_rec | (active & ~hit.valid)
 
@@ -321,11 +369,9 @@ def _bounce_core(ts, rs, o, d, tmp, active, miss_rec, decay, stats, sweeps):
 
     if _shadow_always(rs) or _any(lit_candidate, stats):
         _count(stats, "shadow_rays", lit_candidate)
-        occluded = any_hit_wave(
+        occluded = traces[1](
             ts, shadow_o, l, RAY_TMIN,
-            torch.where(lit_candidate, light_dist, torch.zeros_like(light_dist)),
-            sweeps[1],
-        )
+            torch.where(lit_candidate, light_dist, torch.zeros_like(light_dist)))
     else:
         occluded = torch.zeros_like(lit_candidate)
     phong = shade.blinn_phong_soa(n, l, v3.neg(d), ts.light_intensity)
@@ -357,20 +403,64 @@ def _deferred_sky(ts, missed, d, tmp):
 def _trace_sample(ts: TorchScene, rs: RenderStatic, o, d,
                   sample_idx: torch.Tensor, active0: torch.Tensor,
                   stats: Optional[dict] = None):
-    """One sample wave through the bounce loop -> Vec3 color of (P, K)."""
+    """One sample wave through the XLA body's bounce loop -> Vec3 color of
+    (P, K).
+
+    With ``wavefront="compact"`` and a budget (P >= 128), ``body_compact``
+    (``integrator.py:748-836``): j=0 is peeled and runs full width; every
+    later iteration sorts the packets live-first (a stable argsort), runs
+    ``_bounce_core`` over disjoint waves of ``budget`` rows that cover the
+    live packets, and restores frame order with the inverse permutation.
+    The budget divides P, so the waves never overlap, and the frame equals
+    the full-width body's bit for bit but for exact ties: on the per-lane
+    and consensus tiers the resort changes which packets share a culling
+    block, and with it the octant and entry order the block walks in, so a
+    ray that hits two triangles at exactly the same t may keep the other
+    one (as those tiers and the pallas tier may differ). The live packet
+    count is the iteration's one host read; it is also the loop condition
+    (no live packet, no live lane)."""
     p, k = o[0].shape
     tmp = tuple(torch.full((p, k), c, dtype=torch.float32, device=o[0].device)
                 for c in shade.ambient_tuple())
     decay = torch.pow(SAMPLE_DECAY, sample_idx.to(torch.float32)).expand(p, k)
     miss_rec = torch.zeros((p, k), dtype=torch.bool, device=o[0].device)
     active = active0
+    budget = _wave_budget(p) if rs.wavefront == "compact" else 0
     j = 0
-    # inclusive bounce cap (shader.rgen:84); exits once every lane is done
-    while j <= rs.max_bounce_count and _any(active, stats):
-        o, d, tmp, active, miss_rec = _bounce_core(
+    if not budget:
+        # inclusive bounce cap (shader.rgen:84); exits once every lane is done
+        while j <= rs.max_bounce_count and _any(active, stats):
+            o, d, tmp, active, miss_rec = _bounce_core(
+                ts, rs, o, d, tmp, active, miss_rec, decay, stats,
+                _traces(ts, rs, p, primary=j == 0))
+            j += 1
+    else:
+        o, d, tmp, active, miss_rec = _bounce_core(      # the peeled j = 0
             ts, rs, o, d, tmp, active, miss_rec, decay, stats,
-            _sweeps(ts, rs, p, primary=j == 0))
-        j += 1
+            _traces(ts, rs, p, primary=True))
+        j = 1
+        traces = _traces(ts, rs, budget, primary=False)
+        while j <= rs.max_bounce_count:
+            live = active.any(dim=1)
+            n_live = int(_read(live.sum(), stats))
+            if not n_live:
+                break
+            order = torch.argsort((~live).to(torch.int32), stable=True)
+            inv = torch.argsort(order, stable=True)
+            planes = [x.index_select(0, order)
+                      for x in (*o, *d, *tmp, active, miss_rec, decay)]
+            for s in range(0, n_live, budget):
+                w = [x[s:s + budget] for x in planes]
+                out = _bounce_core(ts, rs, tuple(w[0:3]), tuple(w[3:6]),
+                                   tuple(w[6:9]), w[9], w[10], w[11], stats,
+                                   traces)
+                for x, y in zip(planes, (*out[0], *out[1], *out[2], out[3],
+                                         out[4])):
+                    x[s:s + budget] = y
+            o, d, tmp = (tuple(planes[i + c].index_select(0, inv)
+                               for c in range(3)) for i in (0, 3, 6))
+            active, miss_rec = (planes[i].index_select(0, inv) for i in (9, 10))
+            j += 1
     # at loop exit d is each miss lane's miss direction (no carry needed)
     return _deferred_sky(ts, miss_rec, d, tmp)
 
@@ -439,8 +529,8 @@ def _trace_sample_fused(ts: TorchScene, rs: RenderStatic, rays: torch.Tensor,
     iterations run over disjoint waves of ``b`` packets that cover only the
     live prefix (liveness is monotone, so the live packets stay a prefix),
     phase by phase down the rung ladder; the inverse permutation restores
-    frame order. Per-lane results do not depend on the order, so the frame
-    equals the full-width loop's bit for bit. A wave is a view of the
+    frame order. The frame equals the full-width loop's bit for bit but for
+    exact ties, as in :func:`_trace_sample`. A wave is a view of the
     loop's buffers: the kernels take plane strides, so nothing is copied."""
     p, k = active0.shape
     dev = rays.device
@@ -523,12 +613,13 @@ def render_packets(ts: TorchScene, rs: RenderStatic, camera: torch.Tensor,
     pys = py.repeat_interleave(spp, dim=0)
     act = active0.repeat_interleave(spp, dim=0)
     s_row = torch.arange(spp, dtype=torch.float32, device=px.device).repeat(p)
+    fused = _use_fused(ts, rs)
     if rays6 is None:
         rays6 = _KERNELS["raygen"](camera, s_row, pxs, pys, spp, rs.width,
                                    rs.height)
-    elif rs.fused == "on":
+    elif fused:
         rays6 = rays6.clone()  # the fused loop bounces the rays in place
-    if rs.fused == "on":
+    if fused:
         colors = _trace_sample_fused(ts, rs, rays6, s_row, act, stats)
     else:
         o = (rays6[0], rays6[1], rays6[2])

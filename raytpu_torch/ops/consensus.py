@@ -40,9 +40,7 @@ import torch
 from raytpu_torch.device_scene import TorchScene
 from raytpu_torch.ops import perlane
 from raytpu_torch.ops.mega import BLOCK_PACKETS, check_blocks
-from raytpu_torch.ops.traverse import ST_T, anyhit_ref, closest_ref
-
-WARP = 32  # lanes that walk one node pointer: a CUDA warp
+from raytpu_torch.ops.traverse import ST_T, WARP, anyhit_ref, closest_ref
 
 
 def wide_links(ts: TorchScene):

@@ -1,6 +1,14 @@
 """Scene-level closest hit and occlusion for a packet wave (counterpart of
-``raytpu/ops/trace.py:127-459``, the chained packed-ABI tier): pack the
-rays, sweep every (instance, mesh) entry, unpack.
+``raytpu/ops/trace.py:127-459``).
+
+``closest_hit_wave`` / ``any_hit_wave`` serve the packed-ABI tiers: pack the
+rays, sweep every (instance, mesh) entry in one call, unpack.
+``closest_hit_loop`` / ``any_hit_loop`` are the JAX package's unpacked
+per-(instance, mesh) loop (:256-322, :429-459), which ``traversal="xla"``
+takes: per entry in ``traversal_list`` order, the rays move to the
+instance's object space, one mesh's walk runs (K11a / K11b,
+``ops/traverse.mesh_closest`` / ``mesh_anyhit``), and the results merge
+outside it.
 """
 
 from __future__ import annotations
@@ -16,6 +24,8 @@ from raytpu_torch.ops.traverse import (
     anyhit_sweep,
     closest_sweep,
     make_trace_state,
+    mesh_anyhit,
+    mesh_closest,
     pack_rays,
     unpack_state,
 )
@@ -56,3 +66,62 @@ def any_hit_wave(ts: TorchScene, o, d, tmin: float, tmax: torch.Tensor,
     tmax = tmax.expand(o[0].shape).contiguous()
     occ = sweep(ts, rays, tmin, tmax, occ)
     return occ != 0
+
+
+def object_space(ts: TorchScene, inst: int, o, d) -> torch.Tensor:
+    """World rays -> instance ``inst``'s object space, packed (6, P, K)."""
+    w2o = ts.w2o[inst]
+    return pack_rays(v3.affine_rows(w2o, o), v3.linear_rows(w2o, d))
+
+
+def closest_hit_loop(ts: TorchScene, o, d, tmin: float, tmax: torch.Tensor,
+                     walk=mesh_closest, slots=None) -> HitWave:
+    """Closest hit of the wave ``(o, d)`` within ``(tmin, tmax)`` per lane,
+    one entry at a time through ``walk`` (K11a's wrapper, or its plain
+    version): the hit of each entry's mesh, its normal to world space by
+    ``v3.linear_cols``, merged where ``t < best_t``; ``best_t`` narrows the
+    next entry's window. The normal is normalized once, at the end.
+    ``slots`` (P, K) int64, if given, receives each hit lane's BVH slot in
+    the concatenated tables (as ``traverse.closest_sweep_ref``'s)."""
+    shape = o[0].shape
+    zero = torch.zeros(shape, dtype=torch.float32, device=o[0].device)
+    best_t = tmax.expand(shape).contiguous()
+    best_valid = torch.zeros(shape, dtype=torch.bool, device=zero.device)
+    best_mat = torch.zeros(shape, dtype=torch.int32, device=zero.device)
+    best_inst = torch.full(shape, -1, dtype=torch.int32, device=zero.device)
+    best_n, best_u, best_v = (zero, zero, zero + 1.0), zero, zero
+    for inst, mat, nb, nc, tb in ts.entry_rows:
+        t, slot, u, v, n_obj = walk(ts, (nb, nc, tb),
+                                    object_space(ts, inst, o, d), tmin, best_t)
+        n_world = v3.linear_cols(ts.w2o[inst], n_obj)
+        better = (slot >= 0) & (t < best_t)
+        if slots is not None:
+            slots.copy_(torch.where(better, slot.long() + tb, slots))
+        best_valid = best_valid | better
+        best_mat = torch.where(better, mat, best_mat)
+        best_inst = torch.where(better, inst, best_inst)
+        best_n = v3.where(better, n_world, best_n)
+        best_u = torch.where(better, u, best_u)
+        best_v = torch.where(better, v, best_v)
+        best_t = torch.where(better, t, best_t)
+    return HitWave(
+        t=torch.where(best_valid, best_t, torch.full_like(best_t, BIG_T)),
+        valid=best_valid, mat=best_mat, n=v3.normalize(best_n),
+        inst=best_inst, u=best_u, v=best_v,
+    )
+
+
+def any_hit_loop(ts: TorchScene, o, d, tmin: float, tmax: torch.Tensor,
+                 walk=mesh_anyhit) -> torch.Tensor:
+    """Occlusion of the wave within ``(tmin, tmax)`` per lane, one entry at
+    a time through ``walk`` (K11b's wrapper, or its plain version); a lane
+    already occluded enters the next entry with a window of 0 -> bool
+    (P, K)."""
+    tmax = tmax.expand(o[0].shape)
+    occluded = torch.zeros(o[0].shape, dtype=torch.bool, device=o[0].device)
+    for inst, _mat, nb, nc, tb in ts.entry_rows:
+        lane_tmax = torch.where(occluded, 0.0, tmax)
+        occluded = occluded | walk(ts, (nb, nc, tb),
+                                   object_space(ts, inst, o, d), tmin,
+                                   lane_tmax)
+    return occluded

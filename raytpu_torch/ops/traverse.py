@@ -1,5 +1,7 @@
 """Closest-hit and any-hit sweeps on the packed ABI (counterpart of
-``raytpu/ops/traverse.py`` and ``raytpu/ops/traverse_pallas.py:459-799``).
+``raytpu/ops/traverse.py`` and ``raytpu/ops/traverse_pallas.py:459-799``),
+and the one-mesh walks of the per-(instance, mesh) loop
+(``traverse_pallas.py:115-442``).
 
 Packed ABI, as in the JAX package: rays are one (6, P, K) f32 tensor
 (origin xyz, direction xyz), the trace state one (9, P, K) f32 tensor in
@@ -15,6 +17,17 @@ skip-link walk from node 0 to ``node_count`` that tests a leaf's triangles
 on arrival and descends an inner node when the ``_slab`` test hits within
 ``(tmin, best_t)``. Lanes still walking are compacted every step, so dead
 and finished lanes cost nothing.
+
+``mesh_closest`` / ``mesh_anyhit`` (K11a, K11b) walk ONE mesh's tree for
+rays already in its object space, with no transform and no merge: the
+function of ``pallas_closest`` / ``pallas_anyhit``, which the JAX package's
+per-(instance, mesh) loop runs per entry (``raytpu/ops/trace.py:256-322``,
+:429-459; ``ops/trace.py`` here). Their outputs are unpacked as the Pallas
+wrappers' are: t (``BIG_T`` on a miss), the mesh-local slot (-1 on a miss;
+:func:`slot_to_prim`), u, v and the object normal ((0, 0, 1) on a miss), or
+the occlusion flags. Groups of :data:`WARP` consecutive lanes walk as one,
+as the TPU's packet of 1024 does: the group descends, or tests a leaf, where
+any of its lanes' boxes hits. The kernels are in ``csrc/traverse.cu``.
 """
 
 from __future__ import annotations
@@ -23,10 +36,11 @@ import torch
 
 from raytpu_torch import _build
 from raytpu_torch.device_scene import TorchScene
-from raytpu_torch.ops.intersect import moller_trumbore, safe_inverse, slab
+from raytpu_torch.ops.intersect import BIG_T, moller_trumbore, safe_inverse, slab
 
 ST_T, ST_VALID, ST_MAT, ST_INST = 0, 1, 2, 3
 ST_NX, ST_NY, ST_NZ, ST_U, ST_V = 4, 5, 6, 7, 8
+WARP = 32  # lanes that walk one node pointer in the consensus walks: a warp
 
 
 def pack_rays(o, d) -> torch.Tensor:
@@ -124,13 +138,69 @@ def anyhit_sweep(ts: TorchScene, rays: torch.Tensor, tmin: float,
     return occ
 
 
+def _whole_warps(kernel: str, rays: torch.Tensor) -> None:
+    """Raise unless the lanes of ``rays`` (6, P, K) are whole warps."""
+    if rays[0].numel() % WARP:
+        raise ValueError(f"{kernel}: {rays[0].numel()} lanes are not whole "
+                         f"warps of {WARP}")
+
+
+def mesh_closest(ts: TorchScene, mesh, rays: torch.Tensor, tmin: float,
+                 tmax: torch.Tensor):
+    """Closest hit of the object-space ``rays`` (6, P, K) within ``(tmin,
+    tmax)`` per lane against the one mesh ``mesh = (node_base, node_count,
+    tri_base)`` (K11a, ``pallas_closest``) -> ``(t, slot, u, v, n)``, each
+    (P, K), ``slot`` int32 and mesh-local, ``n`` the object normal. CPU
+    tensors take :func:`mesh_closest_ref`; CUDA tensors launch
+    ``rt_mesh_closest``."""
+    if rays.device.type == "cpu":
+        return mesh_closest_ref(ts, mesh, rays, tmin, tmax)
+    k = "mesh_closest"
+    _whole_warps(k, rays)
+    shape = rays.shape[1:]
+    out = torch.empty((6, *shape), dtype=torch.float32, device=rays.device)
+    slot = torch.empty(shape, dtype=torch.int32, device=rays.device)
+    t = ts.bvh_tri_v0.shape[0]
+    _build.launch(
+        k, *_build.check_planes(k, "rays", rays, (6, *shape)),
+        _build.check_operand(k, "tmax", tmax, shape), out.data_ptr(),
+        out.stride(0), slot.data_ptr(), rays[0].numel(), float(tmin),
+        *(int(x) for x in mesh), *table_ptrs(k, ts)[3:],  # no entries, no w2o
+        _build.check_operand(k, "bvh_tri_n_soa", ts.bvh_tri_n_soa, (9, t)), t)
+    return out[0], slot, out[1], out[2], (out[3], out[4], out[5])
+
+
+def mesh_anyhit(ts: TorchScene, mesh, rays: torch.Tensor, tmin: float,
+                tmax: torch.Tensor) -> torch.Tensor:
+    """Occlusion of the object-space ``rays`` (6, P, K) within ``(tmin,
+    tmax)`` per lane by the one mesh ``mesh`` (K11b, ``pallas_anyhit``) ->
+    bool (P, K); a lane with ``tmax <= tmin`` is not live. CPU tensors take
+    :func:`mesh_anyhit_ref`; CUDA tensors launch ``rt_mesh_anyhit``."""
+    if rays.device.type == "cpu":
+        return mesh_anyhit_ref(ts, mesh, rays, tmin, tmax)
+    k = "mesh_anyhit"
+    _whole_warps(k, rays)
+    shape = rays.shape[1:]
+    occ = torch.empty(shape, dtype=torch.int32, device=rays.device)
+    _build.launch(
+        k, *_build.check_planes(k, "rays", rays, (6, *shape)),
+        _build.check_operand(k, "tmax", tmax, shape), occ.data_ptr(),
+        rays[0].numel(), float(tmin), *(int(x) for x in mesh),
+        *table_ptrs(k, ts)[3:])
+    return occ != 0
+
+
+def slot_to_prim(ts: TorchScene, mesh, slot: torch.Tensor) -> torch.Tensor:
+    """Mesh-local BVH slots of ``mesh`` -> global prim ids, -1 on a miss
+    (``traverse_pallas.slot_to_prim`` :403)."""
+    tb = int(mesh[2])
+    prim = ts.bvh_tri_prim[(tb + slot.clamp_min(0)).long()]
+    return torch.where(slot >= 0, prim, -1)
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
-
-def _entry_rows(ts: TorchScene):
-    return ts.entries.cpu().tolist()
-
 
 def _object_rays(ts: TorchScene, inst: int, ow, dw):
     """World -> object for one instance from its 12 w2o scalars
@@ -280,6 +350,56 @@ def _walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
         lanes, node = lanes[keep], node[keep]
 
 
+def _closest_walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
+                  tmin: float, win: torch.Tensor, counts=None, links=None,
+                  groups=None):
+    """One entry's closest-hit walk (:func:`_walk`) for the lanes of ``o``:
+    ``win`` falls to each strict improvement, in place. Returns the
+    winning BVH slot (-1 where none, int64), u and v per lane."""
+    bs = torch.full(win.shape, -1, dtype=torch.long, device=win.device)
+    bu = torch.zeros(win.shape, dtype=torch.float32, device=win.device)
+    bv = torch.zeros_like(bu)
+
+    def on_hit(kl, s, t, u, v, hit):
+        h = kl[hit]
+        win[h] = t[hit]
+        bs[h] = s[hit]
+        bu[h] = u[hit]
+        bv[h] = v[hit]
+        return torch.zeros_like(hit)
+
+    _walk(ts, nb, nc, tb, o, d, d_inv, tmin, win, on_hit, counts, links,
+          groups)
+    return bs, bu, bv
+
+
+def _anyhit_walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
+                 tmin: float, win: torch.Tensor, counts=None, links=None,
+                 groups=None) -> torch.Tensor:
+    """One entry's occlusion walk (:func:`_walk`) for the lanes of ``o``: a
+    lane stops at its first hit. Returns the lanes hit (bool)."""
+    found = torch.zeros(win.shape, dtype=torch.bool, device=win.device)
+
+    def on_hit(kl, s, t, u, v, hit):
+        found[kl[hit]] = True
+        return hit
+
+    _walk(ts, nb, nc, tb, o, d, d_inv, tmin, win, on_hit, counts, links,
+          groups)
+    return found
+
+
+def _object_normal(ts: TorchScene, s, u, v, counts=None):
+    """The object normal at slots ``s`` and barycentrics ``(u, v)``,
+    interpolated from the slot-ordered corner normals as ``w*N0 + u*N1 +
+    v*N2``, ``w = 1 - u - v`` (traverse_pallas.py:171-179)."""
+    n_soa = ts.bvh_tri_n_soa
+    _read_rows(counts, "bvh_tri_n_soa", s, n_soa.shape[1])
+    w = 1.0 - u - v
+    return [w * n_soa[c, s] + u * n_soa[3 + c, s] + v * n_soa[6 + c, s]
+            for c in range(3)]
+
+
 def closest_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
                 state: torch.Tensor, rows, walks=None, links=None,
                 slots=None, counts=None, consensus: int = 0) -> torch.Tensor:
@@ -304,7 +424,6 @@ def closest_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
     res_i = torch.zeros((2, n_lane), dtype=torch.int32, device=dev)  # mat, inst
     res_f = torch.zeros((5, n_lane), dtype=torch.float32, device=dev)  # n, u, v
     res_s = torch.zeros(n_lane, dtype=torch.long, device=dev)  # winning slot
-    n_soa = ts.bvh_tri_n_soa
     every = torch.arange(n_lane, device=dev)
 
     for e, (inst, mat, nb, nc, tb) in enumerate(rows):
@@ -314,21 +433,10 @@ def closest_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
         m, o, d, d_inv = _object_rays(ts, inst, tuple(x[sub] for x in ow),
                                       tuple(x[sub] for x in dw))
         win = bt[sub]
-        bs = torch.full(sub.shape, -1, dtype=torch.long, device=dev)
-        bu = torch.zeros(sub.shape, dtype=torch.float32, device=dev)
-        bv = torch.zeros_like(bu)
-
-        def on_hit(kl, s, t, u, v, hit):
-            h = kl[hit]
-            win[h] = t[hit]
-            bs[h] = s[hit]
-            bu[h] = u[hit]
-            bv[h] = v[hit]
-            return torch.zeros_like(hit)
-
-        _walk(ts, nb, nc, tb, o, d, d_inv, tmin, win, on_hit, counts,
-              None if links is None else (*links[:2], links[2][live[sub]]),
-              live[sub] // consensus if consensus else None)
+        bs, bu, bv = _closest_walk(
+            ts, nb, nc, tb, o, d, d_inv, tmin, win, counts,
+            None if links is None else (*links[:2], links[2][live[sub]]),
+            live[sub] // consensus if consensus else None)
         bt[sub] = win
 
         won = (bs >= 0).nonzero().squeeze(1)
@@ -336,10 +444,7 @@ def closest_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
             continue
         w_ = sub[won]
         s, u, v = bs[won], bu[won], bv[won]
-        _read_rows(counts, "bvh_tri_n_soa", s, n_soa.shape[1])
-        w = 1.0 - u - v
-        no = [w * n_soa[c, s] + u * n_soa[3 + c, s] + v * n_soa[6 + c, s]
-              for c in range(3)]
+        no = _object_normal(ts, s, u, v, counts)
         res_f[0, w_] = m[0] * no[0] + m[4] * no[1] + m[8] * no[2]
         res_f[1, w_] = m[1] * no[0] + m[5] * no[1] + m[9] * no[2]
         res_f[2, w_] = m[2] * no[0] + m[6] * no[1] + m[10] * no[2]
@@ -381,16 +486,10 @@ def anyhit_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
         ow = tuple(rflat[c, lanes] for c in range(3))
         dw = tuple(rflat[3 + c, lanes] for c in range(3))
         _, o, d, d_inv = _object_rays(ts, inst, ow, dw)
-        found = torch.zeros(lanes.shape[0], dtype=torch.bool,
-                            device=rays.device)
-
-        def on_hit(kl, s, t, u, v, hit):
-            found[kl[hit]] = True
-            return hit
-
-        _walk(ts, nb, nc, tb, o, d, d_inv, tmin, tflat[lanes].clone(), on_hit,
-              counts, None if links is None else (*links[:2], links[2][lanes]),
-              lanes // consensus if consensus else None)
+        found = _anyhit_walk(
+            ts, nb, nc, tb, o, d, d_inv, tmin, tflat[lanes].clone(), counts,
+            None if links is None else (*links[:2], links[2][lanes]),
+            lanes // consensus if consensus else None)
         oflat[lanes[found]] = 1
         pending[lanes[found]] = False
     if oflat.data_ptr() != occ.data_ptr():
@@ -406,7 +505,7 @@ def closest_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
     (P, K) int64 receives each improved lane's BVH slot, the triangle that
     won (for comparisons with the JAX walks, which report prims), and
     ``counts`` the walk's node visits and triangle tests (:func:`_walk`)."""
-    return closest_ref(ts, rays, tmin, state, _entry_rows(ts), slots=slots,
+    return closest_ref(ts, rays, tmin, state, ts.entry_rows, slots=slots,
                        counts=counts)
 
 
@@ -416,5 +515,62 @@ def anyhit_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
     """Plain PyTorch :func:`anyhit_sweep`: a lane stops at its first hit
     and skips the remaining entries. ``counts`` as for
     :func:`closest_sweep_ref`."""
-    return anyhit_ref(ts, rays, tmin, tmax, occ, _entry_rows(ts),
+    return anyhit_ref(ts, rays, tmin, tmax, occ, ts.entry_rows,
                       counts=counts)
+
+
+def _mesh_lanes(rays: torch.Tensor, tmin: float, tmax: torch.Tensor):
+    """The live lanes (window above ``tmin``) of a one-mesh walk, their
+    rays and inverse directions, and their groups of :data:`WARP`."""
+    rflat = rays.reshape(6, -1)
+    live = (tmax.reshape(-1) > tmin).nonzero().squeeze(1)
+    o = tuple(rflat[c, live] for c in range(3))
+    d = tuple(rflat[3 + c, live] for c in range(3))
+    return live, o, d, tuple(safe_inverse(x) for x in d), live // WARP
+
+
+def mesh_closest_ref(ts: TorchScene, mesh, rays: torch.Tensor, tmin: float,
+                     tmax: torch.Tensor, counts=None):
+    """Plain PyTorch :func:`mesh_closest`: the consensus walk of
+    :func:`_walk` over groups of :data:`WARP` lanes in build order, the
+    same tests in the same order as ``rt_mesh_closest``. ``counts`` as for
+    :func:`closest_sweep_ref`."""
+    _whole_warps("mesh_closest", rays)
+    nb, nc, tb = (int(x) for x in mesh)
+    shape, dev = rays.shape[1:], rays.device
+    out = torch.zeros((6, rays[0].numel()), dtype=torch.float32, device=dev)
+    out[0] = BIG_T
+    out[5] = 1.0
+    slot = torch.full((rays[0].numel(),), -1, dtype=torch.int32, device=dev)
+    live, o, d, d_inv, groups = _mesh_lanes(rays, tmin, tmax)
+    if live.numel():
+        win = tmax.reshape(-1)[live].clone()
+        bs, bu, bv = _closest_walk(ts, nb, nc, tb, o, d, d_inv, tmin, win,
+                                   counts, groups=groups)
+        won = (bs >= 0).nonzero().squeeze(1)
+        s, u, v = bs[won], bu[won], bv[won]
+        lanes = live[won]
+        out[0, lanes] = win[won]
+        out[1, lanes] = u
+        out[2, lanes] = v
+        for c, n in enumerate(_object_normal(ts, s, u, v, counts)):
+            out[3 + c, lanes] = n
+        slot[lanes] = (s - tb).to(torch.int32)
+    out = out.reshape(6, *shape)
+    return out[0], slot.reshape(shape), out[1], out[2], (out[3], out[4], out[5])
+
+
+def mesh_anyhit_ref(ts: TorchScene, mesh, rays: torch.Tensor, tmin: float,
+                    tmax: torch.Tensor, counts=None) -> torch.Tensor:
+    """Plain PyTorch :func:`mesh_anyhit`: a lane stops at its first hit
+    and leaves its group. ``counts`` as for :func:`closest_sweep_ref`."""
+    _whole_warps("mesh_anyhit", rays)
+    nb, nc, tb = (int(x) for x in mesh)
+    occ = torch.zeros(rays[0].numel(), dtype=torch.bool, device=rays.device)
+    live, o, d, d_inv, groups = _mesh_lanes(rays, tmin, tmax)
+    if live.numel():
+        found = _anyhit_walk(ts, nb, nc, tb, o, d, d_inv, tmin,
+                             tmax.reshape(-1)[live].clone(), counts,
+                             groups=groups)
+        occ[live[found]] = True
+    return occ.reshape(rays.shape[1:])

@@ -13,9 +13,12 @@ import pytest
 import torch
 
 from raytpu_torch import _build, scenes
+from raytpu_torch.config import MaterialType, ObjectConfig, RenderConfig
 from raytpu_torch.integrator import plain_kernels, render_frame
+from raytpu_torch.io.obj import Mesh, compute_smooth_normals
 from raytpu_torch.ops import consensus, epilogue, mega, perlane, raygen, sky, traverse
 from raytpu_torch.render import Renderer
+from raytpu_torch.scene import load_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -78,13 +81,14 @@ def test_raygen_and_sky(rig):
 
 
 def test_frame_goes_through_kernels(rig):
-    """The default frame (auto -> mega on this scene), the chained-tier and
-    the per-lane frames together launch every kernel, each tier its own
-    sweeps, and render the same pixels."""
+    """The default frame (auto -> mega on this scene), the chained-tier,
+    the per-lane and the "xla" frames together launch every kernel, each
+    tier its own sweeps, and render the same pixels ("xla" through the XLA
+    body, whose shading rounds apart from the fused kernels')."""
     r, _ = rig
     assert r.tscene.auto_tier == "mega"
     counts, imgs = {}, {}
-    for trav in ("auto", "pallas", "perlane"):
+    for trav in ("auto", "pallas", "perlane", "xla"):
         ts = dataclasses.replace(r.tscene, traversal=trav)
         _build.reset_launch_counts()
         imgs[trav] = render_frame(ts, r.render_static, r.camera_tensor())
@@ -92,7 +96,8 @@ def test_frame_goes_through_kernels(rig):
     sweeps = {"auto": ("block_stats", "mega_closest_sweep", "mega_anyhit_sweep"),
               "pallas": ("closest_sweep", "anyhit_sweep"),
               "perlane": ("block_stats", "perlane_closest_sweep",
-                          "perlane_anyhit_sweep")}
+                          "perlane_anyhit_sweep"),
+              "xla": ("mesh_closest", "mesh_anyhit")}
     every = {k for names in sweeps.values() for k in names}
     for trav, names in sweeps.items():
         assert all(counts[trav][k] > 0 for k in names), counts
@@ -101,6 +106,7 @@ def test_frame_goes_through_kernels(rig):
                for k in _build.KERNELS), counts
     assert torch.equal(imgs["auto"], imgs["pallas"])
     assert torch.equal(imgs["perlane"], imgs["pallas"])
+    assert (imgs["xla"] - imgs["pallas"]).abs().max() <= 1e-5
     with plain_kernels():
         plain = render_frame(r.tscene, r.render_static, r.camera_tensor())
     assert torch.isfinite(imgs["auto"]).all()
@@ -238,3 +244,71 @@ def _ulps(a, b):
     ai = a.contiguous().view(torch.int32).long()
     bi = b.contiguous().view(torch.int32).long()
     return (ai - bi).abs().max().item()
+
+
+@pytest.fixture(scope="module")
+def soup():
+    """A random triangle soup of 300 triangles on the card, and rays
+    (6, 16, 1024) around it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(3)
+    pos = rng.uniform(-3, 3, (900, 3)).astype(np.float32)
+    tris = np.arange(900, dtype=np.int32).reshape(300, 3)
+    cfg = RenderConfig(objects=(ObjectConfig("soup", MaterialType.DIFFUSE,
+                                             "static"),), width=32, height=32)
+    mesh = Mesh(positions=pos, normals=compute_smooth_normals(pos, tris),
+                triangles=tris, name="soup")
+    r = Renderer(load_scene(cfg, meshes=[mesh],
+                            skybox=np.full((6, 2, 2, 3), 0.5, np.float32)),
+                 "cuda")
+    p, k = 16, 1024
+    u = rng.normal(size=(p * k, 3))
+    o = u / np.linalg.norm(u, axis=1, keepdims=True) * 9.0
+    d = rng.uniform(-2, 2, (p * k, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = torch.from_numpy(np.ascontiguousarray(
+        np.concatenate([o.T, d.T]), np.float32).reshape(6, p, k)).cuda()
+    return r.tscene, rays
+
+
+@pytest.mark.parametrize("strided", [False, True])
+def test_mesh_walks_bitwise(soup, strided):
+    """K11a and K11b against their plain versions, bit for bit, on a whole
+    buffer and on a strided wave, with dead lanes and dead warps."""
+    ts, rays = soup
+    mesh = ts.entry_rows[0][2:]
+    p0, b = (4, 8) if strided else (0, rays.shape[1])
+    wave = rays[:, p0:p0 + b]
+    assert wave.is_contiguous() != strided
+    win = torch.full(wave.shape[1:], 1e4, device="cuda")
+    win.view(-1)[::5] = 0.0
+    win[:, :64] = 0.0                  # two dead warps in every packet
+    got = traverse.mesh_closest(ts, mesh, wave, 1e-3, win)
+    want = traverse.mesh_closest_ref(ts, mesh, wave, 1e-3, win)
+    for a, w in zip((*got[:4], *got[4]), (*want[:4], *want[4])):
+        assert torch.equal(a.view(torch.int32), w.view(torch.int32))
+    assert (got[1] >= 0).float().mean() > 0.05
+    tmax = win * 0.001
+    occ = traverse.mesh_anyhit(ts, mesh, wave, 1e-3, tmax)
+    assert torch.equal(occ, traverse.mesh_anyhit_ref(ts, mesh, wave, 1e-3, tmax))
+    assert occ.any() and not occ.all()
+
+
+def test_xla_frame_launches_mesh_walks(rig):
+    """An "xla" frame renders through the XLA body, compacted, on K11a/K11b
+    and launches no packed sweep and no fused shading; it equals the
+    pallas tier's frame through the same body bit for bit."""
+    r, _ = rig
+    ts = dataclasses.replace(r.tscene, traversal="xla")
+    _build.reset_launch_counts()
+    stats = {}
+    img = render_frame(ts, r.render_static, r.camera_tensor(), stats=stats)
+    counts = _build.launch_counts()
+    assert stats["tier"] == "xla"
+    assert counts["mesh_closest"] > 0 and counts["mesh_anyhit"] > 0, counts
+    assert all(n == 0 for k, n in counts.items()
+               if k not in ("mesh_closest", "mesh_anyhit", "raygen", "sky")), counts
+    body = dataclasses.replace(r.render_static, fused="off")
+    assert torch.equal(img, render_frame(dataclasses.replace(ts, traversal="pallas"),
+                                         body, r.camera_tensor()))

@@ -35,12 +35,19 @@ def _run_isolated(code):
 
 
 def test_port_never_imports_jax():
+    """Every module, and an "xla" frame through the compacted body (the
+    per-(instance, mesh) loop's plain walks) on the CPU."""
     _run_isolated(
         "import pkgutil, importlib, sys, raytpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages("
         "raytpu_torch.__path__, 'raytpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "assert len(mods) >= 25 and 'raytpu_torch.ops.consensus' in mods, mods\n"
+        "from raytpu_torch import scenes\n"
+        "from raytpu_torch.render import Renderer\n"
+        "r = Renderer(scenes.two_box_scene(64, 64, 2, 2, traversal='xla'), 'cpu')\n"
+        "stats = {}\n"
+        "assert r.render(stats=stats).std() > 0.01 and stats['tier'] == 'xla'\n"
     )
 
 
@@ -132,6 +139,15 @@ def test_cpu_wrappers_take_plain_path(small):
     assert torch.equal(
         consensus.mega_anyhit_sweep(ts, prays, 1e-3, pwin, pocc.clone()),
         consensus.mega_anyhit_sweep_ref(ts, prays, 1e-3, pwin, pocc.clone()))
+    # and the one-mesh walks of the per-(instance, mesh) loop
+    mesh = ts.entry_rows[0][2:]
+    t, slot, u, v, n = traverse.mesh_closest(ts, mesh, rays, 1e-3, win)
+    want = traverse.mesh_closest_ref(ts, mesh, rays, 1e-3, win)
+    for a, b in zip((t, slot, u, v, *n), (*want[:4], *want[4])):
+        assert torch.equal(a, b)
+    assert bool((slot >= 0).any())
+    assert torch.equal(traverse.mesh_anyhit(ts, mesh, rays, 1e-3, win),
+                       traverse.mesh_anyhit_ref(ts, mesh, rays, 1e-3, win))
 
     img = r.render_np()
     assert np.isfinite(img).all()
@@ -181,6 +197,14 @@ def test_non_cpu_tensor_needs_cuda(small):
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         consensus.mega_anyhit_sweep(r.tscene, prays, 1e-3, pwin,
                                     pwin.to(torch.int32))
+    mesh = r.tscene.entry_rows[0][2:]
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        traverse.mesh_closest(r.tscene, mesh, meta_rays, 1e-3, tm)
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        traverse.mesh_anyhit(r.tscene, mesh, meta_rays, 1e-3, tm)
+    with pytest.raises(ValueError, match="whole warps"):   # 2 x 60 lanes
+        traverse.mesh_closest(r.tscene, mesh, meta_rays[:, :, :60], 1e-3,
+                              tm[:, :60])
     assert _build.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
 
 
@@ -203,17 +227,18 @@ def test_unported_config_values_raise():
                  dict(ray_chunk=4096), dict(devices=2), dict(validation=True),
                  dict(divergence="split"), dict(bounce_unroll=True),
                  dict(sky_rebin="on"), dict(traversal="brute"),
-                 dict(chunk_tris=256), dict(bvh_builder="lbvh")):
+                 dict(chunk_tris=256), dict(bvh_builder="lbvh"),
+                 dict(bvh_builder="median"), dict(bvh_builder="sah")):
         with pytest.raises(ValueError):
             RenderStatic.from_config(base.replace(**knob))
     for trav in ("auto", "pallas", "xla", "perlane", "mega", "hybrid"):
         RenderStatic.from_config(base.replace(traversal=trav))
     with pytest.raises(ValueError, match="fold_spp"):
         RenderStatic(32, 32, 2, 1, fold_spp=False)
-    # the eager body composes only with full-width waves
+    # the eager body composes with full-width and compacted waves
     RenderStatic(32, 32, 2, 1, wavefront="full", fused="off")
-    with pytest.raises(ValueError, match="compact"):
-        RenderStatic(32, 32, 2, 1, wavefront="compact", fused="off")
+    RenderStatic(32, 32, 2, 1, wavefront="compact", fused="off")
+    RenderStatic.from_config(base.replace(bvh_builder="native"))
     for bad in (dict(fused="auto"), dict(ladder="on"),
                 dict(shadow_order="far")):
         with pytest.raises(ValueError):

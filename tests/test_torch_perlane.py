@@ -161,11 +161,12 @@ def test_tier_dispatch():
     cases = {("auto", "mega"): "mega", ("auto", "perlane"): "perlane",
              ("perlane", "mega"): "perlane", ("hybrid", "mega"): "hybrid",
              ("hybrid", "perlane"): "hybrid", ("pallas", "perlane"): "pallas",
-             ("xla", "perlane"): "pallas", ("mega", "perlane"): "mega"}
+             ("xla", "perlane"): "xla", ("mega", "perlane"): "mega"}
     for (trav, auto), tier in cases.items():
         t = dataclasses.replace(ts, traversal=trav, auto_tier=auto)
         assert frame_tier(t, 64) == tier, (trav, auto)
-        assert frame_tier(t, 60) == "pallas"   # not whole blocks of 8
+        # not whole blocks of 8: the chained sweeps, but "xla" keeps its loop
+        assert frame_tier(t, 60) == ("xla" if trav == "xla" else "pallas")
     with pytest.raises(ValueError, match="brute"):
         frame_tier(dataclasses.replace(ts, traversal="brute"), 64)
     # spp 1 with bounces, and the stand-ins' triangle counts, go per-lane
