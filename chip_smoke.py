@@ -4,13 +4,18 @@
     python3 chip_smoke.py                # from the repository root
     python3 chip_smoke.py --profile DIR  # profiler tables into DIR
                                          # (default build/profile/)
+    python3 chip_smoke.py --ab PARENT [--this-first]
+                                         # frames and K1/K2 times of the
+                                         # port in PARENT and in this tree
 
 Builds the thirteen hand-written CUDA kernels from ``raytpu_torch/csrc``
 and the BVHs (the teapot stand-in's tree checked against a digest of the
 tree raytpu builds), holds every kernel against its plain PyTorch version
 on the card at the main path's shapes (and the per-lane sweeps K1/K2, the
 consensus sweeps K8/K9 and the per-(instance, mesh) loop on the one-mesh
-walks K11a/K11b against the chained sweeps K10a/K10b, bit for bit), then
+walks K11a/K11b against the chained sweeps K10a/K10b, bit for bit; K1/K2
+also on config4's whole primary wave, with their registers, local bytes
+and resident CTAs), then
 renders through ``Renderer`` on the default fused and compacted bounce
 loop:
 
@@ -21,8 +26,10 @@ loop:
 * the same scene with ``traversal="pallas"``: K10a/K10b and not K7/K1/K2;
 * one profiled frame of each tier, for the device's idle share;
 * one per-lane config4 frame with every K1/K2 launch held against K10a/K10b
-  on its wave, primary and bounce waves, and its pixels against the
-  pallas-tier frame of the same pose (only exact ties may differ);
+  on its wave, primary and bounce waves, the primary and first bounce
+  waves also against K1/K2's plain versions (bit for bit), and its pixels
+  against the pallas-tier frame of the same pose (only exact ties may
+  differ);
 * two config4 frames through the eager ``fused="off"`` body and two
   through the fused loop at full width (no compaction);
 * two config4 frames with ``traversal="xla"``, which the JAX package renders
@@ -183,6 +190,42 @@ def cuda_ms(fn, warmup: int, iters: int) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def warm_card(ms: float = 50.0) -> None:
+    """Keep the card busy for about ``ms`` of host time, so that a timed
+    run that follows host-bound work (a plain walk, a scene build) does not
+    start on clocks that fell while the card idled."""
+    import torch
+
+    a = torch.ones((2048, 2048), device="cuda")
+    start = time.perf_counter()
+    while (time.perf_counter() - start) * 1e3 < ms:
+        for _ in range(8):
+            a = (a @ a) / 2048.0
+        torch.cuda.synchronize()
+
+
+def cuda_ms_fresh(fn, make, warmup: int, iters: int) -> float:
+    """Mean ms per call of ``fn(x)`` on inputs ``x = make()`` made before
+    the timed run (a sweep updates its state in place, so each launch
+    takes a fresh copy; the copies are not timed), after
+    :func:`warm_card`."""
+    import torch
+
+    warm_card()
+    for _ in range(warmup):
+        fn(make())
+    inputs = [make() for _ in range(iters)]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for x in inputs:
+        fn(x)
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -542,8 +585,8 @@ def compare_kernels(r, gpu: str) -> dict:
     # the closest kernels alone on the full primary wave, and K7 there
     full_win = torch.where(act, RAY_TMAX, 0.0).float()
     full_st = traverse.make_trace_state(full_win)
-    res["closest_sweep"]["full_wave_ms"] = cuda_ms(
-        lambda: traverse.closest_sweep(ts, rk, RAY_TMIN, full_st.clone()), 1, 3)
+    res["closest_sweep"]["full_wave_ms"] = cuda_ms_fresh(
+        lambda st: traverse.closest_sweep(ts, rk, RAY_TMIN, st), full_st.clone, 1, 3)
     compare_block_stats(rk, full_win, res)
     sched = perlane.prepass(ts, rk, full_win, RAY_TMIN, "origin")
     k1 = perlane.launch_closest(ts, rk, RAY_TMIN, full_st.clone(), sched)
@@ -554,19 +597,39 @@ def compare_kernels(r, gpu: str) -> dict:
     check([tuple(t["lane"]) for t in ties] == EXACT_TIES,
           f"K1 and K10a differ on exactly the known tied lanes {EXACT_TIES}")
     res["perlane_closest_sweep"]["full_wave_ties"] = ties
-    res["perlane_closest_sweep"]["full_wave_ms"] = cuda_ms(
-        lambda: perlane.launch_closest(ts, rk, RAY_TMIN, full_st.clone(), sched), 1, 3)
+    res["perlane_closest_sweep"]["full_wave_ms"] = cuda_ms_fresh(
+        lambda st: perlane.launch_closest(ts, rk, RAY_TMIN, st, sched), full_st.clone,
+        1, 3)
     res["perlane_closest_sweep"]["full_wave_prepass_ms"] = cuda_ms(
         lambda: perlane.prepass(ts, rk, full_win, RAY_TMIN, "origin"), 1, 3)
+    # the shadow kernels alone on the shadow rays of K10a's hits there
+    srays_f, tmax_f = shadow_rays(ts, rk, k10)
     del k1, k10
+    occ_f = torch.zeros(tmax_f.shape, dtype=torch.int32, device=dev)
+    ssched = perlane.prepass(ts, srays_f, tmax_f, RAY_TMIN, "light")
+    k2 = perlane.launch_anyhit(ts, srays_f, RAY_TMIN, tmax_f, occ_f.clone(), ssched)
+    k10b = traverse.anyhit_sweep(ts, srays_f, RAY_TMIN, tmax_f, occ_f.clone())
+    check(torch.equal(k2, k10b),
+          "perlane_anyhit_sweep's occlusion equals anyhit_sweep's on the full "
+          "primary wave's shadow rays")
+    print(f"perlane_anyhit_sweep vs anyhit_sweep on the full primary wave's shadow "
+          f"rays: occlusion equal, occluded {float((k2 != 0).float().mean()):.3f}",
+          flush=True)
+    for name, fn in (("perlane_anyhit_sweep", lambda occ: perlane.launch_anyhit(
+                         ts, srays_f, RAY_TMIN, tmax_f, occ, ssched)),
+                     ("anyhit_sweep", lambda occ: traverse.anyhit_sweep(
+                         ts, srays_f, RAY_TMIN, tmax_f, occ))):
+        res[name]["full_wave_ms"] = cuda_ms_fresh(fn, occ_f.clone, 1, 3)
+    del k2, k10b, srays_f, tmax_f, occ_f
     compare_epilogue(r, rk, full_st, act, s_row, res, gpu)
     for name, v in res.items():
         print(f"time {name:21s} kernel {v['ms']:.4f} ms  plain {v['plain_ms']:.4f} ms"
               f"  bound {v['bound'][0]:.4f} ms ({v['bound'][1]})  shape {v['shape']}"
               f"  [{gpu}]", flush=True)
-    for name in ("closest_sweep", "perlane_closest_sweep"):
+    for name in CHAINED + PER_LANE[1:]:
         v = res[name]
-        print(f"time {name} full primary wave {list(rk.shape)}: "
+        print(f"time {name} full primary wave {list(rk.shape)}"
+              f"{' (shadow rays)' if 'anyhit' in name else ''}: "
               f"{v['full_wave_ms']:.4f} ms [{gpu}]", flush=True)
     v = res["mesh_closest"]
     print(f"time closest_hit_loop (K11a per entry, the loop's PyTorch glue) full "
@@ -698,6 +761,12 @@ def compare_perlane(ts, rays, win, st0, k10a, srays, tmax, occ0, k10b,
     print(f"perlane_anyhit {list(srays.shape)}: occ equal to its plain version and to "
           f"anyhit_sweep; plain walk per live ray: {work['nodes'] / live:.1f} node "
           f"visits, {work['tests'] / live:.1f} triangle tests", flush=True)
+    for name, attrs in perlane.kernel_attributes().items():
+        res[name]["attributes"] = attrs
+        print(f"{name}: {attrs['registers']} registers and {attrs['local_bytes']} "
+              f"local bytes a thread, {attrs['ctas_per_sm']} CTAs of 256 resident "
+              f"per SM ({attrs['ctas_per_sm'] * 256 / 2048:.1%} occupancy), "
+              f"persistent grid {attrs['ctas_per_sm'] * attrs['sms']} CTAs", flush=True)
 
 
 def tree_digest(arrays) -> str:
@@ -1238,21 +1307,41 @@ def tier_waves(r, t0: float) -> dict:
 
     waves = []
 
+    def plain_checked(sweep: str) -> bool:
+        """Whether this call of ``sweep`` is on the primary or the first
+        bounce wave, which are also held against the plain version."""
+        return sum(w["sweep"] == sweep for w in waves) < 2
+
     def closest(ts, rays, tmin, state):
         win = state[traverse.ST_T].clone()
         k10 = traverse.closest_sweep(ts, rays, tmin, state.clone())
+        plain = (perlane.perlane_closest_sweep_ref(ts, rays, tmin, state.clone())
+                 if plain_checked("closest") else None)
         perlane.perlane_closest_sweep(ts, rays, tmin, state)
+        if plain is not None:
+            check(torch.equal(state.view(torch.int32), plain.view(torch.int32)),
+                  f"perlane_closest_sweep equals its plain version bit for bit on "
+                  f"the frame's wave {len(waves)} ({rays.shape[1]} packets; "
+                  f"{differing_lanes(state, plain)})")
         ties = exact_ties(ts, rays, win, state, k10)
         waves.append({"sweep": "closest", "packets": rays.shape[1],
-                      "tied_lanes": [t["lane"] for t in ties]})
+                      "tied_lanes": [t["lane"] for t in ties],
+                      "plain_equal": plain is not None})
         return state
 
     def anyhit(ts, rays, tmin, tmax, occ, order):
         k10 = traverse.anyhit_sweep(ts, rays, tmin, tmax, occ.clone())
+        plain = (perlane.perlane_anyhit_sweep_ref(ts, rays, tmin, tmax, occ.clone(),
+                                                  order)
+                 if plain_checked("anyhit") else None)
         perlane.perlane_anyhit_sweep(ts, rays, tmin, tmax, occ, order)
         check(torch.equal(occ, k10), f"perlane_anyhit_sweep equals anyhit_sweep "
               f"on the frame's wave {len(waves)} ({rays.shape[1]} packets)")
-        waves.append({"sweep": "anyhit", "packets": rays.shape[1]})
+        check(plain is None or torch.equal(occ, plain),
+              f"perlane_anyhit_sweep equals its plain version on the frame's wave "
+              f"{len(waves)} ({rays.shape[1]} packets)")
+        waves.append({"sweep": "anyhit", "packets": rays.shape[1],
+                      "plain_equal": plain is not None})
         return occ
 
     def frame(traversal):
@@ -1272,12 +1361,17 @@ def tier_waves(r, t0: float) -> dict:
     closest_waves = [w for w in waves if w["sweep"] == "closest"]
     check(len(closest_waves) > 1 and len(waves) > len(closest_waves),
           f"the frame swept bounce waves and shadows ({waves})")
+    check(sum(w["plain_equal"] for w in waves) == 4,
+          "K1 and K2 held against their plain versions on the primary and the "
+          "first bounce wave")
     check([tuple(x) for x in closest_waves[0]["tied_lanes"]] == EXACT_TIES,
           f"the primary wave's K1/K10a differences are exactly {EXACT_TIES}")
     n_tied = sum(len(w["tied_lanes"]) for w in closest_waves)
     n_diff = int((img != pal).any(dim=-1).sum().item())
     print(f"config4 frame (pose {t0}) per-lane, each sweep against the chained "
           f"sweep on its wave: waves {[(w['sweep'], w['packets']) for w in waves]}, "
+          f"K1 and K2 bit for bit equal to their plain versions on the primary and "
+          f"first bounce waves, "
           f"K2 occlusion equal on every wave, K1/K10a exact ties per closest wave "
           f"{[w['tied_lanes'] for w in closest_waves]}; pixels differing from the "
           f"pallas-tier frame: {n_diff} (tied lanes {n_tied})", flush=True)
@@ -1365,11 +1459,48 @@ AB_FRAMES = (  # (stand-in, its tiers, the first its default, frames, t0 = dt)
 )
 
 
+def sweep_times(r) -> dict:
+    """K1 and K2 alone (``perlane.launch_closest``/``launch_anyhit`` on a
+    schedule made beforehand) on the config4 stand-in's primary wave at
+    pose 0.05: on the ``SWEEP_PACKETS`` slice and on the whole wave, K2 on
+    the shadow rays of K1's hits; ms per launch, fresh state copies made
+    outside the timed launches."""
+    import torch
+    from raytpu_torch.config import RAY_TMAX, RAY_TMIN
+    from raytpu_torch.ops import perlane, traverse
+
+    ts = r.tscene
+    r.set_transforms(0.05)
+    rk, act = primary_wave(r)
+    idx = torch.tensor(sweep_slice(r.render_static, SWEEP_PACKETS), device=r.device)
+    out = {}
+    for label, rays, win in (
+            ("slice", rk[:, idx].contiguous(),
+             torch.where(act[idx], RAY_TMAX, 0.0).float().contiguous()),
+            ("wave", rk, torch.where(act, RAY_TMAX, 0.0).float())):
+        st0 = traverse.make_trace_state(win)
+        sched = perlane.prepass(ts, rays, win, RAY_TMIN, "origin")
+        out[f"K1_{label}_ms"] = cuda_ms_fresh(
+            lambda st: perlane.launch_closest(ts, rays, RAY_TMIN, st, sched),
+            st0.clone, 3, 10)
+        srays, tmax = shadow_rays(
+            ts, rays, perlane.launch_closest(ts, rays, RAY_TMIN, st0.clone(), sched))
+        ssched = perlane.prepass(ts, srays, tmax, RAY_TMIN, "light")
+        occ0 = torch.zeros(tmax.shape, dtype=torch.int32, device=r.device)
+        out[f"K2_{label}_ms"] = cuda_ms_fresh(
+            lambda occ: perlane.launch_anyhit(ts, srays, RAY_TMIN, tmax, occ, ssched),
+            occ0.clone, 3, 10)
+        del st0, srays, tmax, occ0
+        torch.cuda.empty_cache()
+    return out
+
+
 def frames_of(root: Path) -> dict:
     """The stand-ins' frames (:data:`AB_FRAMES`) rendered by the port in
     ``root``, a checkout of any commit since the consensus tier: its
     kernels built there, then per stand-in and tier the median frame ms of
-    :func:`render_frames`."""
+    :func:`render_frames`; and the times of its K1 and K2
+    (:func:`sweep_times`)."""
     import torch
 
     sys.path.insert(0, str(root))
@@ -1385,6 +1516,8 @@ def frames_of(root: Path) -> dict:
     out = {}
     for label, tiers, n, dt in AB_FRAMES:
         r = Renderer(getattr(scenes, label)())
+        if label == "config4_standin":
+            out.update(sweep_times(r))
         base = r.tscene
         for tier in tiers:
             r.tscene = dataclasses.replace(
@@ -1396,26 +1529,31 @@ def frames_of(root: Path) -> dict:
     return out
 
 
-def ab(parent: Path) -> int:
-    """The frames of :data:`AB_FRAMES` with the port in ``parent`` and with
-    this one, alternately in four child processes on the one card (parent,
-    this, this, parent): the medians of each run side by side."""
+def ab(parent: Path, this_first: bool = False) -> int:
+    """The frames of :data:`AB_FRAMES` and the K1/K2 times of
+    :func:`sweep_times` with the port in ``parent`` and with this one,
+    alternately in four child processes on the one card (parent, this,
+    this, parent; or this, parent, parent, this if ``this_first``): the
+    medians and times of each run side by side."""
     gpu = gpu_line()
     print(gpu, flush=True)
+    order = ["this", "parent", "parent", "this"] if this_first else \
+        ["parent", "this", "this", "parent"]
     runs = []
-    for root in (parent, REPO, REPO, parent):
+    for who in order:
+        root = REPO if who == "this" else parent
         proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                                "--frames-of", str(root)],
                               capture_output=True, text=True, timeout=600)
         print(proc.stdout, proc.stderr[-3000:], sep="", flush=True)
         check(proc.returncode == 0, f"the frames of {root} rendered")
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
-    print(f"{'frame':32s} {'parent, run 1':>14s} {'this, run 2':>12s} "
-          f"{'this, run 3':>12s} {'parent, run 4':>14s} (median ms) [{gpu}]")
+    print(f"{'frame':32s} " + " ".join(f"{f'{who}, run {i + 1}':>14s}"
+                                       for i, who in enumerate(order))
+          + f" (median frame ms; K1/K2 ms a launch) [{gpu}]")
     for key in runs[0]:
-        print(f"{key:32s} " + " ".join(f"{run[key]:12.3f}" for run in runs))
-    print(json.dumps({"gpu": gpu, "order": ["parent", "this", "this", "parent"],
-                      "median_ms": runs}))
+        print(f"{key:32s} " + " ".join(f"{run[key]:14.4f}" for run in runs))
+    print(json.dumps({"gpu": gpu, "order": order, "median_ms": runs}))
     return 0
 
 
@@ -1427,7 +1565,10 @@ def main() -> int:
     ap.add_argument("--ab", metavar="PARENT",
                     help="instead of the smoke run, time the stand-ins' frames with "
                     "the port of PARENT (a checkout of another commit) and with "
-                    "this one, alternately in child processes")
+                    "this one, alternately in child processes (parent first)")
+    ap.add_argument("--this-first", action="store_true",
+                    help="with --ab: this checkout's run first (this, parent, "
+                    "parent, this)")
     ap.add_argument("--frames-of", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
@@ -1444,7 +1585,7 @@ def main() -> int:
         print(json.dumps(frames_of(Path(args.frames_of))))
         return 0
     if args.ab:
-        return ab(Path(args.ab))
+        return ab(Path(args.ab), args.this_first)
     import_port()
     from raytpu_torch import _build, scenes
     from raytpu_torch.integrator import frame_tier, plain_kernels, render_frame
@@ -1478,8 +1619,9 @@ def main() -> int:
     ts = r4.tscene
     print(f"config4 stand-in: scene generation {t_gen:.2f} s, BVH build + upload "
           f"{t_bvh:.2f} s ({ts.bvh_aabb_min.shape[0]} nodes, "
-          f"{ts.bvh_tri_v0.shape[0]} triangles, {len(ts.traversal_list)} entries)",
-          flush=True)
+          f"{ts.bvh_tri_v0.shape[0]} triangles, {len(ts.traversal_list)} entries; "
+          f"K1/K2's packed records {nbytes(ts.packed_nodes, ts.packed_links, ts.packed_tris)}"
+          f" bytes)", flush=True)
     digest = tree_digest(first_tree(ts))
     print(f"teapot stand-in tree sha256 {digest} (raytpu's {TREE_DIGEST})", flush=True)
     check(digest == TREE_DIGEST, "the port builds raytpu's tree of the teapot stand-in")

@@ -52,13 +52,21 @@ _SIGNATURES = {
     "accumulate_epilogue": [_P, _P, _L, _P, _P, _L, _P, _L, _I, _F, _P],
     "block_stats": [_P, _L, _P, _L, _L, _F, _P, _P],
     # rays, (state | tmax, occ), n, tmin, the schedule (block lanes, bits,
-    # words, octs, succ, skip, nodes), the tables
+    # words, octs), the packed links, nodes M, the entries and w2o, the
+    # packed nodes and triangles, (normals, T,) the work counters and their
+    # number
     "perlane_closest_sweep": [_P, _L, _P, _L, _L, _F, _L, _P, _I, _P, _P,
-                              _P, _L, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                              _P, _P, _P, _L, _P],
-    "perlane_anyhit_sweep": [_P, _L, _P, _P, _L, _F, _L, _P, _I, _P, _P, _P,
-                             _L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _P, _P],
+                              _L, _P, _I, _P, _P, _P, _P, _L, _P, _I, _P],
+    "perlane_anyhit_sweep": [_P, _L, _P, _P, _L, _F, _L, _P, _I, _P, _P, _L,
+                             _P, _I, _P, _P, _P, _P, _I, _P],
+    # rays, (state | tmax, occ), n, tmin, the schedule with the wide links
+    # (block lanes, bits, words, octs, succ, skip, nodes M), the bvh_* tables
+    "mega_closest_sweep": [_P, _L, _P, _L, _L, _F, _L, _P, _I, _P, _P, _P,
+                           _L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _L, _P],
+    "mega_anyhit_sweep": [_P, _L, _P, _P, _L, _F, _L, _P, _I, _P, _P, _P,
+                          _L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _P],
     # object-space rays, tmax, (out, its plane stride, slot | occ), n, tmin,
     # the mesh's node base, node count and slot base, its tables
     "mesh_closest": [_P, _L, _P, _P, _L, _P, _L, _F, _I, _I, _I, _P, _P, _P,
@@ -66,10 +74,6 @@ _SIGNATURES = {
     "mesh_anyhit": [_P, _L, _P, _P, _L, _F, _I, _I, _I, _P, _P, _P, _P, _P,
                     _P, _P, _P, _P],
 }
-# the consensus sweeps take the per-lane sweeps' arguments (the wide links
-# in place of the octant links)
-_SIGNATURES["mega_closest_sweep"] = _SIGNATURES["perlane_closest_sweep"]
-_SIGNATURES["mega_anyhit_sweep"] = _SIGNATURES["perlane_anyhit_sweep"]
 KERNELS = tuple(_SIGNATURES)
 
 _launches = dict.fromkeys(KERNELS, 0)
@@ -144,6 +148,8 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.rt_error_string.argtypes = [ctypes.c_int]
             lib.rt_error_string.restype = ctypes.c_char_p
+            lib.rt_perlane_attributes.argtypes = [ctypes.c_int, _P]
+            lib.rt_perlane_attributes.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -173,17 +179,22 @@ def reset_launch_counts() -> None:
         _launches[k] = 0
 
 
-def _check(kernel: str, name: str, t: torch.Tensor, shape, dtype) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(
-            f"{kernel}: {name} lies on {t.device}; the kernel needs a CUDA "
-            "tensor (CPU tensors take the plain PyTorch version)")
+def _check_layout(kernel: str, name: str, t: torch.Tensor, shape,
+                  dtype) -> None:
     if t.dtype != dtype:
         raise ValueError(f"{kernel}: {name} is {t.dtype}, needs {dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(
             f"{kernel}: {name} has shape {tuple(t.shape)}, needs "
             f"{tuple(shape)}")
+
+
+def _check(kernel: str, name: str, t: torch.Tensor, shape, dtype) -> None:
+    _check_layout(kernel, name, t, shape, dtype)
+    if t.device.type != "cuda":
+        raise ValueError(
+            f"{kernel}: {name} lies on {t.device}; the kernel needs a CUDA "
+            "tensor (CPU tensors take the plain PyTorch version)")
 
 
 def check_operand(kernel: str, name: str, t: torch.Tensor, shape=None,
@@ -194,6 +205,15 @@ def check_operand(kernel: str, name: str, t: torch.Tensor, shape=None,
     if not t.is_contiguous():
         raise ValueError(f"{kernel}: {name} is not contiguous")
     return t.data_ptr()
+
+
+def check_operands(kernel: str, operands) -> list:
+    """:func:`check_operand` on each ``(name, tensor, shape, dtype)`` of
+    ``operands``, every type and shape before any device: a table of the
+    wrong layout is named wherever it lies."""
+    for op in operands:
+        _check_layout(kernel, *op)
+    return [check_operand(kernel, *op) for op in operands]
 
 
 def check_planes(kernel: str, name: str, t: torch.Tensor, shape,

@@ -22,7 +22,12 @@ import torch
 
 from raytpu_torch.scene import Scene
 from raytpu_torch.accel.native import Bvh, build_bvh
-from raytpu_torch.device_scene import TorchScene, corner_tables, entry_table
+from raytpu_torch.device_scene import (
+    TorchScene,
+    corner_tables,
+    entry_table,
+    with_packed,
+)
 from raytpu_torch.ops.mega import mesh_octant_links, mesh_wide_links
 
 __all__ = ["Bvh", "attach_bvh", "build_bvh", "resolve_auto_tier"]
@@ -43,8 +48,9 @@ def resolve_auto_tier(total_tris: int, spp: int, bounces: int) -> str:
 def attach_bvh(tscene: TorchScene, scene: Scene, leaf_size: int) -> TorchScene:
     """Build one tree per mesh of ``scene``, concatenate the ``bvh_*``
     arrays (node and slot indices stay mesh-local), thread each tree per
-    octant, plain and wide, fill the entry table, one entry per instance, and resolve the
-    traversal tier from the scene's config."""
+    octant, plain and wide, pack the per-lane sweeps' records, fill the
+    entry table, one entry per instance, and resolve the traversal tier
+    from the scene's config."""
     v0_all, e1_all, e2_all, n_soa = corner_tables(scene)
     nodes = {k: [] for k in ("aabb_min", "aabb_max", "tri_first",
                              "tri_count", "miss")}
@@ -82,7 +88,7 @@ def attach_bvh(tscene: TorchScene, scene: Scene, leaf_size: int) -> TorchScene:
     def dev(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=tscene.device)
 
-    return dataclasses.replace(
+    return with_packed(dataclasses.replace(
         tscene,
         bvh_aabb_min=dev(arrays["aabb_min"]),
         bvh_aabb_max=dev(arrays["aabb_max"]),
@@ -105,4 +111,4 @@ def attach_bvh(tscene: TorchScene, scene: Scene, leaf_size: int) -> TorchScene:
         traversal=cfg.traversal,
         auto_tier=resolve_auto_tier(tri_acc, cfg.samples_per_pixel,
                                     cfg.max_bounce_count),
-    )
+    ))

@@ -45,6 +45,8 @@ __global__ void mega_closest_sweep_kernel(const float* __restrict__ rays,
                                           float* __restrict__ state,
                                           long long st_s, long long n,
                                           float tmin, rt::Schedule sc,
+                                          const int* __restrict__ succ,
+                                          const int* __restrict__ skip,
                                           rt::Tables tab,
                                           const float* __restrict__ n_soa,
                                           long long n_tris) {
@@ -63,8 +65,9 @@ __global__ void mega_closest_sweep_kernel(const float* __restrict__ rays,
     float o[3], d[3], d_inv[3];
     const float* m = rt::object_ray(tab, en, ow, dw, o, d, d_inv);
     float bu = 0.f, bv = 0.f;
-    const int bs = rt::closest_in_entry<true>(tab, en, ls.succ, ls.skip, o, d,
-                                              d_inv, tmin, &bt, &bu, &bv);
+    const int bs = rt::closest_in_entry<true>(
+        rt::SoaFetch{tab, succ + ls.row, skip + ls.row}, en, o, d, d_inv, tmin,
+        &bt, &bu, &bv);
     if (bs >= 0) rt::record_hit(&hit, en, m, n_soa, n_tris, bs, bu, bv);
   }
   if (hit.improved) rt::write_hit(state, st_s, i, bt, hit);
@@ -75,6 +78,8 @@ __global__ void mega_anyhit_sweep_kernel(const float* __restrict__ rays,
                                          const float* __restrict__ tmax,
                                          int* __restrict__ occ, long long n,
                                          float tmin, rt::Schedule sc,
+                                         const int* __restrict__ succ,
+                                         const int* __restrict__ skip,
                                          rt::Tables tab) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;  // n is whole warps: this leaves whole warps
@@ -91,8 +96,9 @@ __global__ void mega_anyhit_sweep_kernel(const float* __restrict__ rays,
     const rt::Entry en = rt::load_entry(tab, e);
     float o[3], d[3], d_inv[3];
     rt::object_ray(tab, en, ow, dw, o, d, d_inv);
-    done = rt::occluded_in_entry<true>(tab, en, ls.succ, ls.skip, o, d, d_inv,
-                                       tmin, tm, done);
+    done = rt::occluded_in_entry<true>(
+        rt::SoaFetch{tab, succ + ls.row, skip + ls.row}, en, o, d, d_inv, tmin,
+        tm, done);
     if (__all_sync(rt::kFullWarp, done)) break;  // every lane occluded
   }
   if (pending && done) occ[i] = 1;
@@ -102,8 +108,10 @@ __global__ void mega_anyhit_sweep_kernel(const float* __restrict__ rays,
 
 extern "C" {
 
-// The arguments of rt_perlane_closest_sweep, with the wide links as the
-// schedule's succ/skip; n and block_lanes are multiples of 32.
+// rays (6, n) and state (9, n) f32 with plane strides, state updated in
+// place; the schedule (block lanes, bits, words, octants) with the wide
+// links succ/skip (8, M) int32; the bvh_* tables, the entries in walk
+// order. n and block_lanes are multiples of 32.
 int rt_mega_closest_sweep(
     const void* rays, long long rays_s, void* state, long long st_s,
     long long n, float tmin, long long block_lanes, const void* bits,
@@ -115,19 +123,20 @@ int rt_mega_closest_sweep(
   if (n % 32 != 0 || block_lanes % 32 != 0) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     rt::Schedule sc = rt::make_schedule(block_lanes, bits, n_words, octs,
-                                        succ, skip, n_nodes);
+                                        n_nodes);
     rt::Tables tab = rt::make_tables(entries, n_entries, w2o, bmin, bmax,
                                      first, count, miss, v0, e1, e2);
     mega_closest_sweep_kernel<<<rt::grid_for(n), rt::BLOCK, 0,
                                 (cudaStream_t)stream>>>(
-        (const float*)rays, rays_s, (float*)state, st_s, n, tmin, sc, tab,
+        (const float*)rays, rays_s, (float*)state, st_s, n, tmin, sc,
+        (const int*)succ, (const int*)skip, tab,
         (const float*)n_soa, n_tris);
   }
   return (int)cudaGetLastError();
 }
 
-// The arguments of rt_perlane_anyhit_sweep, with the wide links as the
-// schedule's succ/skip; n and block_lanes are multiples of 32.
+// rays (6, n) f32 with a plane stride; tmax (n,) f32; occ (n,) int32
+// OR-merged in place; the schedule and tables as for rt_mega_closest_sweep.
 int rt_mega_anyhit_sweep(
     const void* rays, long long rays_s, const void* tmax, void* occ,
     long long n, float tmin, long long block_lanes, const void* bits,
@@ -139,13 +148,13 @@ int rt_mega_anyhit_sweep(
   if (n % 32 != 0 || block_lanes % 32 != 0) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     rt::Schedule sc = rt::make_schedule(block_lanes, bits, n_words, octs,
-                                        succ, skip, n_nodes);
+                                        n_nodes);
     rt::Tables tab = rt::make_tables(entries, n_entries, w2o, bmin, bmax,
                                      first, count, miss, v0, e1, e2);
     mega_anyhit_sweep_kernel<<<rt::grid_for(n), rt::BLOCK, 0,
                                (cudaStream_t)stream>>>(
         (const float*)rays, rays_s, (const float*)tmax, (int*)occ, n, tmin,
-        sc, tab);
+        sc, (const int*)succ, (const int*)skip, tab);
   }
   return (int)cudaGetLastError();
 }

@@ -53,8 +53,9 @@ __global__ void closest_sweep_kernel(const float* __restrict__ rays,
     float o[3], d[3], d_inv[3];
     const float* m = rt::object_ray(tab, en, ow, dw, o, d, d_inv);
     float bu = 0.f, bv = 0.f;
-    const int bs = rt::closest_in_entry<false>(tab, en, nullptr, tab.miss, o,
-                                               d, d_inv, tmin, &bt, &bu, &bv);
+    const int bs = rt::closest_in_entry<false>(
+        rt::SoaFetch{tab, nullptr, tab.miss}, en, o, d, d_inv, tmin, &bt, &bu,
+        &bv);
     if (bs >= 0) rt::record_hit(&hit, en, m, n_soa, n_tris, bs, bu, bv);
   }
   if (hit.improved) rt::write_hit(state, st_s, i, bt, hit);
@@ -77,8 +78,8 @@ __global__ void anyhit_sweep_kernel(const float* __restrict__ rays,
     const rt::Entry en = rt::load_entry(tab, e);
     float o[3], d[3], d_inv[3];
     rt::object_ray(tab, en, ow, dw, o, d, d_inv);
-    if (rt::occluded_in_entry<false>(tab, en, nullptr, tab.miss, o, d, d_inv,
-                                     tmin, tm, false)) {
+    if (rt::occluded_in_entry<false>(rt::SoaFetch{tab, nullptr, tab.miss}, en,
+                                     o, d, d_inv, tmin, tm, false)) {
       occ[i] = 1;  // first hit ends the lane's whole sweep
       return;
     }
@@ -124,8 +125,8 @@ __global__ void mesh_closest_kernel(const float* __restrict__ rays,
     rt::load_ray(rays, rays_s, i, o, d);
 #pragma unroll
     for (int c = 0; c < 3; ++c) d_inv[c] = rt::safe_inverse(d[c]);
-    bs = rt::closest_in_entry<true>(tab, en, nullptr, tab.miss, o, d, d_inv,
-                                    tmin, &bt, &bu, &bv);
+    bs = rt::closest_in_entry<true>(rt::SoaFetch{tab, nullptr, tab.miss}, en,
+                                    o, d, d_inv, tmin, &bt, &bu, &bv);
     if (bs >= 0) {
       const float w = 1.0f - bu - bv;
 #pragma unroll
@@ -161,8 +162,8 @@ __global__ void mesh_anyhit_kernel(const float* __restrict__ rays,
     rt::load_ray(rays, rays_s, i, o, d);
 #pragma unroll
     for (int c = 0; c < 3; ++c) d_inv[c] = rt::safe_inverse(d[c]);
-    done = rt::occluded_in_entry<true>(tab, en, nullptr, tab.miss, o, d,
-                                       d_inv, tmin, tm, done);
+    done = rt::occluded_in_entry<true>(rt::SoaFetch{tab, nullptr, tab.miss},
+                                       en, o, d, d_inv, tmin, tm, done);
   }
   occ[i] = live && done ? 1 : 0;
 }

@@ -27,6 +27,12 @@
 //     at exactly the same t is kept can depend on the walk. The caller
 //     keeps the warp converged: whole warps, warp-uniform entries and links.
 //
+// How the walk reads the tree, the fetch policy F: SoaFetch reads the
+// bvh_* tables and (M,) link rows as they are, one scalar load per field
+// where the walk needs it (K10a/K10b, K8/K9, K11a/K11b); PackedFetch reads
+// the packed 16-byte records of TorchScene.packed_* (K1/K2). Both hand the
+// same floats to the same tests.
+//
 // The plain versions (raytpu_torch/ops/traverse.py::_walk, closest_ref,
 // anyhit_ref, with `consensus` for kWarp) make the same tests in the same
 // order.
@@ -85,56 +91,133 @@ __device__ __forceinline__ const float* object_ray(const Tables& tab,
 
 constexpr unsigned kFullWarp = 0xffffffffu;
 
-// Whether the walk continues below node g (or tests the leaf g): the lane's
-// own decision, or the warp's vote on every lane's box.
-template <bool kWarp>
-__device__ __forceinline__ bool descend(const Tables& tab, int g, bool leaf,
+// How a walk reads the tree: a fetch policy gives, for the node of row g,
+// a record (F::Node) with its first slot (-1 for an inner node), its
+// triangle count, its box test and its next node; and the Moller-Trumbore
+// test of slot s. The float operands reach rt::slab and
+// rt::moller_trumbore in the same order whatever the policy, so every
+// policy gives the same bits.
+
+// The bvh_* tables as they are (structure of arrays), read where the walk
+// needs them: the chained, consensus and one-mesh sweeps. `succ` nullptr is
+// build order (node + 1 on a box hit), `skip` the miss link.
+struct SoaFetch {
+  const Tables& tab;
+  const int* succ;
+  const int* skip;
+
+  struct Node {
+    const SoaFetch& f;
+    int g, first;
+    __device__ __forceinline__ int count() const { return f.tab.count[g]; }
+    __device__ __forceinline__ bool box(const float* o, const float* d_inv,
+                                        float tmin, float tfar) const {
+      return slab(o, d_inv, f.tab.bmin + 3 * g, f.tab.bmax + 3 * g, tmin,
+                  tfar);
+    }
+    __device__ __forceinline__ int next(int node, bool down) const {
+      return down ? (f.succ ? f.succ[g] : node + 1) : f.skip[g];
+    }
+  };
+
+  __device__ __forceinline__ Node node(int g) const {
+    return Node{*this, g, tab.first[g]};
+  }
+  __device__ __forceinline__ bool test(long long s, const float* o,
+                                       const float* d, float tmin,
+                                       float best_t, float* t, float* u,
+                                       float* v) const {
+    return moller_trumbore(o, d, tab.v0 + 3 * s, tab.e1 + 3 * s,
+                           tab.e2 + 3 * s, tmin, best_t, t, u, v);
+  }
+};
+
+// The packed records of the per-lane sweeps (TorchScene.packed_*): a node
+// is two 16-byte words {bmin, first} {bmax, count} of one 32-byte sector,
+// its links one 8-byte word {succ, skip} of the lane's octant row, a
+// triangle three 16-byte words {v0, 0} {e1, 0} {e2, 0}. One visit issues
+// its three loads at once, none waiting on the box test.
+struct PackedFetch {
+  const float4* nodes;  // (M, 2) float4
+  const int2* links;    // (M,) int2: the lane's octant row
+  const float4* tris;   // (T, 3) float4
+
+  struct Node {
+    float4 lo, hi;
+    int2 link;
+    int first;
+    __device__ __forceinline__ int count() const {
+      return __float_as_int(hi.w);
+    }
+    __device__ __forceinline__ bool box(const float* o, const float* d_inv,
+                                        float tmin, float tfar) const {
+      const float bmin[3] = {lo.x, lo.y, lo.z};
+      const float bmax[3] = {hi.x, hi.y, hi.z};
+      return slab(o, d_inv, bmin, bmax, tmin, tfar);
+    }
+    __device__ __forceinline__ int next(int, bool down) const {
+      return down ? link.x : link.y;
+    }
+  };
+
+  __device__ __forceinline__ Node node(int g) const {
+    const float4 lo = __ldg(nodes + 2 * g);
+    return Node{lo, __ldg(nodes + 2 * g + 1), __ldg(links + g),
+                __float_as_int(lo.w)};
+  }
+  __device__ __forceinline__ bool test(long long s, const float* o,
+                                       const float* d, float tmin,
+                                       float best_t, float* t, float* u,
+                                       float* v) const {
+    const float4 a = __ldg(tris + 3 * s), b = __ldg(tris + 3 * s + 1),
+                 c = __ldg(tris + 3 * s + 2);
+    const float v0[3] = {a.x, a.y, a.z}, e1[3] = {b.x, b.y, b.z},
+                e2[3] = {c.x, c.y, c.z};
+    return moller_trumbore(o, d, v0, e1, e2, tmin, best_t, t, u, v);
+  }
+};
+
+// Whether the walk continues below node `nd` (or tests the leaf): the
+// lane's own decision, or the warp's vote on every lane's box.
+template <bool kWarp, class Node>
+__device__ __forceinline__ bool descend(const Node& nd, bool leaf,
                                         bool walking, const float* o,
                                         const float* d_inv, float tmin,
                                         float tfar) {
   if constexpr (kWarp) {
-    return __any_sync(kFullWarp, walking && slab(o, d_inv, tab.bmin + 3 * g,
-                                                 tab.bmax + 3 * g, tmin, tfar));
+    return __any_sync(kFullWarp, walking && nd.box(o, d_inv, tmin, tfar));
   } else {
-    return leaf || slab(o, d_inv, tab.bmin + 3 * g, tab.bmax + 3 * g, tmin,
-                        tfar);
+    return leaf || nd.box(o, d_inv, tmin, tfar);
   }
 }
 
 // Closest hit in one entry: lowers *bt on each strict improvement and
 // returns the winning BVH slot (-1 if none), with its u, v. A lane whose *bt
 // is not above tmin can take no hit, and does not vote.
-template <bool kWarp>
+template <bool kWarp, class F>
 __device__ __forceinline__ int closest_in_entry(
-    const Tables& tab, const Entry& en, const int* succ, const int* skip,
-    const float* o, const float* d, const float* d_inv, float tmin, float* bt,
-    float* bu, float* bv) {
+    const F& f, const Entry& en, const float* o, const float* d,
+    const float* d_inv, float tmin, float* bt, float* bu, float* bv) {
   int bs = -1;
   int node = 0;
   while (node != en.nc) {
-    const int g = en.nb + node;
-    const int f = tab.first[g];
-    const bool go = descend<kWarp>(tab, g, f >= 0, *bt > tmin, o, d_inv, tmin,
-                                   *bt);
-    if (f >= 0) {
-      if (go) {
-        const int cnt = tab.count[g];
-        for (int k = 0; k < cnt; ++k) {
-          const long long s = (long long)en.tb + f + k;
-          float t, u, v;
-          if (moller_trumbore(o, d, tab.v0 + 3 * s, tab.e1 + 3 * s,
-                              tab.e2 + 3 * s, tmin, *bt, &t, &u, &v)) {
-            *bt = t;
-            bs = (int)s;
-            *bu = u;
-            *bv = v;
-          }
+    const auto nd = f.node(en.nb + node);
+    const bool leaf = nd.first >= 0;
+    const bool go = descend<kWarp>(nd, leaf, *bt > tmin, o, d_inv, tmin, *bt);
+    if (leaf && go) {
+      const int cnt = nd.count();
+      for (int k = 0; k < cnt; ++k) {
+        const long long s = (long long)en.tb + nd.first + k;
+        float t, u, v;
+        if (f.test(s, o, d, tmin, *bt, &t, &u, &v)) {
+          *bt = t;
+          bs = (int)s;
+          *bu = u;
+          *bv = v;
         }
       }
-      node = skip[g];
-    } else {
-      node = go ? (succ ? succ[g] : node + 1) : skip[g];
     }
+    node = nd.next(node, go && !leaf);  // a finished leaf takes skip
   }
   return bs;
 }
@@ -143,24 +226,22 @@ __device__ __forceinline__ int closest_in_entry(
 // it (occluded, or done on entry: then it tests nothing and does not vote).
 // Alone, a lane returns at its first hit; a warp returns once every lane is
 // done.
-template <bool kWarp>
+template <bool kWarp, class F>
 __device__ __forceinline__ bool occluded_in_entry(
-    const Tables& tab, const Entry& en, const int* succ, const int* skip,
-    const float* o, const float* d, const float* d_inv, float tmin, float tm,
-    bool done) {
+    const F& f, const Entry& en, const float* o, const float* d,
+    const float* d_inv, float tmin, float tm, bool done) {
   int node = 0;
   while (node != en.nc) {
-    const int g = en.nb + node;
-    const int f = tab.first[g];
-    const bool go = descend<kWarp>(tab, g, f >= 0, !done, o, d_inv, tmin, tm);
-    if (f >= 0) {
+    const auto nd = f.node(en.nb + node);
+    const bool leaf = nd.first >= 0;
+    const bool go = descend<kWarp>(nd, leaf, !done, o, d_inv, tmin, tm);
+    if (leaf) {
       if (go) {
-        const int cnt = tab.count[g];
+        const int cnt = nd.count();
         for (int k = 0; k < cnt && !done; ++k) {
-          const long long s = (long long)en.tb + f + k;
+          const long long s = (long long)en.tb + nd.first + k;
           float t, u, v;
-          done = moller_trumbore(o, d, tab.v0 + 3 * s, tab.e1 + 3 * s,
-                                 tab.e2 + 3 * s, tmin, tm, &t, &u, &v);
+          done = f.test(s, o, d, tmin, tm, &t, &u, &v);
         }
       }
       if constexpr (kWarp) {
@@ -168,10 +249,8 @@ __device__ __forceinline__ bool occluded_in_entry(
       } else {
         if (done) return true;
       }
-      node = skip[g];
-    } else {
-      node = go ? (succ ? succ[g] : node + 1) : skip[g];
     }
+    node = nd.next(node, go && !leaf);
   }
   return done;
 }
@@ -233,31 +312,27 @@ __device__ __forceinline__ void load_ray(const float* rays, long long rays_s,
 // of raytpu_torch/ops/mega.py): a lane skips an entry whose bit for its
 // block is 0 (bits: (E, n_words) int32 words in walk order, bit b % 32 of
 // word b / 32 for block b = lane / block_lanes) and walks with its BLOCK's
-// octant row of the links (octs[b]).
+// octant row of the links (octs[b]; row = octs[b] * M of an (8, M) table).
 struct Schedule {
   long long block_lanes;  // lanes per culling block
   const int* bits;        // (E, n_words) int32 bit words, walk order
   int n_words;
   const int* octs;        // (PB,) int32 block octants
-  const int* succ;        // (8, M) int32 links: hit on an inner node
-  const int* skip;        // (8, M) int32 links: miss, or a finished leaf
   long long n_nodes;      // M
 };
 
 inline Schedule make_schedule(long long block_lanes, const void* bits,
-                              int n_words, const void* octs, const void* succ,
-                              const void* skip, long long n_nodes) {
-  return Schedule{block_lanes,      (const int*)bits, n_words,
-                  (const int*)octs, (const int*)succ, (const int*)skip,
+                              int n_words, const void* octs,
+                              long long n_nodes) {
+  return Schedule{block_lanes, (const int*)bits, n_words, (const int*)octs,
                   n_nodes};
 }
 
-// Lane i's block word pointer, bit and octant links.
+// Lane i's block word pointer, bit and links row.
 struct LaneSchedule {
   const int* word;
   unsigned bit;
-  const int* succ;
-  const int* skip;
+  long long row;
 
   __device__ __forceinline__ bool walks(const Schedule& sc, int e) const {
     return ((unsigned)word[(long long)e * sc.n_words] & bit) != 0;
@@ -267,9 +342,8 @@ struct LaneSchedule {
 __device__ __forceinline__ LaneSchedule lane_schedule(const Schedule& sc,
                                                       long long i) {
   const long long b = i / sc.block_lanes;
-  const long long off = (long long)sc.octs[b] * sc.n_nodes;
-  return LaneSchedule{sc.bits + (b >> 5), 1u << (b & 31), sc.succ + off,
-                      sc.skip + off};
+  return LaneSchedule{sc.bits + (b >> 5), 1u << (b & 31),
+                      (long long)sc.octs[b] * sc.n_nodes};
 }
 
 }  // namespace rt

@@ -12,7 +12,9 @@ nodes are threaded once per ray-direction octant, near child first
 tier, and once more with every other interior level dropped
 (``wide_succ``/``wide_skip``, ``ops/mega.widen_octant_links``) for the
 consensus tier; ``traversal`` and ``auto_tier`` say which tier the sweeps
-take.
+take. The per-lane tier's kernels read the nodes, octant links and
+triangles as packed 16-byte records (``packed_*``, :func:`with_packed`),
+the same bits as the tables they come from.
 
 Layouts match the JAX package, so buffers compare by a reshape: nodes are
 concatenated over meshes with mesh-local ``bvh_miss`` and ``bvh_tri_first``
@@ -78,6 +80,11 @@ class TorchScene:
     # walk's wide links, ops/mega.widen_octant_links)
     wide_succ: Optional[torch.Tensor] = None      # (8, M) int32
     wide_skip: Optional[torch.Tensor] = None      # (8, M) int32
+    # the per-lane sweeps' (K1/K2) packed records, the bits of the tables
+    # above laid out for 16-byte loads (with_packed)
+    packed_nodes: Optional[torch.Tensor] = None   # (M, 8) f32, pack_nodes
+    packed_links: Optional[torch.Tensor] = None   # (8, M, 2) int32, pack_links
+    packed_tris: Optional[torch.Tensor] = None    # (T, 12) f32, pack_tris
     traversal_list: Tuple[Tuple[int, int], ...] = ()
     # the rows of ``entries`` on the host: the per-(instance, mesh) loop
     # (ops/trace.closest_hit_loop) reads them without a device sync
@@ -147,6 +154,43 @@ def host_light(pos, intensity) -> Tuple[float, float, float, float]:
     return tuple(float(x) for x in vals)
 
 
+def pack_nodes(bmin: torch.Tensor, bmax: torch.Tensor, first: torch.Tensor,
+               count: torch.Tensor) -> torch.Tensor:
+    """(M, 8) f32 node records, two 16-byte words a node: ``{bmin xyz,
+    first}`` and ``{bmax xyz, count}``, the int32 fields' bits carried in
+    f32 words (assembled as int32, so every bit pattern stays)."""
+    i32 = torch.int32
+    return torch.cat((bmin.view(i32), first[:, None], bmax.view(i32),
+                      count[:, None]), dim=1).view(torch.float32).contiguous()
+
+
+def pack_links(succ: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    """(8, M, 2) int32 ``{succ, skip}`` words of the (8, M) octant links:
+    an inner node's walk takes ``succ`` on a box hit and ``skip`` on a
+    miss, a leaf's always ``skip``."""
+    return torch.stack((succ, skip), dim=-1).contiguous()
+
+
+def pack_tris(v0: torch.Tensor, e1: torch.Tensor,
+              e2: torch.Tensor) -> torch.Tensor:
+    """(T, 12) f32 triangle records in BVH-slot order, three 16-byte words
+    ``{v0, 0}``, ``{e1, 0}``, ``{e2, 0}``."""
+    pad = torch.zeros((v0.shape[0], 1), dtype=v0.dtype, device=v0.device)
+    return torch.cat((v0, pad, e1, pad, e2, pad), dim=1).contiguous()
+
+
+def with_packed(ts: TorchScene) -> TorchScene:
+    """``ts`` with the per-lane sweeps' packed records built from its
+    ``bvh_*`` tables and octant links (once per scene: they do not depend
+    on the transforms)."""
+    return dataclasses.replace(
+        ts,
+        packed_nodes=pack_nodes(ts.bvh_aabb_min, ts.bvh_aabb_max,
+                                ts.bvh_tri_first, ts.bvh_tri_count),
+        packed_links=pack_links(ts.oct_succ, ts.oct_skip),
+        packed_tris=pack_tris(ts.bvh_tri_v0, ts.bvh_tri_e1, ts.bvh_tri_e2))
+
+
 def build_device_scene(scene: Scene, device) -> TorchScene:
     """Host :class:`raytpu_torch.scene.Scene` -> :class:`TorchScene` on ``device``
     (no BVH yet: :func:`raytpu_torch.accel.attach_bvh` adds it)."""
@@ -210,7 +254,7 @@ def from_raytpu(dev, static, device) -> TorchScene:
     wide = mesh_wide_links(succ, skip, first, miss, static.mesh_node_ranges)
     entries = entry_table(static.traversal_list, materials,
                           static.mesh_node_ranges, static.mesh_bvh_tri_ranges)
-    return TorchScene(
+    return with_packed(TorchScene(
         device=device,
         o2w=t(dev.o2w),
         w2o=t(dev.w2o),
@@ -242,4 +286,4 @@ def from_raytpu(dev, static, device) -> TorchScene:
         leaf_max=int(count.max()),
         traversal=static.traversal,
         auto_tier=static.auto_tier,
-    )
+    ))

@@ -37,10 +37,17 @@ from __future__ import annotations
 
 import torch
 
+from raytpu_torch import _build
 from raytpu_torch.device_scene import TorchScene
 from raytpu_torch.ops import perlane
 from raytpu_torch.ops.mega import BLOCK_PACKETS, check_blocks
-from raytpu_torch.ops.traverse import ST_T, WARP, anyhit_ref, closest_ref
+from raytpu_torch.ops.traverse import (
+    ST_T,
+    WARP,
+    anyhit_ref,
+    closest_ref,
+    table_ptrs,
+)
 
 
 def wide_links(ts: TorchScene):
@@ -73,11 +80,35 @@ def mega_closest_sweep(ts: TorchScene, rays: torch.Tensor, tmin: float,
         ts, rays, state[ST_T], tmin, "origin"))
 
 
+def _launch_operands(k: str, ts: TorchScene, rays, schedule):
+    """The operands of K8's and K9's C entry points after the per-call
+    ones: the schedule, the wide links (succ, skip) and the node count,
+    then the ``bvh_*`` tables with the entries in walk order. The scene's
+    tables are checked first."""
+    m = ts.bvh_aabb_min.shape[0]
+    succ, skip = _build.check_operands(k, [
+        (name, x, (8, m), torch.int32)
+        for name, x in zip(("wide_succ", "wide_skip"), wide_links(ts))])
+    tables = table_ptrs(k, ts, schedule[2])
+    return (*perlane.schedule_operands(k, rays, schedule), succ, skip, m,
+            *tables)
+
+
 def launch_closest(ts: TorchScene, rays: torch.Tensor, tmin: float,
                    state: torch.Tensor, schedule) -> torch.Tensor:
     """K8 alone, on a ``perlane.prepass`` ``schedule`` of these rays."""
-    return perlane.launch_closest(ts, rays, tmin, state, schedule,
-                                  "mega_closest_sweep", wide_links(ts))
+    k = "mega_closest_sweep"
+    t = ts.bvh_tri_v0.shape[0]
+    tables = _launch_operands(k, ts, rays, schedule)
+    _build.launch(
+        k,
+        *_build.check_planes(k, "rays", rays, (6, *rays.shape[1:])),
+        *_build.check_planes(k, "state", state, (9, *rays.shape[1:])),
+        rays[0].numel(), float(tmin), *tables,
+        _build.check_operand(k, "bvh_tri_n_soa", ts.bvh_tri_n_soa, (9, t)),
+        t,
+    )
+    return state
 
 
 def mega_anyhit_sweep(ts: TorchScene, rays: torch.Tensor, tmin: float,
@@ -99,8 +130,16 @@ def launch_anyhit(ts: TorchScene, rays: torch.Tensor, tmin: float,
                   tmax: torch.Tensor, occ: torch.Tensor,
                   schedule) -> torch.Tensor:
     """K9 alone, on a ``perlane.prepass`` ``schedule`` of these rays."""
-    return perlane.launch_anyhit(ts, rays, tmin, tmax, occ, schedule,
-                                 "mega_anyhit_sweep", wide_links(ts))
+    k = "mega_anyhit_sweep"
+    tables = _launch_operands(k, ts, rays, schedule)
+    _build.launch(
+        k,
+        *_build.check_planes(k, "rays", rays, (6, *rays.shape[1:])),
+        _build.check_operand(k, "tmax", tmax, rays.shape[1:]),
+        _build.check_operand(k, "occ", occ, rays.shape[1:], torch.int32),
+        rays[0].numel(), float(tmin), *tables,
+    )
+    return occ
 
 
 # ---------------------------------------------------------------------------

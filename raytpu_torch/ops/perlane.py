@@ -19,9 +19,12 @@ and take the JAX tier's schedule, which decides exact ties:
 
 The TPU kernel's treelet banks, quantized boxes, pair step and deferred-leaf
 queue are TPU scheduling that only add candidate tests; the CUDA kernels
-(``csrc/perlane.cu``) walk the f32 ``bvh_*`` nodes instead. The wrappers
-take a CPU tensor to the plain version, launch the kernel for a CUDA tensor
-(or raise), and raise unless the wave is whole blocks of ``BLOCK_PACKETS``.
+(``csrc/perlane.cu``) walk the scene's packed f32 records (``packed_nodes``,
+``packed_links``, ``packed_tris``: the ``bvh_*`` tables' and octant links'
+bits in 16-byte words) as persistent warps that take 32 lanes at a time
+from per-CTA work counters. The wrappers take a CPU tensor to the plain version,
+launch the kernel for a CUDA tensor (or raise), and raise unless the wave
+is whole blocks of ``BLOCK_PACKETS``.
 The prepass's tensors stay on the device; only the plain versions read them
 back.
 """
@@ -40,7 +43,7 @@ from raytpu_torch.ops.mega import (
     chunk_block_hits,
     entry_perm,
 )
-from raytpu_torch.ops.traverse import ST_T, anyhit_ref, closest_ref, table_ptrs
+from raytpu_torch.ops.traverse import ST_T, anyhit_ref, closest_ref
 
 
 def prepass(ts: TorchScene, rays: torch.Tensor, window: torch.Tensor,
@@ -59,22 +62,52 @@ def prepass(ts: TorchScene, rays: torch.Tensor, window: torch.Tensor,
     return bits.index_select(0, perm), octs, entries
 
 
-def _launch_operands(k: str, ts: TorchScene, rays, schedule, links):
-    """The operands the C entry points share after the per-call ones: the
-    lanes per block, the bitmask, octants and ``links`` (succ, skip), then
-    the tables with the entries in walk order."""
-    bits, octs, entries = schedule
-    m = ts.bvh_aabb_min.shape[0]
+def schedule_operands(k: str, rays, schedule):
+    """The schedule's operands of the culled sweeps' C entry points (K1/K2,
+    K8/K9): the lanes per block, the bitmask rows and their word count,
+    and the blocks' octants."""
+    bits, octs, _ = schedule
     c = _build.check_operand
     i32 = torch.int32
     return (
         BLOCK_PACKETS * rays.shape[2],
         c(k, "bits", bits, None, i32), bits.shape[1],
         c(k, "octs", octs, (rays.shape[1] // BLOCK_PACKETS,), i32),
-        c(k, "succ", links[0], (8, m), i32),
-        c(k, "skip", links[1], (8, m), i32), m,
-        *table_ptrs(k, ts, entries),
     )
+
+
+def _launch_operands(k: str, ts: TorchScene, rays, schedule):
+    """The operands of K1's and K2's C entry points after the per-call
+    ones: the schedule, the packed links, the node count, the entries in
+    walk order and w2o, the packed nodes and triangles (16-byte aligned
+    for the kernels' vector loads). The scene's tables are checked first."""
+    m = ts.bvh_aabb_min.shape[0]
+    t = ts.bvh_tri_v0.shape[0]
+    links, nodes, tris, w2o = _build.check_operands(k, (
+        ("packed_links", ts.packed_links, (8, m, 2), torch.int32),
+        ("packed_nodes", ts.packed_nodes, (m, 8), torch.float32),
+        ("packed_tris", ts.packed_tris, (t, 12), torch.float32),
+        ("w2o", ts.w2o, (ts.w2o.shape[0], 3, 4), torch.float32)))
+    if (links | nodes | tris) % 16:
+        raise ValueError(f"{k}: the packed records are not 16-byte aligned")
+    entries = schedule[2]
+    return (
+        *schedule_operands(k, rays, schedule), links, m,
+        _build.check_operand(k, "entries", entries, (entries.shape[0], 5),
+                             torch.int32),
+        entries.shape[0], w2o, nodes, tris,
+    )
+
+
+# work counters a persistent launch may use, one per CTA: more than the
+# CTAs of 256 threads that fit on an H100 at once (132 SMs x 8)
+WORK_SLOTS = 2048
+
+
+def _work_counters(device) -> torch.Tensor:
+    """The work counters of a persistent launch, one u32 per CTA (int32
+    here), zeroed on the stream by the C entry point."""
+    return torch.empty(WORK_SLOTS, dtype=torch.int32, device=device)
 
 
 def perlane_closest_sweep(ts: TorchScene, rays: torch.Tensor, tmin: float,
@@ -92,23 +125,19 @@ def perlane_closest_sweep(ts: TorchScene, rays: torch.Tensor, tmin: float,
 
 
 def launch_closest(ts: TorchScene, rays: torch.Tensor, tmin: float,
-                   state: torch.Tensor, schedule,
-                   kernel: str = "perlane_closest_sweep",
-                   links=None) -> torch.Tensor:
-    """K1 alone, on a :func:`prepass` ``schedule`` of these rays; or
-    ``kernel``, a sweep with K1's arguments, along ``links`` (succ, skip)
-    in place of the scene's octant links."""
-    k = kernel
+                   state: torch.Tensor, schedule) -> torch.Tensor:
+    """K1 alone, on a :func:`prepass` ``schedule`` of these rays."""
+    k = "perlane_closest_sweep"
     t = ts.bvh_tri_v0.shape[0]
+    tables = _launch_operands(k, ts, rays, schedule)
+    taken = _work_counters(rays.device)
     _build.launch(
         k,
         *_build.check_planes(k, "rays", rays, (6, *rays.shape[1:])),
         *_build.check_planes(k, "state", state, (9, *rays.shape[1:])),
-        rays[0].numel(), float(tmin),
-        *_launch_operands(k, ts, rays, schedule,
-                          links or (ts.oct_succ, ts.oct_skip)),
+        rays[0].numel(), float(tmin), *tables,
         _build.check_operand(k, "bvh_tri_n_soa", ts.bvh_tri_n_soa, (9, t)),
-        t,
+        t, taken.data_ptr(), WORK_SLOTS,
     )
     return state
 
@@ -129,22 +158,40 @@ def perlane_anyhit_sweep(ts: TorchScene, rays: torch.Tensor, tmin: float,
 
 
 def launch_anyhit(ts: TorchScene, rays: torch.Tensor, tmin: float,
-                  tmax: torch.Tensor, occ: torch.Tensor, schedule,
-                  kernel: str = "perlane_anyhit_sweep",
-                  links=None) -> torch.Tensor:
-    """K2 alone, on a :func:`prepass` ``schedule`` of these rays; or
-    ``kernel`` along ``links``, as for :func:`launch_closest`."""
-    k = kernel
+                  tmax: torch.Tensor, occ: torch.Tensor,
+                  schedule) -> torch.Tensor:
+    """K2 alone, on a :func:`prepass` ``schedule`` of these rays."""
+    k = "perlane_anyhit_sweep"
+    tables = _launch_operands(k, ts, rays, schedule)
+    taken = _work_counters(rays.device)
     _build.launch(
         k,
         *_build.check_planes(k, "rays", rays, (6, *rays.shape[1:])),
         _build.check_operand(k, "tmax", tmax, rays.shape[1:]),
         _build.check_operand(k, "occ", occ, rays.shape[1:], torch.int32),
-        rays[0].numel(), float(tmin),
-        *_launch_operands(k, ts, rays, schedule,
-                          links or (ts.oct_succ, ts.oct_skip)),
+        rays[0].numel(), float(tmin), *tables, taken.data_ptr(), WORK_SLOTS,
     )
     return occ
+
+
+def kernel_attributes() -> dict:
+    """Per kernel (K1, K2): its registers and local bytes a thread (spills
+    and local arrays, from ``cudaFuncGetAttributes``), the CTAs of 256
+    threads resident per SM (the occupancy API, under the kernels'
+    ``__launch_bounds__``) and the SMs; the persistent grid is their
+    product."""
+    import ctypes
+
+    lib = _build.library()
+    out = {}
+    for flag, name in enumerate(("perlane_closest_sweep", "perlane_anyhit_sweep")):
+        vals = (ctypes.c_int * 4)()
+        err = lib.rt_perlane_attributes(flag, ctypes.cast(vals, ctypes.c_void_p))
+        if err:
+            raise RuntimeError(f"{name}: CUDA error {err} reading its attributes")
+        out[name] = dict(zip(("registers", "local_bytes", "ctas_per_sm", "sms"),
+                             vals))
+    return out
 
 
 # ---------------------------------------------------------------------------

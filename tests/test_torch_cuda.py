@@ -205,6 +205,31 @@ def test_perlane_sweeps_bitwise(rig, strided):
         assert torch.equal(got, plain) and torch.equal(got, want)
 
 
+def test_perlane_sweeps_any_packet_width(rig):
+    """K1/K2's persistent warps take 32 lanes at a time, which span two
+    culling blocks when a block (8 packets of K lanes) is not whole warps:
+    each lane reads its own block's bit and octant, so they still equal
+    their plain versions. Their launch bounds keep 4 CTAs on an SM."""
+    r, rays = rig
+    ts = r.tscene
+    wave = rays[:, :, :20].contiguous()       # blocks of 160 lanes
+    win = torch.full(wave.shape[1:], 1e4, device="cuda")
+    win.view(-1)[::5] = 0.0
+    st = traverse.make_trace_state(win)
+    got = perlane.perlane_closest_sweep(ts, wave, 1e-3, st.clone())
+    want = perlane.perlane_closest_sweep_ref(ts, wave, 1e-3, st.clone())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (got[traverse.ST_VALID].view(torch.int32) != 0).any()
+    tmax = win * 0.002
+    occ = torch.zeros(wave.shape[1:], dtype=torch.int32, device="cuda")
+    got = perlane.perlane_anyhit_sweep(ts, wave, 1e-3, tmax, occ.clone())
+    assert torch.equal(got, perlane.perlane_anyhit_sweep_ref(ts, wave, 1e-3, tmax,
+                                                             occ.clone()))
+    assert (got != 0).any()
+    for name, attrs in perlane.kernel_attributes().items():
+        assert attrs["registers"] <= 64 and attrs["ctas_per_sm"] >= 4, (name, attrs)
+
+
 @pytest.mark.parametrize("strided", [False, True])
 def test_consensus_sweeps_bitwise(rig, strided):
     """K8/K9 against their plain versions and against K10a/K10b and K1/K2,

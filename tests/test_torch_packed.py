@@ -1,0 +1,152 @@
+"""The per-lane sweeps' packed records and the culled sweeps' launch
+operands, on the CPU.
+
+K1 and K2 (``csrc/perlane.cu``) read a scene's nodes, octant links and
+triangles as 16-byte records (``TorchScene.packed_nodes``,
+``packed_links``, ``packed_tris``, built by ``device_scene.with_packed``
+for the port's own trees and for raytpu's chunked ones). They must hold
+the very bits of the tables they come from, so the records are unpacked
+here and compared as int32 bit patterns. The kernels against their plain
+versions are in ``test_torch_cuda.py`` (on the card); the launch operands
+of K1/K2 and of K8/K9, which have their own C signatures, must refuse
+tensors that are not on the card and tables of the wrong shape or type.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from raytpu.render import Renderer as JaxRenderer
+from raytpu_torch import _build, scenes
+from raytpu_torch.device_scene import from_raytpu, pack_links, pack_nodes, pack_tris
+from raytpu_torch.ops import consensus, perlane, traverse
+from raytpu_torch.render import Renderer
+from tests.torch_twin import cone_rays, raytpu_twin
+
+TMIN = 1e-3
+I32 = torch.int32
+
+
+@pytest.fixture(scope="module", params=["own", "chunked"])
+def ts(request):
+    """The three-material scene with the port's own trees (3 entries) or
+    raytpu's chunked ones (many entries)."""
+    if request.param == "own":
+        r = Renderer(scenes.mixed_scene(32, 32, 1, 1, depth=3), "cpu")
+        r.set_transforms(0.1)
+        return r.tscene
+    jr = JaxRenderer(raytpu_twin(scenes.mixed_scene(32, 32, 1, 1, depth=2,
+                                                    chunk_tris=128)))
+    jr.set_transforms(0.1)
+    return from_raytpu(jr.device_scene, jr.static, "cpu")
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(I32)
+
+
+def test_packed_nodes_unpack_bitwise(ts):
+    m = ts.bvh_aabb_min.shape[0]
+    nodes = ts.packed_nodes
+    assert nodes.shape == (m, 8) and nodes.dtype == torch.float32
+    assert nodes.is_contiguous() and nodes.stride(0) * 4 == 32  # two 16-byte words
+    w = _bits(nodes)
+    assert torch.equal(w[:, 0:3], _bits(ts.bvh_aabb_min))
+    assert torch.equal(w[:, 3], ts.bvh_tri_first)
+    assert torch.equal(w[:, 4:7], _bits(ts.bvh_aabb_max))
+    assert torch.equal(w[:, 7], ts.bvh_tri_count)
+    leaf = ts.bvh_tri_first >= 0
+    assert leaf.any() and (~leaf).any()      # both kinds of record present
+
+
+def test_packed_links_unpack_bitwise(ts):
+    m = ts.bvh_aabb_min.shape[0]
+    links = ts.packed_links
+    assert links.shape == (8, m, 2) and links.dtype == I32
+    assert links.is_contiguous()
+    assert torch.equal(links[..., 0], ts.oct_succ)
+    assert torch.equal(links[..., 1], ts.oct_skip)
+    # the walk leaves a leaf by its skip word, an inner node by either
+    inner = ts.bvh_tri_first < 0
+    assert (links[:, inner, 0] != links[:, inner, 1]).all()
+
+
+def test_packed_tris_unpack_bitwise(ts):
+    t = ts.bvh_tri_v0.shape[0]
+    tris = ts.packed_tris
+    assert tris.shape == (t, 12) and tris.dtype == torch.float32
+    assert tris.is_contiguous() and tris.stride(0) * 4 == 48  # three 16-byte words
+    w = _bits(tris)
+    for c, table in enumerate((ts.bvh_tri_v0, ts.bvh_tri_e1, ts.bvh_tri_e2)):
+        assert torch.equal(w[:, 4 * c:4 * c + 3], _bits(table))
+        assert (w[:, 4 * c + 3] == 0).all()
+
+
+def test_packing_keeps_every_bit_pattern():
+    """Every int32 pattern survives, NaN payloads, -0.0 and infinities
+    included, in the float fields as in the int fields."""
+    rng = np.random.default_rng(5)
+    m = 257
+    raw = rng.integers(-2**31, 2**31, (m, 8), dtype=np.int64).astype(np.int32)
+    raw[:4, 0] = [0x7fc00001, -0x7f800000 + 1, -2**31, 0x7f800000]  # NaNs, -0.0, inf
+    raw = torch.from_numpy(raw)
+    f = raw.view(torch.float32)
+    nodes = pack_nodes(f[:, 0:3], f[:, 3:6], raw[:, 6], raw[:, 7])
+    assert torch.equal(_bits(nodes), raw[:, [0, 1, 2, 6, 3, 4, 5, 7]])
+    tris = pack_tris(f[:, 0:3], f[:, 3:6], f[:, 5:8])
+    assert torch.equal(_bits(tris)[:, [0, 1, 2, 4, 5, 6, 8, 9, 10]],
+                       raw[:, [0, 1, 2, 3, 4, 5, 5, 6, 7]])
+    links = pack_links(raw.T, raw.T.flip(0))
+    assert torch.equal(links[..., 0], raw.T) and torch.equal(links[..., 1], raw.T.flip(0))
+
+
+def test_packed_records_are_scene_constants(ts):
+    """A transform update keeps the records (they do not depend on the
+    transforms), so they are built once per scene."""
+    moved = ts.with_transforms(ts.o2w.numpy(), ts.w2o.numpy())
+    for name in ("packed_nodes", "packed_links", "packed_tris"):
+        assert getattr(moved, name) is getattr(ts, name)
+
+
+def _launcher(sweep: str, ts, rays, win):
+    """``sweep`` ("K1", "K2", "K8", "K9") alone, as a function of the scene
+    it launches on, with the plain prepass's schedule of ``rays`` on
+    ``ts``."""
+    if sweep in ("K1", "K8"):
+        sched = perlane.prepass(ts, rays, win, TMIN, "origin")
+        fn = {"K1": perlane.launch_closest, "K8": consensus.launch_closest}[sweep]
+        return lambda t: fn(t, rays, TMIN, traverse.make_trace_state(win), sched)
+    sched = perlane.prepass(ts, rays, win, TMIN, "light")
+    fn = {"K2": perlane.launch_anyhit, "K9": consensus.launch_anyhit}[sweep]
+    return lambda t: fn(t, rays, TMIN, win, torch.zeros(win.shape, dtype=I32), sched)
+
+
+@pytest.mark.parametrize("sweep", ["K1", "K2", "K8", "K9"])
+def test_launch_operands_refuse(ts, sweep):
+    """The kernel-only launchers refuse CPU tensors, and refuse a scene
+    table of the wrong shape or type before they look at the device:
+    K1/K2 their packed records, K8/K9 their wide links."""
+    rays, win = (torch.from_numpy(x) for x in cone_rays(1, seed=4, k=32))
+    launch = _launcher(sweep, ts, rays, win)
+    _build.reset_launch_counts()
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        launch(ts)
+    if sweep in ("K1", "K2"):
+        wrong = {"packed_nodes": ts.packed_nodes[:, :7],
+                 "packed_links": ts.packed_links[..., :1],
+                 "packed_tris": ts.packed_tris[:, :9]}
+        retyped = {"packed_nodes": ts.packed_nodes.view(I32),
+                   "packed_links": ts.packed_links.float()}
+    else:
+        wrong = {"wide_succ": ts.wide_succ[:, :-1],
+                 "wide_skip": ts.wide_skip[:4]}
+        retyped = {"wide_skip": ts.wide_skip.long()}
+    for name, table in wrong.items():
+        with pytest.raises(ValueError, match=f"{name} has shape"):
+            launch(dataclasses.replace(ts, **{name: table}))
+    for name, table in retyped.items():
+        with pytest.raises(ValueError, match=f"{name} is torch"):
+            launch(dataclasses.replace(ts, **{name: table}))
+    assert _build.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
