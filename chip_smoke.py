@@ -5,8 +5,12 @@
     python3 chip_smoke.py --profile DIR  # profiler tables into DIR
                                          # (default build/profile/)
     python3 chip_smoke.py --ab PARENT [--this-first]
-                                         # frames and K1/K2 times of the
-                                         # port in PARENT and in this tree
+                                         # frames and K1/K2/K10a/K11a times
+                                         # of the port in PARENT and in
+                                         # this tree
+    python3 chip_smoke.py --sweeps DIR [DIR ...]
+                                         # K1/K2/K10a/K11a times alone of
+                                         # the ports in DIRs, in that order
 
 Builds the thirteen hand-written CUDA kernels from ``raytpu_torch/csrc``
 and the BVHs (the teapot stand-in's tree checked against a digest of the
@@ -14,8 +18,9 @@ tree raytpu builds), holds every kernel against its plain PyTorch version
 on the card at the main path's shapes (and the per-lane sweeps K1/K2, the
 consensus sweeps K8/K9 and the per-(instance, mesh) loop on the one-mesh
 walks K11a/K11b against the chained sweeps K10a/K10b, bit for bit; K1/K2
-also on config4's whole primary wave, with their registers, local bytes
-and resident CTAs), then
+also on config4's whole primary wave; the sweeps' registers, local bytes
+and resident CTAs, and every kernel's registers and spills as
+``cuobjdump`` reads them), then
 renders through ``Renderer`` on the default fused and compacted bounce
 loop:
 
@@ -581,6 +586,13 @@ def compare_kernels(r, gpu: str) -> dict:
 
     compare_perlane(ts, rays, win, st0, sk_, srays, tmax, occ0, ok_, res)
     compare_meshwalk(ts, rays, win, srays, tmax, rk, act, res)
+    attributes = {**perlane.kernel_attributes(), **traverse.kernel_attributes()}
+    for name, attrs in attributes.items():
+        res[name]["attributes"] = attrs
+        print(f"{name}: {attrs['registers']} registers and {attrs['local_bytes']} "
+              f"local bytes a thread, {attrs['ctas_per_sm']} CTAs of 256 resident "
+              f"per SM ({attrs['ctas_per_sm'] * 256 / 2048:.1%} occupancy)", flush=True)
+    print(f"kernel resources (cuobjdump -res-usage): {kernel_resources()}", flush=True)
 
     # the closest kernels alone on the full primary wave, and K7 there
     full_win = torch.where(act, RAY_TMAX, 0.0).float()
@@ -634,7 +646,8 @@ def compare_kernels(r, gpu: str) -> dict:
     v = res["mesh_closest"]
     print(f"time closest_hit_loop (K11a per entry, the loop's PyTorch glue) full "
           f"primary wave {list(rk.shape)}: {v['full_wave_ms']:.4f} ms; closest_hit_wave "
-          f"on K10a: {v['full_wave_chained_ms']:.4f} ms [{gpu}]", flush=True)
+          f"on K10a: {v['full_wave_chained_ms']:.4f} ms; K11a alone over both "
+          f"entries: {v['full_wave_kernel_ms']:.4f} ms [{gpu}]", flush=True)
     for name in PER_LANE[1:]:
         print(f"time {name} prepass (K7 and the PyTorch schedule ops) on the "
               f"slice: {res[name]['prepass_ms']:.4f} ms [{gpu}]", flush=True)
@@ -761,12 +774,6 @@ def compare_perlane(ts, rays, win, st0, k10a, srays, tmax, occ0, k10b,
     print(f"perlane_anyhit {list(srays.shape)}: occ equal to its plain version and to "
           f"anyhit_sweep; plain walk per live ray: {work['nodes'] / live:.1f} node "
           f"visits, {work['tests'] / live:.1f} triangle tests", flush=True)
-    for name, attrs in perlane.kernel_attributes().items():
-        res[name]["attributes"] = attrs
-        print(f"{name}: {attrs['registers']} registers and {attrs['local_bytes']} "
-              f"local bytes a thread, {attrs['ctas_per_sm']} CTAs of 256 resident "
-              f"per SM ({attrs['ctas_per_sm'] * 256 / 2048:.1%} occupancy), "
-              f"persistent grid {attrs['ctas_per_sm'] * attrs['sms']} CTAs", flush=True)
 
 
 def tree_digest(arrays) -> str:
@@ -820,32 +827,6 @@ def mesh_walks(ts, inputs, walk, **kw):
     return [walk(ts, mesh, obj, RAY_TMIN, win, **kw) for mesh, obj, win in inputs]
 
 
-def mesh_lane_counts(ts, inputs, closest: bool) -> dict:
-    """The work of the one-mesh walks' inputs (:func:`mesh_walk_inputs`)
-    with each lane walking alone, as K10a's lanes do (no warp votes, a leaf
-    tested on arrival): node visits, triangle tests and the distinct table
-    rows read (the normal's rows too, for a closest walk), as the plain walk
-    counts them. That is what the function needs; the warp's votes add the
-    rest (the ``work`` of the JSON line)."""
-    from raytpu_torch.config import RAY_TMIN
-    from raytpu_torch.ops import traverse
-
-    counts = {"rows": {}}
-    for (nb, nc, tb), obj, win in inputs:
-        live, o, d, d_inv, _ = traverse._mesh_lanes(obj, RAY_TMIN, win)
-        if not live.numel():
-            continue
-        w = win.reshape(-1)[live].clone()
-        if closest:
-            s, u, v = traverse._closest_walk(ts, nb, nc, tb, o, d, d_inv, RAY_TMIN,
-                                             w, counts)
-            won = s >= 0
-            traverse._object_normal(ts, s[won], u[won], v[won], counts)
-        else:
-            traverse._anyhit_walk(ts, nb, nc, tb, o, d, d_inv, RAY_TMIN, w, counts)
-    return counts
-
-
 def mesh_lane_bytes(inputs, per_lane: int) -> int:
     """What the one-mesh walks' lanes must move over the entries: the
     window and the outputs (``per_lane`` bytes) of every lane, the rays of
@@ -863,12 +844,13 @@ def compare_meshwalk(ts, rays, win, srays, tmax, rk, act, res) -> None:
       of config4), and on the shadow rays of the slice: against their plain
       versions, bit for bit; the kernels alone timed over both entries (one
       sweep of the loop); the bound from the work of each lane walking
-      alone (:func:`mesh_lane_counts`), the plain walks' warp votes beside
-      it in ``work``;
+      alone, as K10a's and K10b's lanes walk (the plain walks with
+      ``consensus=0``), the warps' votes beside it in ``work``;
     * the loop (``trace.closest_hit_loop`` on K11a) on the whole primary
       wave against K10a's chained sweep: valid and inst equal on every
       lane, mat, t, u, v and the normal bit for bit, but for lanes proven
-      exact ties (:func:`loop_ties`)."""
+      exact ties (:func:`loop_ties`); K11a alone over both entries of the
+      whole wave timed."""
     import functools
 
     import torch
@@ -889,7 +871,8 @@ def compare_meshwalk(ts, rays, win, srays, tmax, rk, act, res) -> None:
                 err = max(err, (x - y).abs().max().item())
     hit = sum(float((a[1] >= 0).float().mean()) for a in got)
     check(hit > 0.05, f"mesh_closest hits something on the slice ({hit})")
-    alone = mesh_lane_counts(ts, inputs, closest=True)
+    alone = {"rows": {}}
+    mesh_walks(ts, inputs, traverse.mesh_closest_ref, counts=alone, consensus=0)
     res["mesh_closest"] = dict(
         max_abs_err=err, ms=cuda_ms(lambda: mesh_walks(ts, inputs, traverse.mesh_closest),
                                     3, 10),
@@ -910,7 +893,8 @@ def compare_meshwalk(ts, rays, win, srays, tmax, rk, act, res) -> None:
     inputs = mesh_walk_inputs(ts, srays, tmax, traverse.mesh_anyhit)
     got = mesh_walks(ts, inputs, traverse.mesh_anyhit)
     want = mesh_walks(ts, inputs, traverse.mesh_anyhit_ref, counts=counts)
-    alone = mesh_lane_counts(ts, inputs, closest=False)
+    alone = {"rows": {}}
+    mesh_walks(ts, inputs, traverse.mesh_anyhit_ref, counts=alone, consensus=0)
     for e, (a, b) in enumerate(zip(got, want)):
         check(torch.equal(a, b), f"mesh_anyhit equals its plain version (entry {e})")
     occ = functools.reduce(torch.logical_or, got)
@@ -947,6 +931,9 @@ def compare_meshwalk(ts, rays, win, srays, tmax, rk, act, res) -> None:
         lambda: trace.closest_hit_loop(ts, o, d, RAY_TMIN, full_win), 1, 3)
     res["mesh_closest"]["full_wave_chained_ms"] = cuda_ms(
         lambda: trace.closest_hit_wave(ts, o, d, RAY_TMIN, full_win), 1, 3)
+    inputs = mesh_walk_inputs(ts, rk, full_win, traverse.mesh_closest)
+    res["mesh_closest"]["full_wave_kernel_ms"] = cuda_ms_fresh(
+        lambda _: mesh_walks(ts, inputs, traverse.mesh_closest), lambda: None, 1, 3)
 
 
 def loop_ties(ts, rk, win, loop, slots_l, chained) -> list:
@@ -1411,6 +1398,37 @@ def kernel_named(name: str, key: str) -> bool:
     return re.search(rf"(?<!\w){name}_kernel\b", key) is not None
 
 
+def kernel_resources() -> dict:
+    """Per kernel of the built library (:data:`KERNELS`, in the port that
+    is imported), its registers and stack, local and shared bytes a thread
+    as ``cuobjdump -res-usage`` reads them from the compiled code, or the
+    reason there are none. Works on any checkout's library: the kernels'
+    attributes entry points need not exist there."""
+    from raytpu_torch import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return {"unavailable": f"no {tool}"}
+    out = subprocess.run([str(tool), "-res-usage", str(_build.library_path())],
+                         capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        return {"unavailable": out.stderr.strip()[-300:]}
+    found, function = {}, None
+    for line in out.stdout.splitlines():
+        m = re.match(r"\s*Function (\S+):", line)
+        if m:
+            function = m.group(1)
+        elif function and "REG:" in line:
+            fields = dict(re.findall(r"([A-Z]+):(\d+)", line))
+            for name in KERNELS:   # a length-prefixed name in the mangled one
+                ident = f"{name}_kernel"
+                if f"{len(ident)}{ident}" in function:
+                    found[name] = {k: int(fields[k]) for k in
+                                   ("REG", "STACK", "LOCAL", "SHARED") if k in fields}
+            function = None
+    return found
+
+
 def profile_frame(r, path: Path, label: str, gpu: str) -> dict:
     """torch.profiler table of one frame, its device busy time and idle
     share, the share of each hand-written kernel in it, and each sweep
@@ -1460,10 +1478,13 @@ AB_FRAMES = (  # (stand-in, its tiers, the first its default, frames, t0 = dt)
 
 
 def sweep_times(r) -> dict:
-    """K1 and K2 alone (``perlane.launch_closest``/``launch_anyhit`` on a
-    schedule made beforehand) on the config4 stand-in's primary wave at
-    pose 0.05: on the ``SWEEP_PACKETS`` slice and on the whole wave, K2 on
-    the shadow rays of K1's hits; ms per launch, fresh state copies made
+    """K1, K2, K10a and K11a alone on the config4 stand-in's primary wave at
+    pose 0.05, on the ``SWEEP_PACKETS`` slice and on the whole wave: K1/K2
+    (``perlane.launch_closest``/``launch_anyhit``) on a schedule made
+    beforehand, K2 on the shadow rays of K1's hits; K10a
+    (``traverse.closest_sweep``); K11a (``traverse.mesh_closest``) over
+    both entries, on the inputs the loop hands it (:func:`mesh_walk_inputs`).
+    ms per launch (K11a per sweep of the loop), fresh state copies made
     outside the timed launches."""
     import torch
     from raytpu_torch.config import RAY_TMAX, RAY_TMIN
@@ -1490,17 +1511,26 @@ def sweep_times(r) -> dict:
         out[f"K2_{label}_ms"] = cuda_ms_fresh(
             lambda occ: perlane.launch_anyhit(ts, srays, RAY_TMIN, tmax, occ, ssched),
             occ0.clone, 3, 10)
-        del st0, srays, tmax, occ0
+        del srays, tmax, occ0
+        out[f"K10a_{label}_ms"] = cuda_ms_fresh(
+            lambda st: traverse.closest_sweep(ts, rays, RAY_TMIN, st), st0.clone, 3, 10)
+        del st0
+        inputs = mesh_walk_inputs(ts, rays, win, traverse.mesh_closest)
+        out[f"K11a_{label}_ms"] = cuda_ms_fresh(
+            lambda _: mesh_walks(ts, inputs, traverse.mesh_closest), lambda: None,
+            3, 10)
+        del inputs
         torch.cuda.empty_cache()
     return out
 
 
-def frames_of(root: Path) -> dict:
+def frames_of(root: Path, sweeps_only: bool = False) -> dict:
     """The stand-ins' frames (:data:`AB_FRAMES`) rendered by the port in
     ``root``, a checkout of any commit since the consensus tier: its
     kernels built there, then per stand-in and tier the median frame ms of
-    :func:`render_frames`; and the times of its K1 and K2
-    (:func:`sweep_times`)."""
+    :func:`render_frames` (none if ``sweeps_only``); the times of its K1,
+    K2, K10a and K11a (:func:`sweep_times`); and its kernels' resources
+    (:func:`kernel_resources`, under ``"resources"``)."""
     import torch
 
     sys.path.insert(0, str(root))
@@ -1514,47 +1544,65 @@ def frames_of(root: Path) -> dict:
     _build.library()
     gpu = gpu_line()
     out = {}
-    for label, tiers, n, dt in AB_FRAMES:
+    for label, tiers, n, dt in AB_FRAMES[:1] if sweeps_only else AB_FRAMES:
         r = Renderer(getattr(scenes, label)())
         if label == "config4_standin":
             out.update(sweep_times(r))
         base = r.tscene
-        for tier in tiers:
+        for tier in () if sweeps_only else tiers:
             r.tscene = dataclasses.replace(
                 base, traversal="auto" if tier == tiers[0] else tier)
             out[f"{label}_{tier}"] = render_frames(
                 r, n, dt, dt, f"{label}_{tier}", gpu, tier)["median_ms"]
         del r
         torch.cuda.empty_cache()
+    out["resources"] = kernel_resources()
     return out
 
 
-def ab(parent: Path, this_first: bool = False) -> int:
-    """The frames of :data:`AB_FRAMES` and the K1/K2 times of
-    :func:`sweep_times` with the port in ``parent`` and with this one,
-    alternately in four child processes on the one card (parent, this,
-    this, parent; or this, parent, parent, this if ``this_first``): the
-    medians and times of each run side by side."""
+def compare_trees(roots, labels, sweeps_only: bool) -> int:
+    """:func:`frames_of` each tree of ``roots`` (named by ``labels``) in a
+    child process of its own, one after the other on the one card, and
+    print the results of the runs side by side: the frame medians and sweep
+    times, then each sweep's registers and local and stack bytes."""
     gpu = gpu_line()
     print(gpu, flush=True)
-    order = ["this", "parent", "parent", "this"] if this_first else \
-        ["parent", "this", "this", "parent"]
     runs = []
-    for who in order:
-        root = REPO if who == "this" else parent
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                               "--frames-of", str(root)],
+    for root in roots:
+        cmd = [sys.executable, str(Path(__file__).resolve()), "--frames-of", str(root)]
+        proc = subprocess.run(cmd + ["--sweeps-only"] * sweeps_only,
                               capture_output=True, text=True, timeout=600)
         print(proc.stdout, proc.stderr[-3000:], sep="", flush=True)
-        check(proc.returncode == 0, f"the frames of {root} rendered")
+        check(proc.returncode == 0, f"the port in {root} ran")
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
-    print(f"{'frame':32s} " + " ".join(f"{f'{who}, run {i + 1}':>14s}"
-                                       for i, who in enumerate(order))
-          + f" (median frame ms; K1/K2 ms a launch) [{gpu}]")
+    print(f"{'frame or sweep':38s} " + " ".join(f"{f'{who}, run {i + 1}':>14s}"
+                                                for i, who in enumerate(labels))
+          + f" (median frame ms; sweep ms a launch) [{gpu}]")
     for key in runs[0]:
-        print(f"{key:32s} " + " ".join(f"{run[key]:14.4f}" for run in runs))
-    print(json.dumps({"gpu": gpu, "order": order, "median_ms": runs}))
+        if key != "resources":
+            print(f"{key:38s} " + " ".join(f"{run.get(key, float('nan')):14.4f}"
+                                           for run in runs))
+    def regs(run, name):
+        res = run["resources"].get(name, {})
+        return "/".join(str(res.get(k, "-")) for k in ("REG", "LOCAL", "STACK"))
+
+    for name in CHAINED + PER_LANE[1:] + CONSENSUS + MESH:
+        print(f"{name + ' REG/LOCAL/STACK':38s} "
+              + " ".join(f"{regs(run, name):>14s}" for run in runs))
+    print(json.dumps({"gpu": gpu, "order": labels, "runs": runs}))
     return 0
+
+
+def ab(parent: Path, this_first: bool = False) -> int:
+    """The frames of :data:`AB_FRAMES`, the sweep times of
+    :func:`sweep_times` and the kernels' resources with the port in
+    ``parent`` and with this one, alternately in four child processes on
+    the one card (parent, this, this, parent; or this, parent, parent, this
+    if ``this_first``)."""
+    order = ["this", "parent", "parent", "this"] if this_first else \
+        ["parent", "this", "this", "parent"]
+    return compare_trees([REPO if who == "this" else parent for who in order],
+                         order, sweeps_only=False)
 
 
 def main() -> int:
@@ -1569,7 +1617,12 @@ def main() -> int:
     ap.add_argument("--this-first", action="store_true",
                     help="with --ab: this checkout's run first (this, parent, "
                     "parent, this)")
+    ap.add_argument("--sweeps", metavar="DIR", nargs="+",
+                    help="instead of the smoke run, time K1, K2, K10a and K11a alone "
+                    "with the port of each DIR (a checkout, or a variant tree), in "
+                    "child processes in the order given")
     ap.add_argument("--frames-of", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--sweeps-only", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -1582,10 +1635,13 @@ def main() -> int:
         print(f"chip_smoke: {REPO} holds no raytpu_torch package", file=sys.stderr)
         return 1
     if args.frames_of:
-        print(json.dumps(frames_of(Path(args.frames_of))))
+        print(json.dumps(frames_of(Path(args.frames_of), args.sweeps_only)))
         return 0
     if args.ab:
         return ab(Path(args.ab), args.this_first)
+    if args.sweeps:
+        return compare_trees([Path(d) for d in args.sweeps], args.sweeps,
+                             sweeps_only=True)
     import_port()
     from raytpu_torch import _build, scenes
     from raytpu_torch.integrator import frame_tier, plain_kernels, render_frame
@@ -1620,8 +1676,8 @@ def main() -> int:
     print(f"config4 stand-in: scene generation {t_gen:.2f} s, BVH build + upload "
           f"{t_bvh:.2f} s ({ts.bvh_aabb_min.shape[0]} nodes, "
           f"{ts.bvh_tri_v0.shape[0]} triangles, {len(ts.traversal_list)} entries; "
-          f"K1/K2's packed records {nbytes(ts.packed_nodes, ts.packed_links, ts.packed_tris)}"
-          f" bytes)", flush=True)
+          f"packed records of K1/K2, K10a and K11a "
+          f"{nbytes(ts.packed_nodes, ts.packed_links, ts.packed_tris)} bytes)", flush=True)
     digest = tree_digest(first_tree(ts))
     print(f"teapot stand-in tree sha256 {digest} (raytpu's {TREE_DIGEST})", flush=True)
     check(digest == TREE_DIGEST, "the port builds raytpu's tree of the teapot stand-in")

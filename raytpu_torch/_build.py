@@ -41,8 +41,10 @@ NVCC_FLAGS = (
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry point -> argument types (the trailing _P is the stream)
 _SIGNATURES = {
-    "closest_sweep": [_P, _L, _P, _L, _L, _F, _P, _I, _P, _P, _P, _P, _P,
-                      _P, _P, _P, _P, _P, _L, _P],
+    # rays, state, n, tmin, the entries and w2o, the packed nodes, bvh_miss,
+    # the packed triangles, the normals and T
+    "closest_sweep": [_P, _L, _P, _L, _L, _F, _P, _I, _P, _P, _P, _P, _P, _L,
+                      _P],
     "anyhit_sweep": [_P, _L, _P, _P, _L, _F, _P, _I, _P, _P, _P, _P, _P,
                      _P, _P, _P, _P, _P],
     "raygen": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
@@ -68,13 +70,16 @@ _SIGNATURES = {
                           _L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _P],
     # object-space rays, tmax, (out, its plane stride, slot | occ), n, tmin,
-    # the mesh's node base, node count and slot base, its tables
+    # the mesh's node base, node count and slot base, its tables (K11a: the
+    # packed nodes, bvh_miss, the packed triangles, the normals and T)
     "mesh_closest": [_P, _L, _P, _P, _L, _P, _L, _F, _I, _I, _I, _P, _P, _P,
-                     _P, _P, _P, _P, _P, _P, _L, _P],
+                     _P, _L, _P],
     "mesh_anyhit": [_P, _L, _P, _P, _L, _F, _I, _I, _I, _P, _P, _P, _P, _P,
                     _P, _P, _P, _P],
 }
 KERNELS = tuple(_SIGNATURES)
+# C entry points that read kernels' attributes: (which kernel, int out[4])
+_ATTRIBUTES = ("rt_perlane_attributes", "rt_traverse_attributes")
 
 _launches = dict.fromkeys(KERNELS, 0)
 _lib = None
@@ -148,8 +153,9 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.rt_error_string.argtypes = [ctypes.c_int]
             lib.rt_error_string.restype = ctypes.c_char_p
-            lib.rt_perlane_attributes.argtypes = [ctypes.c_int, _P]
-            lib.rt_perlane_attributes.restype = ctypes.c_int
+            for name in _ATTRIBUTES:
+                getattr(lib, name).argtypes = [ctypes.c_int, _P]
+                getattr(lib, name).restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -167,6 +173,24 @@ def launch(kernel: str, *args) -> None:
         msg = lib.rt_error_string(err).decode()
         raise RuntimeError(f"{kernel}: CUDA error {err} ({msg})")
     _launches[kernel] += 1
+
+
+def kernel_attributes(entry: str, names) -> dict:
+    """Per kernel of ``names``, read by the attributes entry point ``entry``
+    (kernel ``i`` of ``names`` is its ``which`` = i): its registers and
+    local bytes a thread (spills and local arrays, ``cudaFuncGetAttributes``),
+    the CTAs of 256 threads resident per SM (the occupancy API, under its
+    ``__launch_bounds__``) and the SMs."""
+    fn = getattr(library(), entry)
+    out = {}
+    for which, name in enumerate(names):
+        vals = (ctypes.c_int * 4)()
+        err = fn(which, ctypes.cast(vals, ctypes.c_void_p))
+        if err:
+            raise RuntimeError(f"{name}: CUDA error {err} reading its attributes")
+        out[name] = dict(zip(("registers", "local_bytes", "ctas_per_sm", "sms"),
+                             vals))
+    return out
 
 
 def launch_counts() -> dict:

@@ -98,4 +98,22 @@ __device__ __forceinline__ bool moller_trumbore(
 
 inline int grid_for(long long n) { return (int)((n + BLOCK - 1) / BLOCK); }
 
+// A kernel's registers and local bytes a thread (spills and local arrays,
+// cudaFuncGetAttributes), the CTAs of BLOCK threads resident per SM under
+// its launch bounds (the occupancy API) and the SMs, into out[0..3].
+inline int kernel_attributes(const void* kernel, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK, 0);
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = per_sm;
+  out[3] = sms;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace rt

@@ -307,15 +307,7 @@ int rt_perlane_anyhit_sweep(
 int rt_perlane_attributes(int anyhit, int* out) {
   const void* kernel = anyhit ? (const void*)perlane_anyhit_sweep_kernel
                               : (const void*)perlane_closest_sweep_kernel;
-  const Residency& res = anyhit ? anyhit_residency() : closest_residency();
-  cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = res.per_sm;
-  out[3] = res.sms;
-  return (int)cudaGetLastError();
+  return rt::kernel_attributes(kernel, out);
 }
 
 }  // extern "C"

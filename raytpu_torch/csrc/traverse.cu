@@ -12,18 +12,32 @@
 // the packed 9-plane state exactly as the chained kernel merges it.
 //
 // The walk of one entry is walk.cuh's, in build order (node + 1 on a box
-// hit, bvh_miss otherwise). The plain version closest_sweep_ref /
+// hit, bvh_miss otherwise): the TPU kernels' tie rule, the first triangle
+// at the least t in build order. The plain version closest_sweep_ref /
 // anyhit_sweep_ref in raytpu_torch/ops/traverse.py makes the same tests in
 // the same order, so the two agree bit for bit.
 //
-// What bounds it on the H100: dependent loads. Each step of a walk reads a
-// node record whose address comes from the step before (miss link or i+1),
-// so a thread waits one memory latency per node, and the threads of a warp
-// diverge as their rays take different paths.
+// What bounds them on the H100. Their work is the node visits and triangle
+// tests of each lane's walk (52.7 visits and 62.4 tests a ray on config4's
+// primary wave): at 67 TFLOP/s of f32 a 256-packet slice needs about 17 us
+// (chip_smoke.py's bound, operations). In practice a walk is a chain of
+// dependent loads, each node's address taken from the node before, so a
+// lane waits one L1/L2 round trip a step, and the lanes of a warp diverge
+// as their rays take different paths; config4's tables fit in the 50 MB L2.
 //
-// What this first version does about it: nothing yet. Right and simple
-// first: one thread per ray, tables read straight from device memory
-// through the L1/L2 caches, no packet sharing, no shared-memory staging.
+// What K10a does about it (K10b still reads the bvh_* tables through
+// SoaFetch, one scalar load a field): it walks the packed 16-byte records
+// of TorchScene.packed_* in build order (walk.cuh's BuildFetch), so a node
+// visit is two 16-byte loads from one 32-byte sector and the 4-byte miss
+// link, issued together, and a triangle test three 16-byte loads, where
+// the bvh_* tables take nine scalar loads from five arrays a visit and nine
+// from three a test. One thread a lane, launched flat: the flat launch of
+// the same records measured faster than persistent warps on whole waves
+// (K1, PERF.md). The hit record (normal, material, instance) is made once,
+// after the walk, so it holds no registers through it. The rays and the
+// state, each read or written once, go through evict-first loads and
+// stores (walk.cuh's load_once, store_once), which leave the 50 MB L2 to
+// the 23 MB of config4's records while a wave of 0.5 GB streams through.
 //
 // Rays and state are (planes, n) with `*_s` elements between planes, so the
 // bounce loop hands over a wave x[:, s:s+b] of its (planes, P, K) buffers
@@ -38,27 +52,39 @@ __global__ void closest_sweep_kernel(const float* __restrict__ rays,
                                      float* __restrict__ state,
                                      long long st_s, long long n,
                                      float tmin, rt::Tables tab,
+                                     rt::BuildFetch f,
                                      const float* __restrict__ n_soa,
                                      long long n_tris) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  float bt = state[rt::ST_T * st_s + i];
+  float bt = rt::load_once<true>(state + rt::ST_T * st_s + i);
   if (!(bt > tmin)) return;  // dead lane (window 0): never walks
 
   float ow[3], dw[3];
-  rt::load_ray(rays, rays_s, i, ow, dw);
-  rt::Hit hit;
+  rt::load_ray<true>(rays, rays_s, i, ow, dw);
+  // the last entry that improved t, its slot and u, v
+  int win_e = -1, win_s = -1;
+  float win_u = 0.f, win_v = 0.f;
   for (int e = 0; e < tab.n_entries; ++e) {
     const rt::Entry en = rt::load_entry(tab, e);
     float o[3], d[3], d_inv[3];
-    const float* m = rt::object_ray(tab, en, ow, dw, o, d, d_inv);
+    rt::object_ray(tab, en, ow, dw, o, d, d_inv);
     float bu = 0.f, bv = 0.f;
-    const int bs = rt::closest_in_entry<false>(
-        rt::SoaFetch{tab, nullptr, tab.miss}, en, o, d, d_inv, tmin, &bt, &bu,
-        &bv);
-    if (bs >= 0) rt::record_hit(&hit, en, m, n_soa, n_tris, bs, bu, bv);
+    const int bs = rt::closest_in_entry<false>(f, en, o, d, d_inv, tmin, &bt,
+                                               &bu, &bv);
+    if (bs >= 0) {
+      win_e = e;
+      win_s = bs;
+      win_u = bu;
+      win_v = bv;
+    }
   }
-  if (hit.improved) rt::write_hit(state, st_s, i, bt, hit);
+  if (win_e < 0) return;
+  const rt::Entry en = rt::load_entry(tab, win_e);
+  rt::Hit hit;
+  rt::record_hit(&hit, en, tab.w2o + 12 * en.inst, n_soa, n_tris, win_s,
+                 win_u, win_v);
+  rt::write_hit<true>(state, st_s, i, bt, hit);
 }
 
 __global__ void anyhit_sweep_kernel(const float* __restrict__ rays,
@@ -91,20 +117,38 @@ __global__ void anyhit_sweep_kernel(const float* __restrict__ rays,
 // pallas_closest :348) and ::_anyhit_kernel (:217, wrapper pallas_anyhit
 // :414). The TPU walks a packet of 1024 lanes with one scalar node pointer,
 // descending (or testing a leaf) where any lane's box hits (:158-159,
-// :186-191); here the packet is the warp, 32 consecutive lanes, with
-// walk.cuh's consensus walk (kWarp = true: __any_sync over every lane's box,
-// leaves included) in build order (node + 1 on a hit, bvh_miss otherwise).
-// Per lane the hits are those of the lane's own walk (walk.cuh:20-27). No
-// transform and no merge: the caller (raytpu_torch/ops/trace.py, the
-// per-(instance, mesh) loop) moves the rays to object space and merges.
-// n is whole warps; a warp whose lanes are all dead writes misses and
-// returns, as the TPU's dead packet starts at the end node.
+// :186-191). No transform and no merge: the caller
+// (raytpu_torch/ops/trace.py, the per-(instance, mesh) loop) moves the rays
+// to object space and merges.
 //
-// Outputs, each (n,) at plane stride out_s in `out`: t (BIG_T on a miss),
-// u, v and the object normal (0, 0, 1 on a miss); and the mesh-local slot
-// (-1 on a miss) in `slot`. The normal is K11a's, interpolated from the
-// slot-ordered corner normals as w*N0 + u*N1 + v*N2, w = 1 - u - v
-// (:171-179).
+// Both keep the TPU packet's vote with the warp as the packet: 32
+// consecutive lanes walk one node pointer in build order, every lane tests
+// every node's box, leaves included, and the warp descends (or tests the
+// leaf's triangles for every lane) where any lane's box hits (walk.cuh's
+// consensus walk, kWarp = true). Per lane the hits are those of the lane's
+// own walk (walk.cuh:20-28). n is whole warps; a warp whose lanes are all
+// dead writes misses (K11a) and returns, as the TPU's dead packet starts at
+// the end node.
+//
+// What bounds K11a on the H100 is what bounds K10a (above): dependent
+// loads, one a node visit. The vote makes every lane walk the union of its
+// warp's paths (80.6 node visits a ray on config4's primary wave, against
+// 52.7 alone), but all 32 lanes load the same node and leaf, one request
+// for the warp, and none waits for another's path. What K11a does about
+// it: it walks the packed records in build order (BuildFetch), two 16-byte
+// node words and the miss link a visit, issued together, three 16-byte
+// words a triangle, where the bvh_* tables took nine scalar loads from five
+// arrays; its rays, window and outputs go evict-first, as K10a's. Each
+// lane walking alone over the same records was measured
+// slower on config4's whole primary wave, and so was the vote at inner
+// nodes only (PERF.md, Findings). K11b still reads the bvh_* tables
+// through SoaFetch.
+//
+// K11a's outputs, each (n,) at plane stride out_s in `out`: t (BIG_T on a
+// miss), u, v and the object normal (0, 0, 1 on a miss); and the
+// mesh-local slot (-1 on a miss) in `slot`. The normal is K11a's,
+// interpolated from the slot-ordered corner normals as w*N0 + u*N1 + v*N2,
+// w = 1 - u - v (:171-179).
 constexpr float BIG_T = 3.0e38f;  // "no hit" (raytpu_torch/ops/intersect.py)
 
 __global__ void mesh_closest_kernel(const float* __restrict__ rays,
@@ -112,21 +156,21 @@ __global__ void mesh_closest_kernel(const float* __restrict__ rays,
                                     const float* __restrict__ tmax,
                                     float* __restrict__ out, long long out_s,
                                     int* __restrict__ slot, long long n,
-                                    float tmin, rt::Entry en, rt::Tables tab,
+                                    float tmin, rt::Entry en,
+                                    rt::BuildFetch f,
                                     const float* __restrict__ n_soa,
                                     long long n_tris) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;  // n is whole warps: this leaves whole warps
-  float bt = tmax[i];
+  float bt = rt::load_once<true>(tmax + i);
   int bs = -1;
   float bu = 0.f, bv = 0.f, no[3] = {0.f, 0.f, 1.f};
   if (__any_sync(rt::kFullWarp, bt > tmin)) {
     float o[3], d[3], d_inv[3];
-    rt::load_ray(rays, rays_s, i, o, d);
+    rt::load_ray<true>(rays, rays_s, i, o, d);
 #pragma unroll
     for (int c = 0; c < 3; ++c) d_inv[c] = rt::safe_inverse(d[c]);
-    bs = rt::closest_in_entry<true>(rt::SoaFetch{tab, nullptr, tab.miss}, en,
-                                    o, d, d_inv, tmin, &bt, &bu, &bv);
+    bs = rt::closest_in_entry<true>(f, en, o, d, d_inv, tmin, &bt, &bu, &bv);
     if (bs >= 0) {
       const float w = 1.0f - bu - bv;
 #pragma unroll
@@ -137,12 +181,14 @@ __global__ void mesh_closest_kernel(const float* __restrict__ rays,
       bs -= en.tb;  // the walk's slot is global, K11a's mesh-local
     }
   }
-  out[0 * out_s + i] = bs >= 0 ? bt : BIG_T;
-  out[1 * out_s + i] = bu;
-  out[2 * out_s + i] = bv;
+  rt::store_once<true>(out + i, bs >= 0 ? bt : BIG_T);
+  rt::store_once<true>(out + out_s + i, bu);
+  rt::store_once<true>(out + 2 * out_s + i, bv);
 #pragma unroll
-  for (int c = 0; c < 3; ++c) out[(3 + c) * out_s + i] = no[c];
-  slot[i] = bs;
+  for (int c = 0; c < 3; ++c) {
+    rt::store_once<true>(out + (3 + c) * out_s + i, no[c]);
+  }
+  rt::store_once<true>(slot + i, bs);
 }
 
 // occ (n,) int32 out: 1 where the lane is hit within (tmin, tmax), a lane
@@ -172,20 +218,24 @@ __global__ void mesh_anyhit_kernel(const float* __restrict__ rays,
 
 extern "C" {
 
-// rays (6, n) f32 and state (9, n) f32, updated in place, with plane strides.
+// rays (6, n) f32 and state (9, n) f32, updated in place, with plane
+// strides; the entries in walk order and w2o; the packed nodes (M, 8) and
+// triangles (T, 12) f32, 16-byte aligned, and bvh_miss (M,) int32; the
+// slot-ordered normals (9, T).
 int rt_closest_sweep(const void* rays, long long rays_s, void* state,
                      long long st_s, long long n, float tmin,
                      const void* entries, int n_entries, const void* w2o,
-                     const void* bmin, const void* bmax, const void* first,
-                     const void* count, const void* miss, const void* v0,
-                     const void* e1, const void* e2, const void* n_soa,
-                     long long n_tris, void* stream) {
+                     const void* nodes, const void* miss, const void* tris,
+                     const void* n_soa, long long n_tris, void* stream) {
   if (n > 0) {
-    rt::Tables tab = rt::make_tables(entries, n_entries, w2o, bmin, bmax,
-                                     first, count, miss, v0, e1, e2);
+    rt::Tables tab = rt::make_tables(entries, n_entries, w2o, nullptr,
+                                     nullptr, nullptr, nullptr, nullptr,
+                                     nullptr, nullptr, nullptr);
+    const rt::BuildFetch f{(const float4*)nodes, (const int*)miss,
+                           (const float4*)tris};
     closest_sweep_kernel<<<rt::grid_for(n), rt::BLOCK, 0,
                            (cudaStream_t)stream>>>(
-        (const float*)rays, rays_s, (float*)state, st_s, n, tmin, tab,
+        (const float*)rays, rays_s, (float*)state, st_s, n, tmin, tab, f,
         (const float*)n_soa, n_tris);
   }
   return (int)cudaGetLastError();
@@ -213,29 +263,29 @@ int rt_anyhit_sweep(const void* rays, long long rays_s, const void* tmax,
 // K11a: object-space rays (6, n) f32 with a plane stride, tmax (n,) f32 ->
 // out (6, n) f32 planes t, u, v, nx, ny, nz (plane stride out_s) and slot
 // (n,) int32, against the one mesh whose nodes are [nb, nb + nc) of the
-// concatenated tables and whose slots start at tb. n is whole warps.
+// concatenated tables and whose slots start at tb; its packed nodes and
+// triangles and bvh_miss as for rt_closest_sweep. n is whole warps.
 int rt_mesh_closest(const void* rays, long long rays_s, const void* tmax,
                     void* out, long long out_s, void* slot, long long n,
-                    float tmin, int nb, int nc, int tb, const void* bmin,
-                    const void* bmax, const void* first, const void* count,
-                    const void* miss, const void* v0, const void* e1,
-                    const void* e2, const void* n_soa, long long n_tris,
-                    void* stream) {
+                    float tmin, int nb, int nc, int tb, const void* nodes,
+                    const void* miss, const void* tris, const void* n_soa,
+                    long long n_tris, void* stream) {
   if (n % 32 != 0) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    rt::Tables tab = rt::make_tables(nullptr, 0, nullptr, bmin, bmax, first,
-                                     count, miss, v0, e1, e2);
+    const rt::BuildFetch f{(const float4*)nodes, (const int*)miss,
+                           (const float4*)tris};
     mesh_closest_kernel<<<rt::grid_for(n), rt::BLOCK, 0,
                           (cudaStream_t)stream>>>(
         (const float*)rays, rays_s, (const float*)tmax, (float*)out, out_s,
-        (int*)slot, n, tmin, rt::Entry{0, 0, nb, nc, tb}, tab,
+        (int*)slot, n, tmin, rt::Entry{0, 0, nb, nc, tb}, f,
         (const float*)n_soa, n_tris);
   }
   return (int)cudaGetLastError();
 }
 
 // K11b: object-space rays (6, n) f32 with a plane stride, tmax (n,) f32 ->
-// occ (n,) int32, against one mesh as for rt_mesh_closest. n is whole warps.
+// occ (n,) int32, against the one mesh [nb, nb + nc), tb of the bvh_*
+// tables. n is whole warps.
 int rt_mesh_anyhit(const void* rays, long long rays_s, const void* tmax,
                    void* occ, long long n, float tmin, int nb, int nc, int tb,
                    const void* bmin, const void* bmax, const void* first,
@@ -251,6 +301,17 @@ int rt_mesh_anyhit(const void* rays, long long rays_s, const void* tmax,
         rt::Entry{0, 0, nb, nc, tb}, tab);
   }
   return (int)cudaGetLastError();
+}
+
+// The registers and local bytes a thread (spills and local arrays) of K10a
+// (which 0), K10b (1), K11a (2) or K11b (3), the CTAs of rt::BLOCK threads
+// resident per SM and the SMs, into out[0..3].
+int rt_traverse_attributes(int which, int* out) {
+  const void* const kernels[] = {
+      (const void*)closest_sweep_kernel, (const void*)anyhit_sweep_kernel,
+      (const void*)mesh_closest_kernel, (const void*)mesh_anyhit_kernel};
+  if (which < 0 || which > 3) return (int)cudaErrorInvalidValue;
+  return rt::kernel_attributes(kernels[which], out);
 }
 
 const char* rt_error_string(int err) {

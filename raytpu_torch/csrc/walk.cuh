@@ -1,13 +1,13 @@
-// One ray's walk of one entry's tree, shared by the chained sweeps
-// (traverse.cu, K10a/K10b), the per-lane sweeps (perlane.cu, K1/K2) and the
-// consensus sweeps (consensus.cu, K8/K9).
+// One ray's walk of one entry's tree, shared by the chained sweeps and the
+// one-mesh walks (traverse.cu, K10a/K10b, K11a/K11b), the per-lane sweeps
+// (perlane.cu, K1/K2) and the consensus sweeps (consensus.cu, K8/K9).
 //
 // The walk is stackless: from the root, an inner node descends when rt::slab
 // hits within (tmin, best_t), and a leaf's triangles are tested. Where the
 // walk goes next is given as `succ` (nullptr for node + 1) and `skip`,
 // indexed by the node's row g = node_base + node in the concatenated tables:
-//   - build order (K10a/K10b): a hit continues at node + 1, a miss or a
-//     finished leaf at bvh_miss;
+//   - build order (K10a/K10b, K11a/K11b): a hit continues at node + 1, a
+//     miss or a finished leaf at bvh_miss;
 //   - near child first (K1/K2): the per-octant succ/skip links of
 //     raytpu/ops/mega.py:128 (octant_links), one (M,) row per octant;
 //   - wide (K8/K9): the same links with every other interior level dropped
@@ -17,21 +17,23 @@
 // Who decides, the template argument kWarp:
 //   - false, each lane alone: a leaf is tested on arrival, with no box test
 //     (raytpu/ops/traverse.py:117-127), an inner node on the lane's own box;
-//   - true, the consensus walk of raytpu/ops/mega.py:640 (K8/K9): the 32
-//     lanes of a warp walk one node pointer. Every lane tests the box of
-//     every node, leaves included, against its own window; where any lane's
-//     box hits (__any_sync), the warp descends, or tests the leaf's
-//     triangles for every lane. A lane's candidates are then a superset of
-//     its own walk's, and Moller-Trumbore with strict t < best_t is exact
-//     per lane, so the hits are the same; only which of two triangles hit
-//     at exactly the same t is kept can depend on the walk. The caller
-//     keeps the warp converged: whole warps, warp-uniform entries and links.
+//   - true, the consensus walk of raytpu/ops/mega.py:640 (K8/K9,
+//     K11a/K11b): the 32 lanes of a warp walk one node pointer. Every lane
+//     tests the box of every node, leaves included, against its own window;
+//     where any lane's box hits (__any_sync), the warp descends, or tests
+//     the leaf's triangles for every lane. A lane's candidates are then a
+//     superset of its own walk's, and Moller-Trumbore with strict
+//     t < best_t is exact per lane, so the hits are the same; only which of
+//     two triangles hit at exactly the same t is kept can depend on the
+//     walk. The caller keeps the warp converged: whole warps, warp-uniform
+//     entries and links.
 //
 // How the walk reads the tree, the fetch policy F: SoaFetch reads the
 // bvh_* tables and (M,) link rows as they are, one scalar load per field
-// where the walk needs it (K10a/K10b, K8/K9, K11a/K11b); PackedFetch reads
-// the packed 16-byte records of TorchScene.packed_* (K1/K2). Both hand the
-// same floats to the same tests.
+// where the walk needs it (K10b, K8/K9, K11b); PackedFetch reads the packed
+// 16-byte records of TorchScene.packed_* with the octant links (K1/K2),
+// BuildFetch the same node and triangle records in build order with
+// bvh_miss (K10a, K11a). All hand the same floats to the same tests.
 //
 // The plain versions (raytpu_torch/ops/traverse.py::_walk, closest_ref,
 // anyhit_ref, with `consensus` for kWarp) make the same tests in the same
@@ -99,8 +101,9 @@ constexpr unsigned kFullWarp = 0xffffffffu;
 // policy gives the same bits.
 
 // The bvh_* tables as they are (structure of arrays), read where the walk
-// needs them: the chained, consensus and one-mesh sweeps. `succ` nullptr is
-// build order (node + 1 on a box hit), `skip` the miss link.
+// needs them: the shadow sweeps K10b and K11b and the consensus sweeps K8/K9.
+// `succ` nullptr is build order (node + 1 on a box hit), `skip` the miss
+// link.
 struct SoaFetch {
   const Tables& tab;
   const int* succ;
@@ -132,11 +135,33 @@ struct SoaFetch {
   }
 };
 
-// The packed records of the per-lane sweeps (TorchScene.packed_*): a node
-// is two 16-byte words {bmin, first} {bmax, count} of one 32-byte sector,
-// its links one 8-byte word {succ, skip} of the lane's octant row, a
-// triangle three 16-byte words {v0, 0} {e1, 0} {e2, 0}. One visit issues
-// its three loads at once, none waiting on the box test.
+// The packed records (TorchScene.packed_*): a node is two 16-byte words
+// {bmin, first} {bmax, count} of one 32-byte sector, a triangle three
+// 16-byte words {v0, 0} {e1, 0} {e2, 0}. The box test of a node's words and
+// the Moller-Trumbore test of slot s, shared by the packed fetch policies.
+__device__ __forceinline__ bool packed_box(const float4& lo, const float4& hi,
+                                           const float* o, const float* d_inv,
+                                           float tmin, float tfar) {
+  const float bmin[3] = {lo.x, lo.y, lo.z};
+  const float bmax[3] = {hi.x, hi.y, hi.z};
+  return slab(o, d_inv, bmin, bmax, tmin, tfar);
+}
+
+__device__ __forceinline__ bool packed_test(const float4* tris, long long s,
+                                            const float* o, const float* d,
+                                            float tmin, float best_t,
+                                            float* t, float* u, float* v) {
+  const float4 a = __ldg(tris + 3 * s), b = __ldg(tris + 3 * s + 1),
+               c = __ldg(tris + 3 * s + 2);
+  const float v0[3] = {a.x, a.y, a.z}, e1[3] = {b.x, b.y, b.z},
+              e2[3] = {c.x, c.y, c.z};
+  return moller_trumbore(o, d, v0, e1, e2, tmin, best_t, t, u, v);
+}
+
+// The per-lane sweeps' walk (K1/K2) over the packed records, near child
+// first: a node's links are one 8-byte word {succ, skip} of the lane's
+// octant row. One visit issues its three loads at once, none waiting on
+// the box test.
 struct PackedFetch {
   const float4* nodes;  // (M, 2) float4
   const int2* links;    // (M,) int2: the lane's octant row
@@ -151,9 +176,7 @@ struct PackedFetch {
     }
     __device__ __forceinline__ bool box(const float* o, const float* d_inv,
                                         float tmin, float tfar) const {
-      const float bmin[3] = {lo.x, lo.y, lo.z};
-      const float bmax[3] = {hi.x, hi.y, hi.z};
-      return slab(o, d_inv, bmin, bmax, tmin, tfar);
+      return packed_box(lo, hi, o, d_inv, tmin, tfar);
     }
     __device__ __forceinline__ int next(int, bool down) const {
       return down ? link.x : link.y;
@@ -169,11 +192,43 @@ struct PackedFetch {
                                        const float* d, float tmin,
                                        float best_t, float* t, float* u,
                                        float* v) const {
-    const float4 a = __ldg(tris + 3 * s), b = __ldg(tris + 3 * s + 1),
-                 c = __ldg(tris + 3 * s + 2);
-    const float v0[3] = {a.x, a.y, a.z}, e1[3] = {b.x, b.y, b.z},
-                e2[3] = {c.x, c.y, c.z};
-    return moller_trumbore(o, d, v0, e1, e2, tmin, best_t, t, u, v);
+    return packed_test(tris, s, o, d, tmin, best_t, t, u, v);
+  }
+};
+
+// The same records walked in build order (K10a, K11a): node + 1 on a box
+// hit, the mesh-local bvh_miss link otherwise. The link's 4-byte load is
+// issued with the node's two words, not after the box test.
+struct BuildFetch {
+  const float4* nodes;  // (M, 2) float4
+  const int* miss;      // (M,) int32
+  const float4* tris;   // (T, 3) float4
+
+  struct Node {
+    float4 lo, hi;
+    int skip, first;
+    __device__ __forceinline__ int count() const {
+      return __float_as_int(hi.w);
+    }
+    __device__ __forceinline__ bool box(const float* o, const float* d_inv,
+                                        float tmin, float tfar) const {
+      return packed_box(lo, hi, o, d_inv, tmin, tfar);
+    }
+    __device__ __forceinline__ int next(int node, bool down) const {
+      return down ? node + 1 : skip;
+    }
+  };
+
+  __device__ __forceinline__ Node node(int g) const {
+    const float4 lo = __ldg(nodes + 2 * g);
+    return Node{lo, __ldg(nodes + 2 * g + 1), __ldg(miss + g),
+                __float_as_int(lo.w)};
+  }
+  __device__ __forceinline__ bool test(long long s, const float* o,
+                                       const float* d, float tmin,
+                                       float best_t, float* t, float* u,
+                                       float* v) const {
+    return packed_test(tris, s, o, d, tmin, best_t, t, u, v);
   }
 };
 
@@ -284,27 +339,44 @@ __device__ __forceinline__ void record_hit(Hit* hit, const Entry& en,
   hit->improved = true;
 }
 
+// A value a sweep reads or writes once (a ray plane, a window, the state):
+// with kStream an evict-first load or store (__ldcs, __stcs), so that the
+// wave streaming through does not push the tree's records out of the L2.
+template <bool kStream>
+__device__ __forceinline__ float load_once(const float* p) {
+  if constexpr (kStream) return __ldcs(p);
+  else return *p;
+}
+
+template <bool kStream, class T>
+__device__ __forceinline__ void store_once(T* p, T v) {
+  if constexpr (kStream) __stcs(p, v);
+  else *p = v;
+}
+
 // Merge an improved hit into lane i of the packed 9-plane state.
+template <bool kStream = false>
 __device__ __forceinline__ void write_hit(float* state, long long st_s,
                                           long long i, float bt,
                                           const Hit& hit) {
-  state[ST_T * st_s + i] = bt;
-  state[ST_VALID * st_s + i] = __int_as_float(1);
-  state[ST_MAT * st_s + i] = __int_as_float(hit.mat);
-  state[ST_INST * st_s + i] = __int_as_float(hit.inst);
-  state[ST_NX * st_s + i] = hit.n[0];
-  state[ST_NY * st_s + i] = hit.n[1];
-  state[ST_NZ * st_s + i] = hit.n[2];
-  state[ST_U * st_s + i] = hit.u;
-  state[ST_V * st_s + i] = hit.v;
+  store_once<kStream>(state + ST_T * st_s + i, bt);
+  store_once<kStream>(state + ST_VALID * st_s + i, __int_as_float(1));
+  store_once<kStream>(state + ST_MAT * st_s + i, __int_as_float(hit.mat));
+  store_once<kStream>(state + ST_INST * st_s + i, __int_as_float(hit.inst));
+  store_once<kStream>(state + ST_NX * st_s + i, hit.n[0]);
+  store_once<kStream>(state + ST_NY * st_s + i, hit.n[1]);
+  store_once<kStream>(state + ST_NZ * st_s + i, hit.n[2]);
+  store_once<kStream>(state + ST_U * st_s + i, hit.u);
+  store_once<kStream>(state + ST_V * st_s + i, hit.v);
 }
 
+template <bool kStream = false>
 __device__ __forceinline__ void load_ray(const float* rays, long long rays_s,
                                          long long i, float* ow, float* dw) {
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    ow[c] = rays[c * rays_s + i];
-    dw[c] = rays[(3 + c) * rays_s + i];
+    ow[c] = load_once<kStream>(rays + c * rays_s + i);
+    dw[c] = load_once<kStream>(rays + (3 + c) * rays_s + i);
   }
 }
 

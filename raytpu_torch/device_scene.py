@@ -14,7 +14,9 @@ tier, and once more with every other interior level dropped
 consensus tier; ``traversal`` and ``auto_tier`` say which tier the sweeps
 take. The per-lane tier's kernels read the nodes, octant links and
 triangles as packed 16-byte records (``packed_*``, :func:`with_packed`),
-the same bits as the tables they come from.
+the same bits as the tables they come from; the chained closest sweep and
+the one-mesh closest walk read the same node and triangle records with
+``bvh_miss``.
 
 Layouts match the JAX package, so buffers compare by a reshape: nodes are
 concatenated over meshes with mesh-local ``bvh_miss`` and ``bvh_tri_first``
@@ -80,8 +82,9 @@ class TorchScene:
     # walk's wide links, ops/mega.widen_octant_links)
     wide_succ: Optional[torch.Tensor] = None      # (8, M) int32
     wide_skip: Optional[torch.Tensor] = None      # (8, M) int32
-    # the per-lane sweeps' (K1/K2) packed records, the bits of the tables
-    # above laid out for 16-byte loads (with_packed)
+    # the packed records of K1/K2 (with the octant links) and of K10a/K11a
+    # (with bvh_miss), the bits of the tables above laid out for 16-byte
+    # loads (with_packed)
     packed_nodes: Optional[torch.Tensor] = None   # (M, 8) f32, pack_nodes
     packed_links: Optional[torch.Tensor] = None   # (8, M, 2) int32, pack_links
     packed_tris: Optional[torch.Tensor] = None    # (T, 12) f32, pack_tris
@@ -180,7 +183,7 @@ def pack_tris(v0: torch.Tensor, e1: torch.Tensor,
 
 
 def with_packed(ts: TorchScene) -> TorchScene:
-    """``ts`` with the per-lane sweeps' packed records built from its
+    """``ts`` with the packed records of K1/K2 and K10a/K11a built from its
     ``bvh_*`` tables and octant links (once per scene: they do not depend
     on the transforms)."""
     return dataclasses.replace(

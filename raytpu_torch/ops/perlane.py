@@ -43,7 +43,7 @@ from raytpu_torch.ops.mega import (
     chunk_block_hits,
     entry_perm,
 )
-from raytpu_torch.ops.traverse import ST_T, anyhit_ref, closest_ref
+from raytpu_torch.ops.traverse import ST_T, anyhit_ref, closest_ref, packed_operands
 
 
 def prepass(ts: TorchScene, rays: torch.Tensor, window: torch.Tensor,
@@ -79,23 +79,18 @@ def schedule_operands(k: str, rays, schedule):
 def _launch_operands(k: str, ts: TorchScene, rays, schedule):
     """The operands of K1's and K2's C entry points after the per-call
     ones: the schedule, the packed links, the node count, the entries in
-    walk order and w2o, the packed nodes and triangles (16-byte aligned
-    for the kernels' vector loads). The scene's tables are checked first."""
+    walk order and w2o, the packed nodes and triangles. The scene's tables
+    are checked first."""
     m = ts.bvh_aabb_min.shape[0]
-    t = ts.bvh_tri_v0.shape[0]
-    links, nodes, tris, w2o = _build.check_operands(k, (
-        ("packed_links", ts.packed_links, (8, m, 2), torch.int32),
-        ("packed_nodes", ts.packed_nodes, (m, 8), torch.float32),
-        ("packed_tris", ts.packed_tris, (t, 12), torch.float32),
-        ("w2o", ts.w2o, (ts.w2o.shape[0], 3, 4), torch.float32)))
-    if (links | nodes | tris) % 16:
-        raise ValueError(f"{k}: the packed records are not 16-byte aligned")
+    links, nodes, tris = packed_operands(
+        k, ts, ("packed_links", ts.packed_links, (8, m, 2), torch.int32))
     entries = schedule[2]
+    c = _build.check_operand
     return (
         *schedule_operands(k, rays, schedule), links, m,
-        _build.check_operand(k, "entries", entries, (entries.shape[0], 5),
-                             torch.int32),
-        entries.shape[0], w2o, nodes, tris,
+        c(k, "entries", entries, (entries.shape[0], 5), torch.int32),
+        entries.shape[0], c(k, "w2o", ts.w2o, (ts.w2o.shape[0], 3, 4)),
+        nodes, tris,
     )
 
 
@@ -175,23 +170,11 @@ def launch_anyhit(ts: TorchScene, rays: torch.Tensor, tmin: float,
 
 
 def kernel_attributes() -> dict:
-    """Per kernel (K1, K2): its registers and local bytes a thread (spills
-    and local arrays, from ``cudaFuncGetAttributes``), the CTAs of 256
-    threads resident per SM (the occupancy API, under the kernels'
-    ``__launch_bounds__``) and the SMs; the persistent grid is their
-    product."""
-    import ctypes
-
-    lib = _build.library()
-    out = {}
-    for flag, name in enumerate(("perlane_closest_sweep", "perlane_anyhit_sweep")):
-        vals = (ctypes.c_int * 4)()
-        err = lib.rt_perlane_attributes(flag, ctypes.cast(vals, ctypes.c_void_p))
-        if err:
-            raise RuntimeError(f"{name}: CUDA error {err} reading its attributes")
-        out[name] = dict(zip(("registers", "local_bytes", "ctas_per_sm", "sms"),
-                             vals))
-    return out
+    """K1's and K2's registers, local bytes, resident CTAs and SMs
+    (:func:`raytpu_torch._build.kernel_attributes`); the persistent grid is
+    the product of the last two."""
+    return _build.kernel_attributes(
+        "rt_perlane_attributes", ("perlane_closest_sweep", "perlane_anyhit_sweep"))
 
 
 # ---------------------------------------------------------------------------

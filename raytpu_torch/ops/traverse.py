@@ -9,7 +9,9 @@ Packed ABI, as in the JAX package: rays are one (6, P, K) f32 tensor
 
 ``closest_sweep`` / ``anyhit_sweep`` are the kernel wrappers: a CPU tensor
 takes the plain version beside them, a CUDA tensor launches the kernel in
-``csrc/traverse.cu`` (or raises). Rays and state may be waves
+``csrc/traverse.cu`` (or raises). K10a (``closest_sweep``) reads the
+scene's packed records (``packed_nodes``, ``packed_tris``) with
+``bvh_miss``, K10b the ``bvh_*`` tables. Rays and state may be waves
 ``x[:, s:s+b]`` of larger buffers: the kernels take a plane stride and the
 plain versions read and write through the view. The plain versions walk the same tables
 the same way: per lane, the entries in ``traversal_list`` order, a
@@ -27,7 +29,9 @@ wrappers' are: t (``BIG_T`` on a miss), the mesh-local slot (-1 on a miss;
 :func:`slot_to_prim`), u, v and the object normal ((0, 0, 1) on a miss), or
 the occlusion flags. Groups of :data:`WARP` consecutive lanes walk as one,
 as the TPU's packet of 1024 does: the group descends, or tests a leaf, where
-any of its lanes' boxes hits. The kernels are in ``csrc/traverse.cu``.
+any of its lanes' boxes hits. K11a reads the packed records with
+``bvh_miss``, K11b the ``bvh_*`` tables. The kernels are in
+``csrc/traverse.cu``.
 """
 
 from __future__ import annotations
@@ -97,6 +101,35 @@ def table_ptrs(kernel: str, ts: TorchScene, entries=None):
     )
 
 
+def packed_operands(kernel: str, ts: TorchScene, link) -> list:
+    """Validated device pointers of the link table ``link`` (``(name,
+    tensor, shape, dtype)``) that a packed walk follows and of the scene's
+    packed node and triangle records: ``[link, nodes, tris]``. Every type
+    and shape is checked before any device; a scene without records
+    raises, and so do records that are not 16-byte aligned for the kernels'
+    vector loads."""
+    if ts.packed_nodes is None or ts.packed_tris is None:
+        raise ValueError(f"{kernel}: the scene has no packed records "
+                         "(device_scene.with_packed builds them)")
+    m = ts.bvh_aabb_min.shape[0]
+    t = ts.bvh_tri_v0.shape[0]
+    links, nodes, tris = _build.check_operands(kernel, (
+        link, ("packed_nodes", ts.packed_nodes, (m, 8), torch.float32),
+        ("packed_tris", ts.packed_tris, (t, 12), torch.float32)))
+    if (nodes | tris) % 16 or links % 8:
+        raise ValueError(f"{kernel}: the packed records are not aligned")
+    return [links, nodes, tris]
+
+
+def _packed_build_order(kernel: str, ts: TorchScene):
+    """K10a's and K11a's walk: the packed records in build order, their
+    miss links ``bvh_miss``, ``(nodes, miss, tris)``."""
+    miss, nodes, tris = packed_operands(
+        kernel, ts, ("bvh_miss", ts.bvh_miss, ts.bvh_aabb_min.shape[:1],
+                     torch.int32))
+    return nodes, miss, tris
+
+
 def closest_sweep(ts: TorchScene, rays: torch.Tensor, tmin: float,
                   state: torch.Tensor) -> torch.Tensor:
     """Closest hit of ``rays`` (6, P, K) over every entry, merged into
@@ -104,16 +137,19 @@ def closest_sweep(ts: TorchScene, rays: torch.Tensor, tmin: float,
     :func:`closest_sweep_ref`; CUDA tensors launch ``rt_closest_sweep``."""
     if rays.device.type == "cpu":
         return closest_sweep_ref(ts, rays, tmin, state)
-    n = rays[0].numel()
     k = "closest_sweep"
+    walk = _packed_build_order(k, ts)
+    c = _build.check_operand
+    e = ts.entries.shape[0]
     t = ts.bvh_tri_v0.shape[0]
     _build.launch(
         k,
         *_build.check_planes(k, "rays", rays, (6, *rays.shape[1:])),
         *_build.check_planes(k, "state", state, (9, *rays.shape[1:])),
-        n, float(tmin), *table_ptrs(k, ts),
-        _build.check_operand(k, "bvh_tri_n_soa", ts.bvh_tri_n_soa, (9, t)),
-        t,
+        rays[0].numel(), float(tmin),
+        c(k, "entries", ts.entries, (e, 5), torch.int32), e,
+        c(k, "w2o", ts.w2o, (ts.w2o.shape[0], 3, 4)), *walk,
+        c(k, "bvh_tri_n_soa", ts.bvh_tri_n_soa, (9, t)), t,
     )
     return state
 
@@ -157,6 +193,7 @@ def mesh_closest(ts: TorchScene, mesh, rays: torch.Tensor, tmin: float,
         return mesh_closest_ref(ts, mesh, rays, tmin, tmax)
     k = "mesh_closest"
     _whole_warps(k, rays)
+    walk = _packed_build_order(k, ts)
     shape = rays.shape[1:]
     out = torch.empty((6, *shape), dtype=torch.float32, device=rays.device)
     slot = torch.empty(shape, dtype=torch.int32, device=rays.device)
@@ -165,7 +202,7 @@ def mesh_closest(ts: TorchScene, mesh, rays: torch.Tensor, tmin: float,
         k, *_build.check_planes(k, "rays", rays, (6, *shape)),
         _build.check_operand(k, "tmax", tmax, shape), out.data_ptr(),
         out.stride(0), slot.data_ptr(), rays[0].numel(), float(tmin),
-        *(int(x) for x in mesh), *table_ptrs(k, ts)[3:],  # no entries, no w2o
+        *(int(x) for x in mesh), *walk,
         _build.check_operand(k, "bvh_tri_n_soa", ts.bvh_tri_n_soa, (9, t)), t)
     return out[0], slot, out[1], out[2], (out[3], out[4], out[5])
 
@@ -188,6 +225,14 @@ def mesh_anyhit(ts: TorchScene, mesh, rays: torch.Tensor, tmin: float,
         rays[0].numel(), float(tmin), *(int(x) for x in mesh),
         *table_ptrs(k, ts)[3:])
     return occ != 0
+
+
+def kernel_attributes() -> dict:
+    """K10a's, K10b's, K11a's and K11b's registers, local bytes, resident
+    CTAs and SMs (:func:`raytpu_torch._build.kernel_attributes`)."""
+    return _build.kernel_attributes(
+        "rt_traverse_attributes",
+        ("closest_sweep", "anyhit_sweep", "mesh_closest", "mesh_anyhit"))
 
 
 def slot_to_prim(ts: TorchScene, mesh, slot: torch.Tensor) -> torch.Tensor:
@@ -400,6 +445,12 @@ def _object_normal(ts: TorchScene, s, u, v, counts=None):
             for c in range(3)]
 
 
+def _groups(live: torch.Tensor, consensus: int):
+    """The consensus walk's group of each live lane: runs of ``consensus``
+    consecutive lanes (None, each lane alone, for 0)."""
+    return live // consensus if consensus else None
+
+
 def closest_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
                 state: torch.Tensor, rows, walks=None, links=None,
                 slots=None, counts=None, consensus: int = 0) -> torch.Tensor:
@@ -436,7 +487,7 @@ def closest_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
         bs, bu, bv = _closest_walk(
             ts, nb, nc, tb, o, d, d_inv, tmin, win, counts,
             None if links is None else (*links[:2], links[2][live[sub]]),
-            live[sub] // consensus if consensus else None)
+            _groups(live[sub], consensus))
         bt[sub] = win
 
         won = (bs >= 0).nonzero().squeeze(1)
@@ -489,7 +540,7 @@ def anyhit_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
         found = _anyhit_walk(
             ts, nb, nc, tb, o, d, d_inv, tmin, tflat[lanes].clone(), counts,
             None if links is None else (*links[:2], links[2][lanes]),
-            lanes // consensus if consensus else None)
+            _groups(lanes, consensus))
         oflat[lanes[found]] = 1
         pending[lanes[found]] = False
     if oflat.data_ptr() != occ.data_ptr():
@@ -521,20 +572,21 @@ def anyhit_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
 
 def _mesh_lanes(rays: torch.Tensor, tmin: float, tmax: torch.Tensor):
     """The live lanes (window above ``tmin``) of a one-mesh walk, their
-    rays and inverse directions, and their groups of :data:`WARP`."""
+    rays and inverse directions."""
     rflat = rays.reshape(6, -1)
     live = (tmax.reshape(-1) > tmin).nonzero().squeeze(1)
     o = tuple(rflat[c, live] for c in range(3))
     d = tuple(rflat[3 + c, live] for c in range(3))
-    return live, o, d, tuple(safe_inverse(x) for x in d), live // WARP
+    return live, o, d, tuple(safe_inverse(x) for x in d)
 
 
 def mesh_closest_ref(ts: TorchScene, mesh, rays: torch.Tensor, tmin: float,
-                     tmax: torch.Tensor, counts=None):
+                     tmax: torch.Tensor, counts=None, consensus: int = WARP):
     """Plain PyTorch :func:`mesh_closest`: the consensus walk of
-    :func:`_walk` over groups of :data:`WARP` lanes in build order, the
-    same tests in the same order as ``rt_mesh_closest``. ``counts`` as for
-    :func:`closest_sweep_ref`."""
+    :func:`_walk` over groups of ``consensus`` consecutive lanes (a warp)
+    in build order, the same tests in the same order as
+    ``rt_mesh_closest``; ``consensus=0`` walks each lane alone, as K10a's
+    lanes walk. ``counts`` as for :func:`closest_sweep_ref`."""
     _whole_warps("mesh_closest", rays)
     nb, nc, tb = (int(x) for x in mesh)
     shape, dev = rays.shape[1:], rays.device
@@ -542,11 +594,11 @@ def mesh_closest_ref(ts: TorchScene, mesh, rays: torch.Tensor, tmin: float,
     out[0] = BIG_T
     out[5] = 1.0
     slot = torch.full((rays[0].numel(),), -1, dtype=torch.int32, device=dev)
-    live, o, d, d_inv, groups = _mesh_lanes(rays, tmin, tmax)
+    live, o, d, d_inv = _mesh_lanes(rays, tmin, tmax)
     if live.numel():
         win = tmax.reshape(-1)[live].clone()
         bs, bu, bv = _closest_walk(ts, nb, nc, tb, o, d, d_inv, tmin, win,
-                                   counts, groups=groups)
+                                   counts, groups=_groups(live, consensus))
         won = (bs >= 0).nonzero().squeeze(1)
         s, u, v = bs[won], bu[won], bv[won]
         lanes = live[won]
@@ -561,16 +613,20 @@ def mesh_closest_ref(ts: TorchScene, mesh, rays: torch.Tensor, tmin: float,
 
 
 def mesh_anyhit_ref(ts: TorchScene, mesh, rays: torch.Tensor, tmin: float,
-                    tmax: torch.Tensor, counts=None) -> torch.Tensor:
-    """Plain PyTorch :func:`mesh_anyhit`: a lane stops at its first hit
-    and leaves its group. ``counts`` as for :func:`closest_sweep_ref`."""
+                    tmax: torch.Tensor, counts=None,
+                    consensus: int = WARP) -> torch.Tensor:
+    """Plain PyTorch :func:`mesh_anyhit`: the consensus walk of
+    :func:`_walk` over groups of ``consensus`` lanes in build order, as
+    ``rt_mesh_anyhit`` walks (``consensus=0``: each lane alone); a lane
+    stops at its first hit and leaves its group. ``counts`` as for
+    :func:`closest_sweep_ref`."""
     _whole_warps("mesh_anyhit", rays)
     nb, nc, tb = (int(x) for x in mesh)
     occ = torch.zeros(rays[0].numel(), dtype=torch.bool, device=rays.device)
-    live, o, d, d_inv, groups = _mesh_lanes(rays, tmin, tmax)
+    live, o, d, d_inv = _mesh_lanes(rays, tmin, tmax)
     if live.numel():
         found = _anyhit_walk(ts, nb, nc, tb, o, d, d_inv, tmin,
                              tmax.reshape(-1)[live].clone(), counts,
-                             groups=groups)
+                             groups=_groups(live, consensus))
         occ[live[found]] = True
     return occ.reshape(rays.shape[1:])

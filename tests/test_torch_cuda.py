@@ -16,7 +16,7 @@ from raytpu_torch import _build, scenes
 from raytpu_torch.config import MaterialType, ObjectConfig, RenderConfig
 from raytpu_torch.integrator import plain_kernels, render_frame
 from raytpu_torch.io.obj import Mesh, compute_smooth_normals
-from raytpu_torch.ops import consensus, epilogue, mega, perlane, raygen, sky, traverse
+from raytpu_torch.ops import consensus, epilogue, mega, perlane, raygen, sky, trace, traverse
 from raytpu_torch.render import Renderer
 from raytpu_torch.scene import load_scene
 
@@ -318,6 +318,40 @@ def test_mesh_walks_bitwise(soup, strided):
     occ = traverse.mesh_anyhit(ts, mesh, wave, 1e-3, tmax)
     assert torch.equal(occ, traverse.mesh_anyhit_ref(ts, mesh, wave, 1e-3, tmax))
     assert occ.any() and not occ.all()
+
+
+@pytest.mark.parametrize("strided", [False, True])
+def test_build_order_walks_bitwise(rig, strided):
+    """K10a and K11a, over the packed records in build order, against their
+    plain versions bit for bit on the three-entry scene, on a whole buffer
+    and on a strided wave with dead lanes and dead warps: K10a over every
+    entry, K11a on each entry's object-space rays, and the loop on K11a
+    equal to K10a's sweep (t, normal, u, v, material, instance)."""
+    r, rays = rig
+    ts = r.tscene
+    p0, b = (4, 8) if strided else (0, rays.shape[1])
+    wave = rays[:, p0:p0 + b]
+    win = torch.full(wave.shape[1:], 1e4, device="cuda")
+    win.view(-1)[::5] = 0.0
+    win[:, :64] = 0.0
+    st = traverse.make_trace_state(win)
+    got = traverse.closest_sweep(ts, wave, 1e-3, st.clone())
+    want = traverse.closest_sweep_ref(ts, wave, 1e-3, st.clone())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (got[traverse.ST_VALID].view(torch.int32) != 0).float().mean() > 0.2
+    assert len(ts.entry_rows) == 3
+    for inst, _mat, nb, nc, tb in ts.entry_rows:
+        obj = trace.object_space(ts, inst, tuple(wave[:3]), tuple(wave[3:]))
+        k11 = traverse.mesh_closest(ts, (nb, nc, tb), obj, 1e-3, win)
+        plain = traverse.mesh_closest_ref(ts, (nb, nc, tb), obj, 1e-3, win)
+        for a, w in zip((*k11[:4], *k11[4]), (*plain[:4], *plain[4])):
+            assert torch.equal(a.view(torch.int32), w.view(torch.int32))
+    o, d = tuple(wave[:3]), tuple(wave[3:])
+    loop = trace.closest_hit_loop(ts, o, d, 1e-3, win)
+    swept = trace.closest_hit_wave(ts, o, d, 1e-3, win)
+    for a, w in zip((loop.t, *loop.n, loop.u, loop.v, loop.mat, loop.inst),
+                    (swept.t, *swept.n, swept.u, swept.v, swept.mat, swept.inst)):
+        assert torch.equal(a.view(torch.int32), w.view(torch.int32))
 
 
 def test_xla_frame_launches_mesh_walks(rig):

@@ -1,7 +1,8 @@
 """The JAX package's XLA-body path in the PyTorch port, on the CPU:
 
 * the plain one-mesh walks (``mesh_closest_ref`` / ``mesh_anyhit_ref``, the
-  function of K11a / K11b) against the interpret-mode ``pallas_closest`` /
+  function of K11a / K11b; K11a's warp-grouped walk equals each lane's
+  walk alone) against the interpret-mode ``pallas_closest`` /
   ``pallas_anyhit`` on ``tests/test_pallas.py``'s random mesh and on the two
   entries of a ``from_raytpu`` twin mesh chunked in two: slots and
   occlusion exact, t, u and v within 4 f32 ulps, the normal within 1e-6;
@@ -225,6 +226,31 @@ def test_mesh_walks_match_pallas_kernels(rig, name):
         occ = traverse.mesh_anyhit_ref(ts, row[2:], rays, TMIN, tmax)
         np.testing.assert_array_equal(occ.numpy(), want[f"{key}_occ"])
         assert 0.02 < occ.numpy().mean() < 0.9
+
+
+@pytest.mark.parametrize("name", [*MESHES, "tie"])
+def test_lane_alone_walk_equals_warp_walk(rig, name):
+    """K11a's plain walk, its lanes grouped by warps as the kernel walks
+    (the TPU packet's vote), against the same walk with each lane alone, as
+    K10a's lanes walk: slot, t, u, v and the normal equal bit for bit on
+    every entry, so the vote moves no hit. The tie scene's two boxes are
+    hit at exactly the same t through both entries, and each box's faces
+    meet in edges and diagonals."""
+    if name == "tie":
+        ts = Renderer(scenes.tie_scene(), "cpu").tscene
+        rays, win, _ = (torch.from_numpy(x) for x in _inputs(14, 0.8))
+    else:
+        ts = rig[0][name]
+        rays, win, _ = (torch.from_numpy(x) for x in _inputs(*MESH_INPUTS[name]))
+    hits = 0
+    for row in ts.entry_rows:
+        warp = traverse.mesh_closest_ref(ts, row[2:], rays, TMIN, win)
+        alone = traverse.mesh_closest_ref(ts, row[2:], rays, TMIN, win,
+                                          consensus=0)
+        for a, b in zip((*alone[:4], *alone[4]), (*warp[:4], *warp[4])):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        hits += int((alone[1] >= 0).sum())
+    assert hits > 0.05 * rays[0].numel() * len(ts.entry_rows)
 
 
 @pytest.mark.parametrize("name", MESHES)

@@ -1,15 +1,17 @@
-"""The per-lane sweeps' packed records and the culled sweeps' launch
-operands, on the CPU.
+"""The packed records and the launch operands of the sweeps that read
+them, and of the culled sweeps, on the CPU.
 
 K1 and K2 (``csrc/perlane.cu``) read a scene's nodes, octant links and
 triangles as 16-byte records (``TorchScene.packed_nodes``,
 ``packed_links``, ``packed_tris``, built by ``device_scene.with_packed``
-for the port's own trees and for raytpu's chunked ones). They must hold
-the very bits of the tables they come from, so the records are unpacked
-here and compared as int32 bit patterns. The kernels against their plain
-versions are in ``test_torch_cuda.py`` (on the card); the launch operands
-of K1/K2 and of K8/K9, which have their own C signatures, must refuse
-tensors that are not on the card and tables of the wrong shape or type.
+for the port's own trees and for raytpu's chunked ones); K10a and K11a
+(``csrc/traverse.cu``) read the same node and triangle records in build
+order, with ``bvh_miss``. The records must hold the very bits of the
+tables they come from, so they are unpacked here and compared as int32
+bit patterns. The kernels against their plain versions are in
+``test_torch_cuda.py`` (on the card); the launch operands of K1/K2, K8/K9
+and K10a/K11a must refuse tensors that are not on the card, a scene
+without records, and tables of the wrong shape or type.
 """
 
 import dataclasses
@@ -143,6 +145,46 @@ def test_launch_operands_refuse(ts, sweep):
         wrong = {"wide_succ": ts.wide_succ[:, :-1],
                  "wide_skip": ts.wide_skip[:4]}
         retyped = {"wide_skip": ts.wide_skip.long()}
+    for name, table in wrong.items():
+        with pytest.raises(ValueError, match=f"{name} has shape"):
+            launch(dataclasses.replace(ts, **{name: table}))
+    for name, table in retyped.items():
+        with pytest.raises(ValueError, match=f"{name} is torch"):
+            launch(dataclasses.replace(ts, **{name: table}))
+    assert _build.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
+
+
+def _build_order_launcher(sweep: str, ts):
+    """``sweep`` ("K10a", "K11a") through its wrapper on meta rays, which
+    take the kernel's path (only CPU tensors take the plain version), as a
+    function of the scene it launches on."""
+    rays, win = (torch.from_numpy(x) for x in cone_rays(1, seed=4, k=32))
+    state = traverse.make_trace_state(win).to("meta")
+    rays, win = rays.to("meta"), win.to("meta")
+    if sweep == "K10a":
+        return lambda t: traverse.closest_sweep(t, rays, TMIN, state)
+    mesh = ts.entry_rows[0][2:]
+    return lambda t: traverse.mesh_closest(t, mesh, rays, TMIN, win)
+
+
+@pytest.mark.parametrize("sweep", ["K10a", "K11a"])
+def test_build_order_operands_refuse(ts, sweep):
+    """K10a and K11a refuse a scene without packed records, and a packed
+    record table or ``bvh_miss`` of the wrong shape or type, before they
+    look at the device; then tables that are not on the card."""
+    launch = _build_order_launcher(sweep, ts)
+    _build.reset_launch_counts()
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        launch(ts)
+    for name in ("packed_nodes", "packed_tris"):
+        with pytest.raises(ValueError, match="no packed records"):
+            launch(dataclasses.replace(ts, **{name: None}))
+    wrong = {"packed_nodes": ts.packed_nodes[:-1],
+             "packed_tris": ts.packed_tris[:, :9],
+             "bvh_miss": ts.bvh_miss[:-1]}
+    retyped = {"packed_nodes": ts.packed_nodes.view(I32),
+               "packed_tris": ts.packed_tris.double(),
+               "bvh_miss": ts.bvh_miss.long()}
     for name, table in wrong.items():
         with pytest.raises(ValueError, match=f"{name} has shape"):
             launch(dataclasses.replace(ts, **{name: table}))
