@@ -5,21 +5,23 @@
     python3 chip_smoke.py --profile DIR  # profiler tables into DIR
                                          # (default build/profile/)
     python3 chip_smoke.py --ab PARENT [--this-first]
-                                         # frames and K1/K2/K10a/K11a times
-                                         # of the port in PARENT and in
-                                         # this tree
+                                         # frames and K1/K2/K10a/K10b/K11a/
+                                         # K11b times of the port in PARENT
+                                         # and in this tree
     python3 chip_smoke.py --sweeps DIR [DIR ...]
-                                         # K1/K2/K10a/K11a times alone of
-                                         # the ports in DIRs, in that order
+                                         # K1/K2/K10a/K10b/K11a/K11b times
+                                         # alone of the ports in DIRs, in
+                                         # that order
 
 Builds the thirteen hand-written CUDA kernels from ``raytpu_torch/csrc``
 and the BVHs (the teapot stand-in's tree checked against a digest of the
 tree raytpu builds), holds every kernel against its plain PyTorch version
 on the card at the main path's shapes (and the per-lane sweeps K1/K2, the
 consensus sweeps K8/K9 and the per-(instance, mesh) loop on the one-mesh
-walks K11a/K11b against the chained sweeps K10a/K10b, bit for bit; K1/K2
-also on config4's whole primary wave; the sweeps' registers, local bytes
-and resident CTAs, and every kernel's registers and spills as
+walks K11a/K11b against the chained sweeps K10a/K10b, bit for bit; K1/K2,
+K10b, K11b and the loop on K11b also on config4's whole primary wave, K10b
+and K11b against their plain versions there too; the sweeps' registers,
+local bytes and resident CTAs, and every kernel's registers and spills as
 ``cuobjdump`` reads them), then
 renders through ``Renderer`` on the default fused and compacted bounce
 loop:
@@ -70,7 +72,8 @@ per-kernel JSON line (launches counted during the frames of the path that
 runs the kernel: the default config4 frames, the default config3 frames
 for K8/K9, the config4 ``traversal="pallas"`` ones for K10a/K10b, or the
 config4 ``traversal="xla"`` ones for K11a/K11b; errors against the plain
-versions, times, bounds), and
+versions, times on the sweeps' slice (K11a and K11b a sweep over both
+entries), bounds), and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -585,14 +588,6 @@ def compare_kernels(r, gpu: str) -> dict:
           f"{counts['tests'] / live:.1f} triangle tests", flush=True)
 
     compare_perlane(ts, rays, win, st0, sk_, srays, tmax, occ0, ok_, res)
-    compare_meshwalk(ts, rays, win, srays, tmax, rk, act, res)
-    attributes = {**perlane.kernel_attributes(), **traverse.kernel_attributes()}
-    for name, attrs in attributes.items():
-        res[name]["attributes"] = attrs
-        print(f"{name}: {attrs['registers']} registers and {attrs['local_bytes']} "
-              f"local bytes a thread, {attrs['ctas_per_sm']} CTAs of 256 resident "
-              f"per SM ({attrs['ctas_per_sm'] * 256 / 2048:.1%} occupancy)", flush=True)
-    print(f"kernel resources (cuobjdump -res-usage): {kernel_resources()}", flush=True)
 
     # the closest kernels alone on the full primary wave, and K7 there
     full_win = torch.where(act, RAY_TMAX, 0.0).float()
@@ -624,15 +619,28 @@ def compare_kernels(r, gpu: str) -> dict:
     check(torch.equal(k2, k10b),
           "perlane_anyhit_sweep's occlusion equals anyhit_sweep's on the full "
           "primary wave's shadow rays")
-    print(f"perlane_anyhit_sweep vs anyhit_sweep on the full primary wave's shadow "
-          f"rays: occlusion equal, occluded {float((k2 != 0).float().mean()):.3f}",
-          flush=True)
+    check(torch.equal(k10b, traverse.anyhit_sweep_ref(ts, srays_f, RAY_TMIN, tmax_f,
+                                                      occ_f.clone())),
+          "anyhit_sweep's occlusion equals its plain version's on the full primary "
+          "wave's shadow rays")
+    print(f"perlane_anyhit_sweep vs anyhit_sweep, and anyhit_sweep vs its plain "
+          f"version, on the full primary wave's shadow rays: occlusion equal, "
+          f"occluded {float((k2 != 0).float().mean()):.3f}", flush=True)
     for name, fn in (("perlane_anyhit_sweep", lambda occ: perlane.launch_anyhit(
                          ts, srays_f, RAY_TMIN, tmax_f, occ, ssched)),
                      ("anyhit_sweep", lambda occ: traverse.anyhit_sweep(
                          ts, srays_f, RAY_TMIN, tmax_f, occ))):
         res[name]["full_wave_ms"] = cuda_ms_fresh(fn, occ_f.clone, 1, 3)
-    del k2, k10b, srays_f, tmax_f, occ_f
+    del k2, ssched, occ_f
+    compare_meshwalk(ts, rays, win, srays, tmax, rk, act, (srays_f, tmax_f, k10b), res)
+    del k10b, srays_f, tmax_f
+    attributes = {**perlane.kernel_attributes(), **traverse.kernel_attributes()}
+    for name, attrs in attributes.items():
+        res[name]["attributes"] = attrs
+        print(f"{name}: {attrs['registers']} registers and {attrs['local_bytes']} "
+              f"local bytes a thread, {attrs['ctas_per_sm']} CTAs of 256 resident "
+              f"per SM ({attrs['ctas_per_sm'] * 256 / 2048:.1%} occupancy)", flush=True)
+    print(f"kernel resources (cuobjdump -res-usage): {kernel_resources()}", flush=True)
     compare_epilogue(r, rk, full_st, act, s_row, res, gpu)
     for name, v in res.items():
         print(f"time {name:21s} kernel {v['ms']:.4f} ms  plain {v['plain_ms']:.4f} ms"
@@ -648,6 +656,11 @@ def compare_kernels(r, gpu: str) -> dict:
           f"primary wave {list(rk.shape)}: {v['full_wave_ms']:.4f} ms; closest_hit_wave "
           f"on K10a: {v['full_wave_chained_ms']:.4f} ms; K11a alone over both "
           f"entries: {v['full_wave_kernel_ms']:.4f} ms [{gpu}]", flush=True)
+    v = res["mesh_anyhit"]
+    print(f"time any_hit_loop (K11b per entry, the loop's PyTorch glue) full primary "
+          f"wave's shadow rays {list(rk.shape)}: {v['full_wave_ms']:.4f} ms; K11b "
+          f"alone over both entries: {v['full_wave_kernel_ms']:.4f} ms [{gpu}]",
+          flush=True)
     for name in PER_LANE[1:]:
         print(f"time {name} prepass (K7 and the PyTorch schedule ops) on the "
               f"slice: {res[name]['prepass_ms']:.4f} ms [{gpu}]", flush=True)
@@ -837,7 +850,8 @@ def mesh_lane_bytes(inputs, per_lane: int) -> int:
                for _, _, w in inputs)
 
 
-def compare_meshwalk(ts, rays, win, srays, tmax, rk, act, res) -> None:
+def compare_meshwalk(ts, rays, win, srays, tmax, rk, act, shadow_wave,
+                     res) -> None:
     """K11a and K11b, the one-mesh walks of the per-(instance, mesh) loop:
 
     * on the sweep slice moved to each entry's object space (both entries
@@ -850,7 +864,12 @@ def compare_meshwalk(ts, rays, win, srays, tmax, rk, act, res) -> None:
       wave against K10a's chained sweep: valid and inst equal on every
       lane, mat, t, u, v and the normal bit for bit, but for lanes proven
       exact ties (:func:`loop_ties`); K11a alone over both entries of the
-      whole wave timed."""
+      whole wave timed;
+    * ``shadow_wave`` = (rays, window, K10b's flags) of the whole primary
+      wave's shadow rays: K11b against its plain version on each entry's
+      inputs, the loop (``trace.any_hit_loop`` on K11b) against K10b's
+      flags, every lane; K11b alone over both entries, and the loop,
+      timed."""
     import functools
 
     import torch
@@ -934,6 +953,28 @@ def compare_meshwalk(ts, rays, win, srays, tmax, rk, act, res) -> None:
     inputs = mesh_walk_inputs(ts, rk, full_win, traverse.mesh_closest)
     res["mesh_closest"]["full_wave_kernel_ms"] = cuda_ms_fresh(
         lambda _: mesh_walks(ts, inputs, traverse.mesh_closest), lambda: None, 1, 3)
+    del loop, chained, slots_l, inputs
+
+    # K11b and the loop on it against K10b, the whole wave's shadow rays
+    srays_f, tmax_f, k10b = shadow_wave
+    inputs = mesh_walk_inputs(ts, srays_f, tmax_f, traverse.mesh_anyhit)
+    got = mesh_walks(ts, inputs, traverse.mesh_anyhit)
+    want = mesh_walks(ts, inputs, traverse.mesh_anyhit_ref)
+    for e, (a, b) in enumerate(zip(got, want)):
+        check(torch.equal(a, b), f"mesh_anyhit equals its plain version on the full "
+              f"primary wave's shadow rays (entry {e})")
+    so, sd = tuple(srays_f[:3]), tuple(srays_f[3:])
+    check(torch.equal(trace.any_hit_loop(ts, so, sd, RAY_TMIN, tmax_f), k10b != 0),
+          "the loop's occlusion on K11b equals K10b's on the full primary wave's "
+          "shadow rays")
+    print(f"mesh_anyhit {list(srays_f.shape)} x {len(got)} entries, the full primary "
+          f"wave's shadow rays: equal to its plain version, the loop's occlusion "
+          f"equal to K10b's on every lane", flush=True)
+    del got, want
+    res["mesh_anyhit"]["full_wave_kernel_ms"] = cuda_ms_fresh(
+        lambda _: mesh_walks(ts, inputs, traverse.mesh_anyhit), lambda: None, 1, 3)
+    res["mesh_anyhit"]["full_wave_ms"] = cuda_ms(
+        lambda: trace.any_hit_loop(ts, so, sd, RAY_TMIN, tmax_f), 1, 3)
 
 
 def loop_ties(ts, rk, win, loop, slots_l, chained) -> list:
@@ -1478,13 +1519,15 @@ AB_FRAMES = (  # (stand-in, its tiers, the first its default, frames, t0 = dt)
 
 
 def sweep_times(r) -> dict:
-    """K1, K2, K10a and K11a alone on the config4 stand-in's primary wave at
-    pose 0.05, on the ``SWEEP_PACKETS`` slice and on the whole wave: K1/K2
-    (``perlane.launch_closest``/``launch_anyhit``) on a schedule made
-    beforehand, K2 on the shadow rays of K1's hits; K10a
-    (``traverse.closest_sweep``); K11a (``traverse.mesh_closest``) over
-    both entries, on the inputs the loop hands it (:func:`mesh_walk_inputs`).
-    ms per launch (K11a per sweep of the loop), fresh state copies made
+    """K1, K2, K10a, K10b, K11a and K11b alone on the config4 stand-in's
+    primary wave at pose 0.05, on the ``SWEEP_PACKETS`` slice and on the
+    whole wave: K1/K2 (``perlane.launch_closest``/``launch_anyhit``) on a
+    schedule made beforehand, K2 on the shadow rays of K1's hits; K10a
+    (``traverse.closest_sweep``), and K10b (``traverse.anyhit_sweep``) on
+    the shadow rays of K10a's hits; K11a (``traverse.mesh_closest``) and
+    K11b (``traverse.mesh_anyhit``, on K10b's rays) over both entries, on
+    the inputs the loop hands them (:func:`mesh_walk_inputs`). ms per launch
+    (K11a and K11b per sweep of the loop), fresh state and flag copies made
     outside the timed launches."""
     import torch
     from raytpu_torch.config import RAY_TMAX, RAY_TMIN
@@ -1514,12 +1557,22 @@ def sweep_times(r) -> dict:
         del srays, tmax, occ0
         out[f"K10a_{label}_ms"] = cuda_ms_fresh(
             lambda st: traverse.closest_sweep(ts, rays, RAY_TMIN, st), st0.clone, 3, 10)
+        srays, tmax = shadow_rays(
+            ts, rays, traverse.closest_sweep(ts, rays, RAY_TMIN, st0.clone()))
         del st0
-        inputs = mesh_walk_inputs(ts, rays, win, traverse.mesh_closest)
-        out[f"K11a_{label}_ms"] = cuda_ms_fresh(
-            lambda _: mesh_walks(ts, inputs, traverse.mesh_closest), lambda: None,
-            3, 10)
-        del inputs
+        occ0 = torch.zeros(tmax.shape, dtype=torch.int32, device=r.device)
+        out[f"K10b_{label}_ms"] = cuda_ms_fresh(
+            lambda occ: traverse.anyhit_sweep(ts, srays, RAY_TMIN, tmax, occ),
+            occ0.clone, 3, 10)
+        del occ0
+        for key, walk, w_rays, w_win in (
+                ("K11a", traverse.mesh_closest, rays, win),
+                ("K11b", traverse.mesh_anyhit, srays, tmax)):
+            inputs = mesh_walk_inputs(ts, w_rays, w_win, walk)
+            out[f"{key}_{label}_ms"] = cuda_ms_fresh(
+                lambda _: mesh_walks(ts, inputs, walk), lambda: None, 3, 10)
+            del inputs
+        del srays, tmax
         torch.cuda.empty_cache()
     return out
 
@@ -1529,8 +1582,8 @@ def frames_of(root: Path, sweeps_only: bool = False) -> dict:
     ``root``, a checkout of any commit since the consensus tier: its
     kernels built there, then per stand-in and tier the median frame ms of
     :func:`render_frames` (none if ``sweeps_only``); the times of its K1,
-    K2, K10a and K11a (:func:`sweep_times`); and its kernels' resources
-    (:func:`kernel_resources`, under ``"resources"``)."""
+    K2, K10a, K10b, K11a and K11b (:func:`sweep_times`); and its kernels'
+    resources (:func:`kernel_resources`, under ``"resources"``)."""
     import torch
 
     sys.path.insert(0, str(root))
@@ -1618,9 +1671,9 @@ def main() -> int:
                     help="with --ab: this checkout's run first (this, parent, "
                     "parent, this)")
     ap.add_argument("--sweeps", metavar="DIR", nargs="+",
-                    help="instead of the smoke run, time K1, K2, K10a and K11a alone "
-                    "with the port of each DIR (a checkout, or a variant tree), in "
-                    "child processes in the order given")
+                    help="instead of the smoke run, time K1, K2, K10a, K10b, K11a and "
+                    "K11b alone with the port of each DIR (a checkout, or a variant "
+                    "tree), in child processes in the order given")
     ap.add_argument("--frames-of", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--sweeps-only", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -1676,7 +1729,7 @@ def main() -> int:
     print(f"config4 stand-in: scene generation {t_gen:.2f} s, BVH build + upload "
           f"{t_bvh:.2f} s ({ts.bvh_aabb_min.shape[0]} nodes, "
           f"{ts.bvh_tri_v0.shape[0]} triangles, {len(ts.traversal_list)} entries; "
-          f"packed records of K1/K2, K10a and K11a "
+          f"packed records of K1/K2, K10a/K10b and K11a/K11b "
           f"{nbytes(ts.packed_nodes, ts.packed_links, ts.packed_tris)} bytes)", flush=True)
     digest = tree_digest(first_tree(ts))
     print(f"teapot stand-in tree sha256 {digest} (raytpu's {TREE_DIGEST})", flush=True)

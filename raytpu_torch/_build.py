@@ -41,12 +41,11 @@ NVCC_FLAGS = (
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry point -> argument types (the trailing _P is the stream)
 _SIGNATURES = {
-    # rays, state, n, tmin, the entries and w2o, the packed nodes, bvh_miss,
-    # the packed triangles, the normals and T
+    # rays, (state | tmax, occ), n, tmin, the entries and w2o, the packed
+    # nodes, bvh_miss, the packed triangles, (the normals and T)
     "closest_sweep": [_P, _L, _P, _L, _L, _F, _P, _I, _P, _P, _P, _P, _P, _L,
                       _P],
-    "anyhit_sweep": [_P, _L, _P, _P, _L, _F, _P, _I, _P, _P, _P, _P, _P,
-                     _P, _P, _P, _P, _P],
+    "anyhit_sweep": [_P, _L, _P, _P, _L, _F, _P, _I, _P, _P, _P, _P, _P],
     "raygen": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
     "sky": [_P, _I, _I, _P, _P, _P, _P, _L, _P],
     "shade_epilogue": [_P, _L, _P, _L, _P, _P, _L, _P, _P, _L, _P, _P, _L,
@@ -70,12 +69,11 @@ _SIGNATURES = {
                           _L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _P],
     # object-space rays, tmax, (out, its plane stride, slot | occ), n, tmin,
-    # the mesh's node base, node count and slot base, its tables (K11a: the
-    # packed nodes, bvh_miss, the packed triangles, the normals and T)
+    # the mesh's node base, node count and slot base, the packed nodes,
+    # bvh_miss, the packed triangles, (K11a: the normals and T)
     "mesh_closest": [_P, _L, _P, _P, _L, _P, _L, _F, _I, _I, _I, _P, _P, _P,
                      _P, _L, _P],
-    "mesh_anyhit": [_P, _L, _P, _P, _L, _F, _I, _I, _I, _P, _P, _P, _P, _P,
-                    _P, _P, _P, _P],
+    "mesh_anyhit": [_P, _L, _P, _P, _L, _F, _I, _I, _I, _P, _P, _P, _P],
 }
 KERNELS = tuple(_SIGNATURES)
 # C entry points that read kernels' attributes: (which kernel, int out[4])

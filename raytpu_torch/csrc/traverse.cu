@@ -18,26 +18,31 @@
 // the same order, so the two agree bit for bit.
 //
 // What bounds them on the H100. Their work is the node visits and triangle
-// tests of each lane's walk (52.7 visits and 62.4 tests a ray on config4's
-// primary wave): at 67 TFLOP/s of f32 a 256-packet slice needs about 17 us
-// (chip_smoke.py's bound, operations). In practice a walk is a chain of
-// dependent loads, each node's address taken from the node before, so a
-// lane waits one L1/L2 round trip a step, and the lanes of a warp diverge
-// as their rays take different paths; config4's tables fit in the 50 MB L2.
+// tests of each lane's walk (on config4's primary wave 52.7 visits and 62.4
+// tests a ray for K10a; 27.6 and 38.1 a shadow ray for K10b, which stops
+// at its first hit): at 67 TFLOP/s of f32 a 256-packet slice needs about
+// 17 and 10 us (chip_smoke.py's bounds, operations). In practice a walk is
+// a chain of dependent loads, each node's address taken from the node
+// before, so a lane waits one L1/L2 round trip a step, and the lanes of a
+// warp diverge as their rays take different paths; config4's tables fit in
+// the 50 MB L2. Latency, not bytes or FLOPs, sets their time.
 //
-// What K10a does about it (K10b still reads the bvh_* tables through
-// SoaFetch, one scalar load a field): it walks the packed 16-byte records
-// of TorchScene.packed_* in build order (walk.cuh's BuildFetch), so a node
+// What they do about it: both walk the packed 16-byte records of
+// TorchScene.packed_* in build order (walk.cuh's BuildFetch), so a node
 // visit is two 16-byte loads from one 32-byte sector and the 4-byte miss
 // link, issued together, and a triangle test three 16-byte loads, where
 // the bvh_* tables take nine scalar loads from five arrays a visit and nine
-// from three a test. One thread a lane, launched flat: the flat launch of
-// the same records measured faster than persistent warps on whole waves
-// (K1, PERF.md). The hit record (normal, material, instance) is made once,
-// after the walk, so it holds no registers through it. The rays and the
-// state, each read or written once, go through evict-first loads and
-// stores (walk.cuh's load_once, store_once), which leave the 50 MB L2 to
-// the 23 MB of config4's records while a wave of 0.5 GB streams through.
+// from three a test: fewer requests a step, none waiting on another. One
+// thread a lane, each lane alone, launched flat: the flat launch of the
+// same records measured faster than persistent warps on whole waves (K1,
+// PERF.md). K10a makes its hit record (normal, material, instance) once,
+// after the walk, so it holds no registers through it. The rays, windows,
+// state and flags, each read or written once, go through evict-first loads
+// and stores (walk.cuh's load_once, store_once), which leave the 50 MB L2
+// to the 23 MB of config4's records while a wave of 0.5 GB streams through.
+// A shadow lane's flag does not depend on the order of its walk (it reaches
+// the same leaves whatever the order), so K10b's order is build order as
+// K10a's, and its plain version walks the same nodes.
 //
 // Rays and state are (planes, n) with `*_s` elements between planes, so the
 // bounce loop hands over a wave x[:, s:s+b] of its (planes, P, K) buffers
@@ -91,22 +96,22 @@ __global__ void anyhit_sweep_kernel(const float* __restrict__ rays,
                                     long long rays_s,
                                     const float* __restrict__ tmax,
                                     int* __restrict__ occ, long long n,
-                                    float tmin, rt::Tables tab) {
+                                    float tmin, rt::Tables tab,
+                                    rt::BuildFetch f) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  if (occ[i] != 0) return;  // OR-merge: already occluded
-  const float tm = tmax[i];
+  if (rt::load_once<true>(occ + i) != 0) return;  // OR-merge: occluded
+  const float tm = rt::load_once<true>(tmax + i);
   if (!(tm > tmin)) return;
 
   float ow[3], dw[3];
-  rt::load_ray(rays, rays_s, i, ow, dw);
+  rt::load_ray<true>(rays, rays_s, i, ow, dw);
   for (int e = 0; e < tab.n_entries; ++e) {
     const rt::Entry en = rt::load_entry(tab, e);
     float o[3], d[3], d_inv[3];
     rt::object_ray(tab, en, ow, dw, o, d, d_inv);
-    if (rt::occluded_in_entry<false>(rt::SoaFetch{tab, nullptr, tab.miss}, en,
-                                     o, d, d_inv, tmin, tm, false)) {
-      occ[i] = 1;  // first hit ends the lane's whole sweep
+    if (rt::occluded_in_entry<false>(f, en, o, d, d_inv, tmin, tm, false)) {
+      rt::store_once<true>(occ + i, 1);  // the first hit ends the sweep
       return;
     }
   }
@@ -130,19 +135,20 @@ __global__ void anyhit_sweep_kernel(const float* __restrict__ rays,
 // dead writes misses (K11a) and returns, as the TPU's dead packet starts at
 // the end node.
 //
-// What bounds K11a on the H100 is what bounds K10a (above): dependent
-// loads, one a node visit. The vote makes every lane walk the union of its
-// warp's paths (80.6 node visits a ray on config4's primary wave, against
-// 52.7 alone), but all 32 lanes load the same node and leaf, one request
-// for the warp, and none waits for another's path. What K11a does about
-// it: it walks the packed records in build order (BuildFetch), two 16-byte
-// node words and the miss link a visit, issued together, three 16-byte
-// words a triangle, where the bvh_* tables took nine scalar loads from five
-// arrays; its rays, window and outputs go evict-first, as K10a's. Each
-// lane walking alone over the same records was measured
-// slower on config4's whole primary wave, and so was the vote at inner
-// nodes only (PERF.md, Findings). K11b still reads the bvh_* tables
-// through SoaFetch.
+// What bounds K11a and K11b on the H100 is what bounds K10a and K10b
+// (above): dependent loads, one a node visit. The vote makes every lane
+// walk the union of its warp's paths (80.6 node visits a ray on config4's
+// primary wave, against 52.7 alone), but all 32 lanes load the same node
+// and leaf, one request for the warp, and none waits for another's path.
+// What they do about it: they walk the packed records in
+// build order (BuildFetch), two 16-byte node words and the miss link a
+// visit, issued together, three 16-byte words a triangle, where the bvh_*
+// tables took nine scalar loads from five arrays; their rays, windows and
+// outputs go evict-first, as K10a's. On config4's whole primary wave each
+// lane walking alone over the same records, and the vote at inner nodes
+// only, were slower for K11a and no faster than the call's spread for K11b
+// (a shadow warp waits for its last lane either way), so both keep the
+// vote (PERF.md, Findings).
 //
 // K11a's outputs, each (n,) at plane stride out_s in `out`: t (BIG_T on a
 // miss), u, v and the object normal (0, 0, 1 on a miss); and the
@@ -197,21 +203,21 @@ __global__ void mesh_anyhit_kernel(const float* __restrict__ rays,
                                    long long rays_s,
                                    const float* __restrict__ tmax,
                                    int* __restrict__ occ, long long n,
-                                   float tmin, rt::Entry en, rt::Tables tab) {
+                                   float tmin, rt::Entry en,
+                                   rt::BuildFetch f) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;  // n is whole warps: this leaves whole warps
-  const float tm = tmax[i];
+  const float tm = rt::load_once<true>(tmax + i);
   const bool live = tm > tmin;
   bool done = !live;
   if (__any_sync(rt::kFullWarp, live)) {
     float o[3], d[3], d_inv[3];
-    rt::load_ray(rays, rays_s, i, o, d);
+    rt::load_ray<true>(rays, rays_s, i, o, d);
 #pragma unroll
     for (int c = 0; c < 3; ++c) d_inv[c] = rt::safe_inverse(d[c]);
-    done = rt::occluded_in_entry<true>(rt::SoaFetch{tab, nullptr, tab.miss},
-                                       en, o, d, d_inv, tmin, tm, done);
+    done = rt::occluded_in_entry<true>(f, en, o, d, d_inv, tmin, tm, done);
   }
-  occ[i] = live && done ? 1 : 0;
+  rt::store_once<true>(occ + i, live && done ? 1 : 0);
 }
 
 }  // namespace
@@ -242,20 +248,22 @@ int rt_closest_sweep(const void* rays, long long rays_s, void* state,
 }
 
 // rays (6, n) f32 with a plane stride; tmax (n,) f32; occ (n,) int32
-// OR-merged in place.
+// OR-merged in place; the entries, w2o and the walk's tables as for
+// rt_closest_sweep.
 int rt_anyhit_sweep(const void* rays, long long rays_s, const void* tmax,
                     void* occ, long long n, float tmin, const void* entries,
-                    int n_entries, const void* w2o, const void* bmin,
-                    const void* bmax, const void* first, const void* count,
-                    const void* miss, const void* v0, const void* e1,
-                    const void* e2, void* stream) {
+                    int n_entries, const void* w2o, const void* nodes,
+                    const void* miss, const void* tris, void* stream) {
   if (n > 0) {
-    rt::Tables tab = rt::make_tables(entries, n_entries, w2o, bmin, bmax,
-                                     first, count, miss, v0, e1, e2);
+    rt::Tables tab = rt::make_tables(entries, n_entries, w2o, nullptr,
+                                     nullptr, nullptr, nullptr, nullptr,
+                                     nullptr, nullptr, nullptr);
+    const rt::BuildFetch f{(const float4*)nodes, (const int*)miss,
+                           (const float4*)tris};
     anyhit_sweep_kernel<<<rt::grid_for(n), rt::BLOCK, 0,
                           (cudaStream_t)stream>>>(
         (const float*)rays, rays_s, (const float*)tmax, (int*)occ, n, tmin,
-        tab);
+        tab, f);
   }
   return (int)cudaGetLastError();
 }
@@ -284,21 +292,20 @@ int rt_mesh_closest(const void* rays, long long rays_s, const void* tmax,
 }
 
 // K11b: object-space rays (6, n) f32 with a plane stride, tmax (n,) f32 ->
-// occ (n,) int32, against the one mesh [nb, nb + nc), tb of the bvh_*
-// tables. n is whole warps.
+// occ (n,) int32, against the one mesh [nb, nb + nc), tb; its packed nodes
+// and triangles and bvh_miss as for rt_closest_sweep. n is whole warps.
 int rt_mesh_anyhit(const void* rays, long long rays_s, const void* tmax,
                    void* occ, long long n, float tmin, int nb, int nc, int tb,
-                   const void* bmin, const void* bmax, const void* first,
-                   const void* count, const void* miss, const void* v0,
-                   const void* e1, const void* e2, void* stream) {
+                   const void* nodes, const void* miss, const void* tris,
+                   void* stream) {
   if (n % 32 != 0) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    rt::Tables tab = rt::make_tables(nullptr, 0, nullptr, bmin, bmax, first,
-                                     count, miss, v0, e1, e2);
+    const rt::BuildFetch f{(const float4*)nodes, (const int*)miss,
+                           (const float4*)tris};
     mesh_anyhit_kernel<<<rt::grid_for(n), rt::BLOCK, 0,
                          (cudaStream_t)stream>>>(
         (const float*)rays, rays_s, (const float*)tmax, (int*)occ, n, tmin,
-        rt::Entry{0, 0, nb, nc, tb}, tab);
+        rt::Entry{0, 0, nb, nc, tb}, f);
   }
   return (int)cudaGetLastError();
 }

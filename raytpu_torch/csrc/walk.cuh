@@ -30,10 +30,10 @@
 //
 // How the walk reads the tree, the fetch policy F: SoaFetch reads the
 // bvh_* tables and (M,) link rows as they are, one scalar load per field
-// where the walk needs it (K10b, K8/K9, K11b); PackedFetch reads the packed
-// 16-byte records of TorchScene.packed_* with the octant links (K1/K2),
-// BuildFetch the same node and triangle records in build order with
-// bvh_miss (K10a, K11a). All hand the same floats to the same tests.
+// where the walk needs it (K8/K9); PackedFetch reads the packed 16-byte
+// records of TorchScene.packed_* with the octant links (K1/K2), BuildFetch
+// the same node and triangle records in build order with bvh_miss (K10a,
+// K10b, K11a, K11b). All hand the same floats to the same tests.
 //
 // The plain versions (raytpu_torch/ops/traverse.py::_walk, closest_ref,
 // anyhit_ref, with `consensus` for kWarp) make the same tests in the same
@@ -101,9 +101,8 @@ constexpr unsigned kFullWarp = 0xffffffffu;
 // policy gives the same bits.
 
 // The bvh_* tables as they are (structure of arrays), read where the walk
-// needs them: the shadow sweeps K10b and K11b and the consensus sweeps K8/K9.
-// `succ` nullptr is build order (node + 1 on a box hit), `skip` the miss
-// link.
+// needs them, with (M,) rows of links `succ` (a box hit; nullptr for node +
+// 1) and `skip`: the consensus sweeps K8/K9 and their wide links.
 struct SoaFetch {
   const Tables& tab;
   const int* succ;
@@ -196,9 +195,9 @@ struct PackedFetch {
   }
 };
 
-// The same records walked in build order (K10a, K11a): node + 1 on a box
-// hit, the mesh-local bvh_miss link otherwise. The link's 4-byte load is
-// issued with the node's two words, not after the box test.
+// The same records walked in build order (K10a/K10b, K11a/K11b): node + 1
+// on a box hit, the mesh-local bvh_miss link otherwise. The link's 4-byte
+// load is issued with the node's two words, not after the box test.
 struct BuildFetch {
   const float4* nodes;  // (M, 2) float4
   const int* miss;      // (M,) int32
@@ -339,11 +338,12 @@ __device__ __forceinline__ void record_hit(Hit* hit, const Entry& en,
   hit->improved = true;
 }
 
-// A value a sweep reads or writes once (a ray plane, a window, the state):
-// with kStream an evict-first load or store (__ldcs, __stcs), so that the
-// wave streaming through does not push the tree's records out of the L2.
-template <bool kStream>
-__device__ __forceinline__ float load_once(const float* p) {
+// A value a sweep reads or writes once (a ray plane, a window, the state,
+// a flag): with kStream an evict-first load or store (__ldcs, __stcs), so
+// that the wave streaming through does not push the tree's records out of
+// the L2.
+template <bool kStream, class T>
+__device__ __forceinline__ T load_once(const T* p) {
   if constexpr (kStream) return __ldcs(p);
   else return *p;
 }

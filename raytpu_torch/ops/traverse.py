@@ -9,9 +9,9 @@ Packed ABI, as in the JAX package: rays are one (6, P, K) f32 tensor
 
 ``closest_sweep`` / ``anyhit_sweep`` are the kernel wrappers: a CPU tensor
 takes the plain version beside them, a CUDA tensor launches the kernel in
-``csrc/traverse.cu`` (or raises). K10a (``closest_sweep``) reads the
-scene's packed records (``packed_nodes``, ``packed_tris``) with
-``bvh_miss``, K10b the ``bvh_*`` tables. Rays and state may be waves
+``csrc/traverse.cu`` (or raises). K10a (``closest_sweep``) and K10b
+(``anyhit_sweep``) read the scene's packed records (``packed_nodes``,
+``packed_tris``) with ``bvh_miss``. Rays and state may be waves
 ``x[:, s:s+b]`` of larger buffers: the kernels take a plane stride and the
 plain versions read and write through the view. The plain versions walk the same tables
 the same way: per lane, the entries in ``traversal_list`` order, a
@@ -29,8 +29,8 @@ wrappers' are: t (``BIG_T`` on a miss), the mesh-local slot (-1 on a miss;
 :func:`slot_to_prim`), u, v and the object normal ((0, 0, 1) on a miss), or
 the occlusion flags. Groups of :data:`WARP` consecutive lanes walk as one,
 as the TPU's packet of 1024 does: the group descends, or tests a leaf, where
-any of its lanes' boxes hits. K11a reads the packed records with
-``bvh_miss``, K11b the ``bvh_*`` tables. The kernels are in
+any of its lanes' boxes hits. K11a and K11b read the packed records with
+``bvh_miss``, as K10a and K10b do. The kernels are in
 ``csrc/traverse.cu``.
 """
 
@@ -76,20 +76,27 @@ def unpack_state(state: torch.Tensor):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def table_ptrs(kernel: str, ts: TorchScene, entries=None):
-    """Validated device pointers of the entry table (``entries``, if given,
-    in place of ``ts.entries``: the rows in another walk order) and BVH
-    arrays, in the order the C entry points take them (after the per-call
-    operands)."""
-    m = ts.bvh_aabb_min.shape[0]
-    t = ts.bvh_tri_v0.shape[0]
+def _entries_w2o(kernel: str, ts: TorchScene, entries=None):
+    """Validated ``(entries, E, w2o)``: the entry table (``entries``, if
+    given, in place of ``ts.entries``: the rows in another walk order), its
+    row count and the instances' world-to-object transforms."""
     entries = ts.entries if entries is None else entries
     e = entries.shape[0]
     c = _build.check_operand
+    return (c(kernel, "entries", entries, (e, 5), torch.int32), e,
+            c(kernel, "w2o", ts.w2o, (ts.w2o.shape[0], 3, 4)))
+
+
+def table_ptrs(kernel: str, ts: TorchScene, entries=None):
+    """Validated device pointers of the entry table (:func:`_entries_w2o`)
+    and BVH arrays, in the order the C entry points take them (after the
+    per-call operands)."""
+    m = ts.bvh_aabb_min.shape[0]
+    t = ts.bvh_tri_v0.shape[0]
+    c = _build.check_operand
     i32 = torch.int32
     return (
-        c(kernel, "entries", entries, (e, 5), i32), e,
-        c(kernel, "w2o", ts.w2o, (ts.w2o.shape[0], 3, 4)),
+        *_entries_w2o(kernel, ts, entries),
         c(kernel, "bvh_aabb_min", ts.bvh_aabb_min, (m, 3)),
         c(kernel, "bvh_aabb_max", ts.bvh_aabb_max, (m, 3)),
         c(kernel, "bvh_tri_first", ts.bvh_tri_first, (m,), i32),
@@ -122,8 +129,8 @@ def packed_operands(kernel: str, ts: TorchScene, link) -> list:
 
 
 def _packed_build_order(kernel: str, ts: TorchScene):
-    """K10a's and K11a's walk: the packed records in build order, their
-    miss links ``bvh_miss``, ``(nodes, miss, tris)``."""
+    """The walk of K10a, K10b, K11a and K11b: the packed records in build
+    order, their miss links ``bvh_miss``, ``(nodes, miss, tris)``."""
     miss, nodes, tris = packed_operands(
         kernel, ts, ("bvh_miss", ts.bvh_miss, ts.bvh_aabb_min.shape[:1],
                      torch.int32))
@@ -139,17 +146,13 @@ def closest_sweep(ts: TorchScene, rays: torch.Tensor, tmin: float,
         return closest_sweep_ref(ts, rays, tmin, state)
     k = "closest_sweep"
     walk = _packed_build_order(k, ts)
-    c = _build.check_operand
-    e = ts.entries.shape[0]
     t = ts.bvh_tri_v0.shape[0]
     _build.launch(
         k,
         *_build.check_planes(k, "rays", rays, (6, *rays.shape[1:])),
         *_build.check_planes(k, "state", state, (9, *rays.shape[1:])),
-        rays[0].numel(), float(tmin),
-        c(k, "entries", ts.entries, (e, 5), torch.int32), e,
-        c(k, "w2o", ts.w2o, (ts.w2o.shape[0], 3, 4)), *walk,
-        c(k, "bvh_tri_n_soa", ts.bvh_tri_n_soa, (9, t)), t,
+        rays[0].numel(), float(tmin), *_entries_w2o(k, ts), *walk,
+        _build.check_operand(k, "bvh_tri_n_soa", ts.bvh_tri_n_soa, (9, t)), t,
     )
     return state
 
@@ -159,17 +162,18 @@ def anyhit_sweep(ts: TorchScene, rays: torch.Tensor, tmin: float,
     """Occlusion of ``rays`` (6, P, K) within ``(tmin, tmax)`` per lane over
     every entry, OR-merged into the int32 ``occ`` (P, K) in place; returns
     ``occ``. CPU tensors take :func:`anyhit_sweep_ref`; CUDA tensors launch
-    ``rt_anyhit_sweep``."""
+    ``rt_anyhit_sweep``, each lane alone over the packed records in build
+    order, as the plain version walks."""
     if rays.device.type == "cpu":
         return anyhit_sweep_ref(ts, rays, tmin, tmax, occ)
-    n = rays[0].numel()
     k = "anyhit_sweep"
+    walk = _packed_build_order(k, ts)
     _build.launch(
         k,
         *_build.check_planes(k, "rays", rays, (6, *rays.shape[1:])),
         _build.check_operand(k, "tmax", tmax, rays.shape[1:]),
         _build.check_operand(k, "occ", occ, rays.shape[1:], torch.int32),
-        n, float(tmin), *table_ptrs(k, ts),
+        rays[0].numel(), float(tmin), *_entries_w2o(k, ts), *walk,
     )
     return occ
 
@@ -212,18 +216,20 @@ def mesh_anyhit(ts: TorchScene, mesh, rays: torch.Tensor, tmin: float,
     """Occlusion of the object-space ``rays`` (6, P, K) within ``(tmin,
     tmax)`` per lane by the one mesh ``mesh`` (K11b, ``pallas_anyhit``) ->
     bool (P, K); a lane with ``tmax <= tmin`` is not live. CPU tensors take
-    :func:`mesh_anyhit_ref`; CUDA tensors launch ``rt_mesh_anyhit``."""
+    :func:`mesh_anyhit_ref`; CUDA tensors launch ``rt_mesh_anyhit``, warps
+    voting over the packed records in build order, as the plain version's
+    groups walk."""
     if rays.device.type == "cpu":
         return mesh_anyhit_ref(ts, mesh, rays, tmin, tmax)
     k = "mesh_anyhit"
     _whole_warps(k, rays)
+    walk = _packed_build_order(k, ts)
     shape = rays.shape[1:]
     occ = torch.empty(shape, dtype=torch.int32, device=rays.device)
     _build.launch(
         k, *_build.check_planes(k, "rays", rays, (6, *shape)),
         _build.check_operand(k, "tmax", tmax, shape), occ.data_ptr(),
-        rays[0].numel(), float(tmin), *(int(x) for x in mesh),
-        *table_ptrs(k, ts)[3:])
+        rays[0].numel(), float(tmin), *(int(x) for x in mesh), *walk)
     return occ != 0
 
 

@@ -322,11 +322,13 @@ def test_mesh_walks_bitwise(soup, strided):
 
 @pytest.mark.parametrize("strided", [False, True])
 def test_build_order_walks_bitwise(rig, strided):
-    """K10a and K11a, over the packed records in build order, against their
-    plain versions bit for bit on the three-entry scene, on a whole buffer
-    and on a strided wave with dead lanes and dead warps: K10a over every
-    entry, K11a on each entry's object-space rays, and the loop on K11a
-    equal to K10a's sweep (t, normal, u, v, material, instance)."""
+    """K10a, K10b, K11a and K11b, over the packed records in build order,
+    against their plain versions bit for bit on the three-entry scene, on a
+    whole buffer and on a strided wave with dead lanes and dead warps: K10a
+    and K10b over every entry (K10b OR-merging into flags already set on
+    some lanes), K11a and K11b on each entry's object-space rays; the loop
+    on K11a equal to K10a's sweep (t, normal, u, v, material, instance),
+    the loop on K11b equal to K10b's flags."""
     r, rays = rig
     ts = r.tscene
     p0, b = (4, 8) if strided else (0, rays.shape[1])
@@ -352,6 +354,20 @@ def test_build_order_walks_bitwise(rig, strided):
     for a, w in zip((loop.t, *loop.n, loop.u, loop.v, loop.mat, loop.inst),
                     (swept.t, *swept.n, swept.u, swept.v, swept.mat, swept.inst)):
         assert torch.equal(a.view(torch.int32), w.view(torch.int32))
+
+    tmax = win * 0.002
+    occ0 = torch.zeros(win.shape, dtype=torch.int32, device="cuda")
+    occ0.view(-1)[1::11] = 1               # already occluded: kept, not walked
+    got = traverse.anyhit_sweep(ts, wave, 1e-3, tmax, occ0.clone())
+    assert torch.equal(got, traverse.anyhit_sweep_ref(ts, wave, 1e-3, tmax,
+                                                      occ0.clone()))
+    fresh = traverse.anyhit_sweep(ts, wave, 1e-3, tmax, torch.zeros_like(occ0))
+    assert (fresh != 0).any() and not (fresh != 0).all()
+    for inst, _mat, nb, nc, tb in ts.entry_rows:
+        obj = trace.object_space(ts, inst, tuple(wave[:3]), tuple(wave[3:]))
+        assert torch.equal(traverse.mesh_anyhit(ts, (nb, nc, tb), obj, 1e-3, tmax),
+                           traverse.mesh_anyhit_ref(ts, (nb, nc, tb), obj, 1e-3, tmax))
+    assert torch.equal(trace.any_hit_loop(ts, o, d, 1e-3, tmax), fresh != 0)
 
 
 def test_xla_frame_launches_mesh_walks(rig):

@@ -1,7 +1,7 @@
 """The JAX package's XLA-body path in the PyTorch port, on the CPU:
 
 * the plain one-mesh walks (``mesh_closest_ref`` / ``mesh_anyhit_ref``, the
-  function of K11a / K11b; K11a's warp-grouped walk equals each lane's
+  function of K11a / K11b; their warp-grouped walks equal each lane's
   walk alone) against the interpret-mode ``pallas_closest`` /
   ``pallas_anyhit`` on ``tests/test_pallas.py``'s random mesh and on the two
   entries of a ``from_raytpu`` twin mesh chunked in two: slots and
@@ -251,6 +251,29 @@ def test_lane_alone_walk_equals_warp_walk(rig, name):
             assert torch.equal(a.view(torch.int32), b.view(torch.int32))
         hits += int((alone[1] >= 0).sum())
     assert hits > 0.05 * rays[0].numel() * len(ts.entry_rows)
+
+
+@pytest.mark.parametrize("name", [*MESHES, "tie"])
+def test_lane_alone_anyhit_equals_warp_anyhit(rig, name):
+    """K11b's plain walk, its lanes grouped by warps as the kernel walks,
+    against the same walk with each lane alone, as K10b's lanes walk: the
+    occlusion flags equal on every lane of every entry, so the vote moves
+    no flag. Both occluded and open lanes occur."""
+    if name == "tie":
+        ts = Renderer(scenes.tie_scene(), "cpu").tscene
+        rays, _, tmax = (torch.from_numpy(x) for x in _inputs(14, 0.8))
+    else:
+        ts = rig[0][name]
+        rays, _, tmax = (torch.from_numpy(x) for x in _inputs(*MESH_INPUTS[name]))
+    occluded = 0
+    for row in ts.entry_rows:
+        warp = traverse.mesh_anyhit_ref(ts, row[2:], rays, TMIN, tmax)
+        alone = traverse.mesh_anyhit_ref(ts, row[2:], rays, TMIN, tmax,
+                                         consensus=0)
+        assert torch.equal(alone, warp)
+        occluded += int(alone.sum())
+    lanes = rays[0].numel() * len(ts.entry_rows)
+    assert 0.02 * lanes < occluded < 0.9 * lanes
 
 
 @pytest.mark.parametrize("name", MESHES)

@@ -155,23 +155,27 @@ def test_launch_operands_refuse(ts, sweep):
 
 
 def _build_order_launcher(sweep: str, ts):
-    """``sweep`` ("K10a", "K11a") through its wrapper on meta rays, which
-    take the kernel's path (only CPU tensors take the plain version), as a
-    function of the scene it launches on."""
+    """``sweep`` ("K10a", "K10b", "K11a", "K11b") through its wrapper on
+    meta rays, which take the kernel's path (only CPU tensors take the plain
+    version), as a function of the scene it launches on."""
     rays, win = (torch.from_numpy(x) for x in cone_rays(1, seed=4, k=32))
     state = traverse.make_trace_state(win).to("meta")
+    occ = torch.zeros(win.shape, dtype=I32, device="meta")
     rays, win = rays.to("meta"), win.to("meta")
-    if sweep == "K10a":
-        return lambda t: traverse.closest_sweep(t, rays, TMIN, state)
     mesh = ts.entry_rows[0][2:]
-    return lambda t: traverse.mesh_closest(t, mesh, rays, TMIN, win)
+    return {
+        "K10a": lambda t: traverse.closest_sweep(t, rays, TMIN, state),
+        "K10b": lambda t: traverse.anyhit_sweep(t, rays, TMIN, win, occ),
+        "K11a": lambda t: traverse.mesh_closest(t, mesh, rays, TMIN, win),
+        "K11b": lambda t: traverse.mesh_anyhit(t, mesh, rays, TMIN, win),
+    }[sweep]
 
 
-@pytest.mark.parametrize("sweep", ["K10a", "K11a"])
+@pytest.mark.parametrize("sweep", ["K10a", "K10b", "K11a", "K11b"])
 def test_build_order_operands_refuse(ts, sweep):
-    """K10a and K11a refuse a scene without packed records, and a packed
-    record table or ``bvh_miss`` of the wrong shape or type, before they
-    look at the device; then tables that are not on the card."""
+    """K10a, K10b, K11a and K11b refuse a scene without packed records, and
+    a packed record table or ``bvh_miss`` of the wrong shape or type, before
+    they look at the device; then tables that are not on the card."""
     launch = _build_order_launcher(sweep, ts)
     _build.reset_launch_counts()
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
