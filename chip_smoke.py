@@ -5,13 +5,13 @@
     python3 chip_smoke.py --profile DIR  # profiler tables into DIR
                                          # (default build/profile/)
     python3 chip_smoke.py --ab PARENT [--this-first]
-                                         # frames and K1/K2/K10a/K10b/K11a/
-                                         # K11b times of the port in PARENT
-                                         # and in this tree
+                                         # frames and K1/K2/K8/K9/K10a/K10b/
+                                         # K11a/K11b times of the port in
+                                         # PARENT and in this tree
     python3 chip_smoke.py --sweeps DIR [DIR ...]
-                                         # K1/K2/K10a/K10b/K11a/K11b times
-                                         # alone of the ports in DIRs, in
-                                         # that order
+                                         # K1/K2/K8/K9/K10a/K10b/K11a/K11b
+                                         # times alone of the ports in DIRs,
+                                         # in that order
 
 Builds the thirteen hand-written CUDA kernels from ``raytpu_torch/csrc``
 and the BVHs (the teapot stand-in's tree checked against a digest of the
@@ -20,7 +20,8 @@ on the card at the main path's shapes (and the per-lane sweeps K1/K2, the
 consensus sweeps K8/K9 and the per-(instance, mesh) loop on the one-mesh
 walks K11a/K11b against the chained sweeps K10a/K10b, bit for bit; K1/K2,
 K10b, K11b and the loop on K11b also on config4's whole primary wave, K10b
-and K11b against their plain versions there too; the sweeps' registers,
+and K11b against their plain versions there too, and K8/K9 against theirs
+on config3's whole primary wave; the sweeps' registers,
 local bytes and resident CTAs, and every kernel's registers and spills as
 ``cuobjdump`` reads them), then
 renders through ``Renderer`` on the default fused and compacted bounce
@@ -50,9 +51,10 @@ loop:
   refractive Cornell-box mesh; 800x600, 4 spp, 2 bounces, mirror teapot
   stand-in), whose ``traversal="auto"`` resolves to the consensus tier:
   first K8/K9 on the primary wave (against their plain versions on a
-  slice, against K1/K2 and K10a/K10b on the whole wave, only proven exact
-  ties may differ, and timed beside them), then 5 frames that must launch
-  K7/K8/K9 and not K1/K2/K10a/K10b, the same frames on the pallas tier
+  slice, and on config3's whole wave; against K1/K2 and K10a/K10b on the
+  whole wave, only proven exact ties may differ, and timed beside them;
+  their registers, local bytes and resident CTAs), then 5 frames that must
+  launch K7/K8/K9 and not K1/K2/K10a/K10b, the same frames on the pallas tier
   (same rays, equal pixels), and one profiled frame of each tier;
 * at 256x192 (P = 256, budget 64, so compaction engages): the compacted
   frame against the full-width fused frame and the chained and consensus
@@ -237,6 +239,30 @@ def cuda_ms_fresh(fn, make, warmup: int, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Mean device ms per call of ``fn()``, from ``torch.profiler``: the
+    device time of the hand-written kernels the calls launch (PyTorch's own
+    kernels, copies and memsets left out, so ``fn`` may copy its inputs).
+    Small launches issued one by one from Python are bound by the host,
+    and CUDA events around them measure the issue; this reads the kernels'
+    own time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+             and "at::native" not in e.key
+             and not e.key.startswith(("Memcpy", "Memset")))
+    return us / 1e3 / iters
 
 
 def bound(nbytes: float, ops: float):
@@ -1053,7 +1079,7 @@ def primary_wave(r):
     return rays, in_frame.repeat_interleave(spp, 0)
 
 
-def compare_consensus(r, label: str, gpu: str):
+def compare_consensus(r, label: str, gpu: str, whole_plain: bool = False):
     """K8 and K9 on the primary wave of the consensus-tier stand-in ``r``
     (the raygen kernel's rays, shadow rays from K8's hits toward the
     light):
@@ -1064,9 +1090,11 @@ def compare_consensus(r, label: str, gpu: str):
       kernels alone timed beside K1/K2 and K10a/K10b;
     * on the whole wave: against K1/K2 and K10a/K10b, where only proven
       exact ties may differ (:func:`exact_ties`), exactly those pinned in
-      ``CONSENSUS_TIES[label]``; timed beside them.
+      ``CONSENSUS_TIES[label]``; with ``whole_plain`` also against their
+      plain versions, bit for bit; timed beside them.
 
-    Returns the two kernels' results and the tied lanes."""
+    Returns the two kernels' results (with their registers, local bytes
+    and resident CTAs) and the tied lanes."""
     import torch
     from raytpu_torch.config import RAY_TMAX, RAY_TMIN
     from raytpu_torch.ops import consensus, perlane, traverse
@@ -1154,6 +1182,12 @@ def compare_consensus(r, label: str, gpu: str):
     full_st = traverse.make_trace_state(full_win)
     fsched = perlane.prepass(ts, rk, full_win, RAY_TMIN, "origin")
     k8 = consensus.launch_closest(ts, rk, RAY_TMIN, full_st.clone(), fsched)
+    if whole_plain:
+        p8 = consensus.mega_closest_sweep_ref(ts, rk, RAY_TMIN, full_st.clone())
+        check(torch.equal(k8.view(torch.int32), p8.view(torch.int32)),
+              f"{label}: mega_closest_sweep equals its plain version bit for bit on "
+              f"the whole primary wave ({differing_lanes(k8, p8)})")
+        del p8
     k1 = perlane.launch_closest(ts, rk, RAY_TMIN, full_st.clone(), fsched)
     k10 = traverse.closest_sweep(ts, rk, RAY_TMIN, full_st.clone())
     ties = {}
@@ -1175,12 +1209,19 @@ def compare_consensus(r, label: str, gpu: str):
     occ0 = torch.zeros(tmax.shape, dtype=torch.int32, device=r.device)
     fss = perlane.prepass(ts, srays, tmax, RAY_TMIN, "light")
     k9 = consensus.launch_anyhit(ts, srays, RAY_TMIN, tmax, occ0.clone(), fss)
-    for other, what in ((perlane.launch_anyhit(ts, srays, RAY_TMIN, tmax, occ0.clone(),
-                                               fss), "K2"),
-                        (traverse.anyhit_sweep(ts, srays, RAY_TMIN, tmax, occ0.clone()),
-                         "K10b")):
+    others = [(perlane.launch_anyhit(ts, srays, RAY_TMIN, tmax, occ0.clone(), fss), "K2"),
+              (traverse.anyhit_sweep(ts, srays, RAY_TMIN, tmax, occ0.clone()), "K10b")]
+    if whole_plain:
+        others.append((consensus.mega_anyhit_sweep_ref(ts, srays, RAY_TMIN, tmax,
+                                                       occ0.clone()), "its plain version"))
+    for other, what in others:
         check(torch.equal(k9, other),
               f"{label}: K9's occlusion equals {what}'s on the full primary wave")
+    del others
+    if whole_plain:
+        print(f"{label} mega_closest_sweep and mega_anyhit_sweep vs their plain versions "
+              f"on the whole primary wave {list(rk.shape)}: bit for bit, occluded "
+              f"{float((k9 != 0).float().mean()):.3f}", flush=True)
     res["mega_anyhit_sweep"]["full_wave"] = timed(
         lambda: consensus.launch_anyhit(ts, srays, RAY_TMIN, tmax, occ0.clone(), fss),
         lambda: perlane.launch_anyhit(ts, srays, RAY_TMIN, tmax, occ0.clone(), fss),
@@ -1190,6 +1231,11 @@ def compare_consensus(r, label: str, gpu: str):
         print(f"time {label} {name} full primary wave {list(rk.shape)}: kernel "
               f"{v['ms']:.4f} ms, per-lane {v['perlane_ms']:.4f} ms, chained "
               f"{v['chained_ms']:.4f} ms [{gpu}]", flush=True)
+    for name, attrs in consensus.kernel_attributes().items():
+        res[name]["attributes"] = attrs
+        print(f"{name}: {attrs['registers']} registers and {attrs['local_bytes']} "
+              f"local bytes a thread, {attrs['ctas_per_sm']} CTAs of 256 resident "
+              f"per SM ({attrs['ctas_per_sm'] * 256 / 2048:.1%} occupancy)", flush=True)
     return res, ties
 
 
@@ -1518,17 +1564,72 @@ AB_FRAMES = (  # (stand-in, its tiers, the first its default, frames, t0 = dt)
 )
 
 
+def consensus_times(ts, rays, win, key: str, sched=None) -> dict:
+    """K8 and K9 alone on ``rays`` with windows ``win``: K8
+    (``consensus.launch_closest``) on the closest sweep's schedule
+    (``sched`` if given), K9 (``consensus.launch_anyhit``) on the shadow
+    rays of K8's hits and their schedule, made beforehand; ms per launch
+    under ``K8_{key}_ms`` and ``K9_{key}_ms``, fresh state and flag copies
+    made outside the timed launches, and the kernels' device ms per launch
+    (:func:`device_ms`) under ``K8_{key}_dev_ms`` and ``K9_{key}_dev_ms``."""
+    import torch
+    from raytpu_torch.config import RAY_TMIN
+    from raytpu_torch.ops import consensus, perlane, traverse
+
+    st0 = traverse.make_trace_state(win)
+    if sched is None:
+        sched = perlane.prepass(ts, rays, win, RAY_TMIN, "origin")
+    def k8(st):
+        return consensus.launch_closest(ts, rays, RAY_TMIN, st, sched)
+
+    out = {f"K8_{key}_ms": cuda_ms_fresh(k8, st0.clone, 3, 10),
+           f"K8_{key}_dev_ms": device_ms(lambda: k8(st0.clone()))}
+    srays, tmax = shadow_rays(ts, rays, k8(st0.clone()))
+    del st0
+    ssched = perlane.prepass(ts, srays, tmax, RAY_TMIN, "light")
+    occ0 = torch.zeros(tmax.shape, dtype=torch.int32, device=rays.device)
+
+    def k9(occ):
+        return consensus.launch_anyhit(ts, srays, RAY_TMIN, tmax, occ, ssched)
+
+    out[f"K9_{key}_ms"] = cuda_ms_fresh(k9, occ0.clone, 3, 10)
+    out[f"K9_{key}_dev_ms"] = device_ms(lambda: k9(occ0.clone()))
+    return out
+
+
+def standin_sweep_times(r, label: str) -> dict:
+    """K8 and K9 alone (:func:`consensus_times`) on the primary wave of the
+    consensus-tier stand-in ``r`` at its pose, on the ``SWEEP_PACKETS``
+    slice and on the whole wave, under ``K8_{label}_slice_ms`` and so on
+    (``label`` without ``_standin``)."""
+    import torch
+    from raytpu_torch.config import RAY_TMAX
+
+    rk, act = primary_wave(r)
+    idx = torch.tensor(sweep_slice(r.render_static, SWEEP_PACKETS), device=r.device)
+    tag = label.removesuffix("_standin")
+    out = consensus_times(r.tscene, rk[:, idx].contiguous(),
+                          torch.where(act[idx], RAY_TMAX, 0.0).float().contiguous(),
+                          f"{tag}_slice")
+    out.update(consensus_times(r.tscene, rk, torch.where(act, RAY_TMAX, 0.0).float(),
+                               f"{tag}_wave"))
+    torch.cuda.empty_cache()
+    return out
+
+
 def sweep_times(r) -> dict:
-    """K1, K2, K10a, K10b, K11a and K11b alone on the config4 stand-in's
-    primary wave at pose 0.05, on the ``SWEEP_PACKETS`` slice and on the
-    whole wave: K1/K2 (``perlane.launch_closest``/``launch_anyhit``) on a
-    schedule made beforehand, K2 on the shadow rays of K1's hits; K10a
-    (``traverse.closest_sweep``), and K10b (``traverse.anyhit_sweep``) on
-    the shadow rays of K10a's hits; K11a (``traverse.mesh_closest``) and
-    K11b (``traverse.mesh_anyhit``, on K10b's rays) over both entries, on
-    the inputs the loop hands them (:func:`mesh_walk_inputs`). ms per launch
-    (K11a and K11b per sweep of the loop), fresh state and flag copies made
-    outside the timed launches."""
+    """K1, K2, K8, K9, K10a, K10b, K11a and K11b alone on the config4
+    stand-in's primary wave at pose 0.05, on the ``SWEEP_PACKETS`` slice and
+    on the whole wave: K1/K2 (``perlane.launch_closest``/``launch_anyhit``)
+    on a schedule made beforehand, K2 on the shadow rays of K1's hits; K8
+    and K9 (:func:`consensus_times`) on K1's schedule, K9 on the shadow
+    rays of K8's hits; K10a (``traverse.closest_sweep``), and K10b
+    (``traverse.anyhit_sweep``) on the shadow rays of K10a's hits; K11a
+    (``traverse.mesh_closest``) and K11b (``traverse.mesh_anyhit``, on
+    K10b's rays) over both entries, on the inputs the loop hands them
+    (:func:`mesh_walk_inputs`). ms per launch (K11a and K11b per sweep of
+    the loop), fresh state and flag copies made outside the timed
+    launches."""
     import torch
     from raytpu_torch.config import RAY_TMAX, RAY_TMIN
     from raytpu_torch.ops import perlane, traverse
@@ -1555,6 +1656,7 @@ def sweep_times(r) -> dict:
             lambda occ: perlane.launch_anyhit(ts, srays, RAY_TMIN, tmax, occ, ssched),
             occ0.clone, 3, 10)
         del srays, tmax, occ0
+        out.update(consensus_times(ts, rays, win, label, sched))
         out[f"K10a_{label}_ms"] = cuda_ms_fresh(
             lambda st: traverse.closest_sweep(ts, rays, RAY_TMIN, st), st0.clone, 3, 10)
         srays, tmax = shadow_rays(
@@ -1582,8 +1684,10 @@ def frames_of(root: Path, sweeps_only: bool = False) -> dict:
     ``root``, a checkout of any commit since the consensus tier: its
     kernels built there, then per stand-in and tier the median frame ms of
     :func:`render_frames` (none if ``sweeps_only``); the times of its K1,
-    K2, K10a, K10b, K11a and K11b (:func:`sweep_times`); and its kernels'
-    resources (:func:`kernel_resources`, under ``"resources"``)."""
+    K2, K8, K9, K10a, K10b, K11a and K11b on config4 (:func:`sweep_times`)
+    and of its K8 and K9 on the consensus tier's stand-ins
+    (:func:`standin_sweep_times`); and its kernels' resources
+    (:func:`kernel_resources`, under ``"resources"``)."""
     import torch
 
     sys.path.insert(0, str(root))
@@ -1597,10 +1701,14 @@ def frames_of(root: Path, sweeps_only: bool = False) -> dict:
     _build.library()
     gpu = gpu_line()
     out = {}
-    for label, tiers, n, dt in AB_FRAMES[:1] if sweeps_only else AB_FRAMES:
+    for label, tiers, n, dt in AB_FRAMES:
+        if sweeps_only and label == "reference_standin":
+            continue       # no sweep is timed there
         r = Renderer(getattr(scenes, label)())
         if label == "config4_standin":
             out.update(sweep_times(r))
+        elif tiers[0] == "mega":
+            out.update(standin_sweep_times(r, label))
         base = r.tscene
         for tier in () if sweeps_only else tiers:
             r.tscene = dataclasses.replace(
@@ -1671,9 +1779,9 @@ def main() -> int:
                     help="with --ab: this checkout's run first (this, parent, "
                     "parent, this)")
     ap.add_argument("--sweeps", metavar="DIR", nargs="+",
-                    help="instead of the smoke run, time K1, K2, K10a, K10b, K11a and "
-                    "K11b alone with the port of each DIR (a checkout, or a variant "
-                    "tree), in child processes in the order given")
+                    help="instead of the smoke run, time K1, K2, K8, K9, K10a, K10b, "
+                    "K11a and K11b alone with the port of each DIR (a checkout, or a "
+                    "variant tree), in child processes in the order given")
     ap.add_argument("--frames-of", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--sweeps-only", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -1729,8 +1837,9 @@ def main() -> int:
     print(f"config4 stand-in: scene generation {t_gen:.2f} s, BVH build + upload "
           f"{t_bvh:.2f} s ({ts.bvh_aabb_min.shape[0]} nodes, "
           f"{ts.bvh_tri_v0.shape[0]} triangles, {len(ts.traversal_list)} entries; "
-          f"packed records of K1/K2, K10a/K10b and K11a/K11b "
-          f"{nbytes(ts.packed_nodes, ts.packed_links, ts.packed_tris)} bytes)", flush=True)
+          f"packed records of K1/K2, K8/K9 and K10a-K11b "
+          f"{nbytes(ts.packed_nodes, ts.packed_links, ts.packed_wide, ts.packed_tris)} "
+          f"bytes)", flush=True)
     digest = tree_digest(first_tree(ts))
     print(f"teapot stand-in tree sha256 {digest} (raytpu's {TREE_DIGEST})", flush=True)
     check(digest == TREE_DIGEST, "the port builds raytpu's tree of the teapot stand-in")
@@ -1821,7 +1930,8 @@ def main() -> int:
               f"triangles, {len(tsc.traversal_list)} entries)", flush=True)
         check(rc.render_static.fused == "on" and rc.render_static.wavefront == "compact",
               f"{label} renders the default path")
-        res, ties = compare_consensus(rc, label, gpu)
+        res, ties = compare_consensus(rc, label, gpu,
+                                      whole_plain=label == "config3_standin")
         cons[label], counts_c = standin_tiers(rc, label, gpu, prof_dir,
                                               len(ties["K10a"]))
         cons[label]["full_wave_ties"] = ties

@@ -60,14 +60,13 @@ _SIGNATURES = {
                               _L, _P, _I, _P, _P, _P, _P, _L, _P, _I, _P],
     "perlane_anyhit_sweep": [_P, _L, _P, _P, _L, _F, _L, _P, _I, _P, _P, _L,
                              _P, _I, _P, _P, _P, _P, _I, _P],
-    # rays, (state | tmax, occ), n, tmin, the schedule with the wide links
-    # (block lanes, bits, words, octs, succ, skip, nodes M), the bvh_* tables
-    "mega_closest_sweep": [_P, _L, _P, _L, _L, _F, _L, _P, _I, _P, _P, _P,
-                           _L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _P, _L, _P],
-    "mega_anyhit_sweep": [_P, _L, _P, _P, _L, _F, _L, _P, _I, _P, _P, _P,
-                          _L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _P],
+    # rays, (state | tmax, occ), n, tmin, the schedule (block lanes, bits,
+    # words, octs), the packed wide links, nodes M, the entries and w2o, the
+    # packed nodes and triangles, (normals, T)
+    "mega_closest_sweep": [_P, _L, _P, _L, _L, _F, _L, _P, _I, _P, _P, _L,
+                           _P, _I, _P, _P, _P, _P, _L, _P],
+    "mega_anyhit_sweep": [_P, _L, _P, _P, _L, _F, _L, _P, _I, _P, _P, _L,
+                          _P, _I, _P, _P, _P, _P],
     # object-space rays, tmax, (out, its plane stride, slot | occ), n, tmin,
     # the mesh's node base, node count and slot base, the packed nodes,
     # bvh_miss, the packed triangles, (K11a: the normals and T)
@@ -77,7 +76,8 @@ _SIGNATURES = {
 }
 KERNELS = tuple(_SIGNATURES)
 # C entry points that read kernels' attributes: (which kernel, int out[4])
-_ATTRIBUTES = ("rt_perlane_attributes", "rt_traverse_attributes")
+_ATTRIBUTES = ("rt_perlane_attributes", "rt_consensus_attributes",
+               "rt_traverse_attributes")
 
 _launches = dict.fromkeys(KERNELS, 0)
 _lib = None

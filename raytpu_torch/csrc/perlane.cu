@@ -68,18 +68,6 @@ namespace {
 // thread.
 constexpr int kMinCtas = 4;
 
-// The packed records (TorchScene.packed_nodes, packed_links, packed_tris).
-struct Packed {
-  const float4* nodes;  // (M, 2) float4 {bmin, first} {bmax, count}
-  const int2* links;    // (8, M) int2 {succ, skip}
-  const float4* tris;   // (T, 3) float4 {v0, 0} {e1, 0} {e2, 0}
-
-  // the walk's fetch policy along links row `row` (the lane's octant)
-  __device__ __forceinline__ rt::PackedFetch at(long long row) const {
-    return rt::PackedFetch{nodes, links + row, tris};
-  }
-};
-
 // Where a warp takes its next 32 lanes. The wave is dealt out in blocks of
 // rt::BLOCK lanes, CTA c taking blocks c, c + G, c + 2G, ... (G CTAs, as a
 // one-thread-per-lane launch of G CTAs at a time would), and each CTA has a
@@ -104,7 +92,7 @@ __device__ __forceinline__ long long next_chunk(unsigned* taken,
 __device__ __forceinline__ void closest_lane(
     long long i, const float* __restrict__ rays, long long rays_s,
     float* __restrict__ state, long long st_s, float tmin,
-    const rt::Schedule& sc, const rt::Tables& tab, const Packed& pk,
+    const rt::Schedule& sc, const rt::Tables& tab, const rt::Packed& pk,
     const float* __restrict__ n_soa, long long n_tris) {
   float bt = state[rt::ST_T * st_s + i];
   if (!(bt > tmin)) return;  // dead lane (window 0): never walks
@@ -144,7 +132,7 @@ __device__ __forceinline__ void closest_lane(
 __device__ __forceinline__ void anyhit_lane(
     long long i, const float* __restrict__ rays, long long rays_s,
     const float* __restrict__ tmax, int* __restrict__ occ, float tmin,
-    const rt::Schedule& sc, const rt::Tables& tab, const Packed& pk) {
+    const rt::Schedule& sc, const rt::Tables& tab, const rt::Packed& pk) {
   if (occ[i] != 0) return;  // OR-merge: already occluded
   const float tm = tmax[i];
   if (!(tm > tmin)) return;
@@ -170,7 +158,7 @@ __global__ void __launch_bounds__(rt::BLOCK, kMinCtas)
     perlane_closest_sweep_kernel(const float* __restrict__ rays,
                                  long long rays_s, float* __restrict__ state,
                                  long long st_s, long long n, float tmin,
-                                 rt::Schedule sc, rt::Tables tab, Packed pk,
+                                 rt::Schedule sc, rt::Tables tab, rt::Packed pk,
                                  const float* __restrict__ n_soa,
                                  long long n_tris, unsigned* taken) {
   for (long long base; (base = next_chunk(taken, n)) >= 0;) {
@@ -187,7 +175,7 @@ __global__ void __launch_bounds__(rt::BLOCK, kMinCtas)
                                 const float* __restrict__ tmax,
                                 int* __restrict__ occ, long long n,
                                 float tmin, rt::Schedule sc, rt::Tables tab,
-                                Packed pk, unsigned* taken) {
+                                rt::Packed pk, unsigned* taken) {
   for (long long base; (base = next_chunk(taken, n)) >= 0;) {
     const long long i = base + (threadIdx.x & 31);
     if (i < n) anyhit_lane(i, rays, rays_s, tmax, occ, tmin, sc, tab, pk);
@@ -260,11 +248,9 @@ int rt_perlane_closest_sweep(
     if (ln.err != cudaSuccess) return (int)ln.err;
     rt::Schedule sc = rt::make_schedule(block_lanes, bits, n_words, octs,
                                         n_nodes);
-    rt::Tables tab = rt::make_tables(entries, n_entries, w2o, nullptr,
-                                     nullptr, nullptr, nullptr, nullptr,
-                                     nullptr, nullptr, nullptr);
-    const Packed pk{(const float4*)nodes, (const int2*)links,
-                    (const float4*)tris};
+    const rt::Tables tab = rt::make_tables(entries, n_entries, w2o);
+    const rt::Packed pk{(const float4*)nodes, (const int2*)links,
+                        (const float4*)tris};
     perlane_closest_sweep_kernel<<<ln.grid, rt::BLOCK, 0,
                                    (cudaStream_t)stream>>>(
         (const float*)rays, rays_s, (float*)state, st_s, n, tmin, sc, tab, pk,
@@ -288,11 +274,9 @@ int rt_perlane_anyhit_sweep(
     if (ln.err != cudaSuccess) return (int)ln.err;
     rt::Schedule sc = rt::make_schedule(block_lanes, bits, n_words, octs,
                                         n_nodes);
-    rt::Tables tab = rt::make_tables(entries, n_entries, w2o, nullptr,
-                                     nullptr, nullptr, nullptr, nullptr,
-                                     nullptr, nullptr, nullptr);
-    const Packed pk{(const float4*)nodes, (const int2*)links,
-                    (const float4*)tris};
+    const rt::Tables tab = rt::make_tables(entries, n_entries, w2o);
+    const rt::Packed pk{(const float4*)nodes, (const int2*)links,
+                        (const float4*)tris};
     perlane_anyhit_sweep_kernel<<<ln.grid, rt::BLOCK, 0,
                                   (cudaStream_t)stream>>>(
         (const float*)rays, rays_s, (const float*)tmax, (int*)occ, n, tmin,

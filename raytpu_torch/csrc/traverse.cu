@@ -234,9 +234,7 @@ int rt_closest_sweep(const void* rays, long long rays_s, void* state,
                      const void* nodes, const void* miss, const void* tris,
                      const void* n_soa, long long n_tris, void* stream) {
   if (n > 0) {
-    rt::Tables tab = rt::make_tables(entries, n_entries, w2o, nullptr,
-                                     nullptr, nullptr, nullptr, nullptr,
-                                     nullptr, nullptr, nullptr);
+    const rt::Tables tab = rt::make_tables(entries, n_entries, w2o);
     const rt::BuildFetch f{(const float4*)nodes, (const int*)miss,
                            (const float4*)tris};
     closest_sweep_kernel<<<rt::grid_for(n), rt::BLOCK, 0,
@@ -255,9 +253,7 @@ int rt_anyhit_sweep(const void* rays, long long rays_s, const void* tmax,
                     int n_entries, const void* w2o, const void* nodes,
                     const void* miss, const void* tris, void* stream) {
   if (n > 0) {
-    rt::Tables tab = rt::make_tables(entries, n_entries, w2o, nullptr,
-                                     nullptr, nullptr, nullptr, nullptr,
-                                     nullptr, nullptr, nullptr);
+    const rt::Tables tab = rt::make_tables(entries, n_entries, w2o);
     const rt::BuildFetch f{(const float4*)nodes, (const int*)miss,
                            (const float4*)tris};
     anyhit_sweep_kernel<<<rt::grid_for(n), rt::BLOCK, 0,

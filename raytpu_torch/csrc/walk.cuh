@@ -4,7 +4,7 @@
 //
 // The walk is stackless: from the root, an inner node descends when rt::slab
 // hits within (tmin, best_t), and a leaf's triangles are tested. Where the
-// walk goes next is given as `succ` (nullptr for node + 1) and `skip`,
+// walk goes next is a successor on a box hit and a skip link otherwise,
 // indexed by the node's row g = node_base + node in the concatenated tables:
 //   - build order (K10a/K10b, K11a/K11b): a hit continues at node + 1, a
 //     miss or a finished leaf at bvh_miss;
@@ -28,12 +28,12 @@
 //     walk. The caller keeps the warp converged: whole warps, warp-uniform
 //     entries and links.
 //
-// How the walk reads the tree, the fetch policy F: SoaFetch reads the
-// bvh_* tables and (M,) link rows as they are, one scalar load per field
-// where the walk needs it (K8/K9); PackedFetch reads the packed 16-byte
-// records of TorchScene.packed_* with the octant links (K1/K2), BuildFetch
-// the same node and triangle records in build order with bvh_miss (K10a,
-// K10b, K11a, K11b). All hand the same floats to the same tests.
+// How the walk reads the tree, the fetch policy F: PackedFetch reads the
+// packed 16-byte records of TorchScene.packed_* with one (M,) row of
+// packed {succ, skip} links, the octant links (K1/K2) or the wide links
+// (K8/K9); BuildFetch the same node and triangle records in build order
+// with bvh_miss (K10a, K10b, K11a, K11b). Both hand the same floats to the
+// same tests as the plain walk's tables.
 //
 // The plain versions (raytpu_torch/ops/traverse.py::_walk, closest_ref,
 // anyhit_ref, with `consensus` for kWarp) make the same tests in the same
@@ -44,29 +44,17 @@
 
 namespace rt {
 
+// What every sweep reads besides the tree: the entries and the instances'
+// transforms.
 struct Tables {
   const int* entries;  // (E, 5) int32 rows, in walk order
   int n_entries;
   const float* w2o;    // (N, 12) f32 row-major 3x4 world->object
-  const float* bmin;   // (M, 3) f32
-  const float* bmax;   // (M, 3) f32
-  const int* first;    // (M,) int32, -1 for inner nodes, mesh-local slot
-  const int* count;    // (M,) int32
-  const int* miss;     // (M,) int32 mesh-local skip link
-  const float* v0;     // (T, 3) f32 in BVH-slot order
-  const float* e1;     // (T, 3)
-  const float* e2;     // (T, 3)
 };
 
-inline Tables make_tables(const void* entries, int n_entries, const void* w2o,
-                          const void* bmin, const void* bmax,
-                          const void* first, const void* count,
-                          const void* miss, const void* v0, const void* e1,
-                          const void* e2) {
-  return Tables{(const int*)entries, n_entries,       (const float*)w2o,
-                (const float*)bmin,  (const float*)bmax, (const int*)first,
-                (const int*)count,   (const int*)miss,   (const float*)v0,
-                (const float*)e1,    (const float*)e2};
+inline Tables make_tables(const void* entries, int n_entries,
+                          const void* w2o) {
+  return Tables{(const int*)entries, n_entries, (const float*)w2o};
 }
 
 struct Entry {
@@ -79,16 +67,12 @@ __device__ __forceinline__ Entry load_entry(const Tables& tab, int e) {
 }
 
 // world ray -> the entry instance's object space, with safe 1/d
-__device__ __forceinline__ const float* object_ray(const Tables& tab,
-                                                   const Entry& en,
-                                                   const float* ow,
-                                                   const float* dw, float* o,
-                                                   float* d, float* d_inv) {
-  const float* m = tab.w2o + 12 * en.inst;
-  to_object(m, ow, dw, o, d);
+__device__ __forceinline__ void object_ray(const Tables& tab, const Entry& en,
+                                           const float* ow, const float* dw,
+                                           float* o, float* d, float* d_inv) {
+  to_object(tab.w2o + 12 * en.inst, ow, dw, o, d);
 #pragma unroll
   for (int c = 0; c < 3; ++c) d_inv[c] = safe_inverse(d[c]);
-  return m;
 }
 
 constexpr unsigned kFullWarp = 0xffffffffu;
@@ -99,40 +83,6 @@ constexpr unsigned kFullWarp = 0xffffffffu;
 // test of slot s. The float operands reach rt::slab and
 // rt::moller_trumbore in the same order whatever the policy, so every
 // policy gives the same bits.
-
-// The bvh_* tables as they are (structure of arrays), read where the walk
-// needs them, with (M,) rows of links `succ` (a box hit; nullptr for node +
-// 1) and `skip`: the consensus sweeps K8/K9 and their wide links.
-struct SoaFetch {
-  const Tables& tab;
-  const int* succ;
-  const int* skip;
-
-  struct Node {
-    const SoaFetch& f;
-    int g, first;
-    __device__ __forceinline__ int count() const { return f.tab.count[g]; }
-    __device__ __forceinline__ bool box(const float* o, const float* d_inv,
-                                        float tmin, float tfar) const {
-      return slab(o, d_inv, f.tab.bmin + 3 * g, f.tab.bmax + 3 * g, tmin,
-                  tfar);
-    }
-    __device__ __forceinline__ int next(int node, bool down) const {
-      return down ? (f.succ ? f.succ[g] : node + 1) : f.skip[g];
-    }
-  };
-
-  __device__ __forceinline__ Node node(int g) const {
-    return Node{*this, g, tab.first[g]};
-  }
-  __device__ __forceinline__ bool test(long long s, const float* o,
-                                       const float* d, float tmin,
-                                       float best_t, float* t, float* u,
-                                       float* v) const {
-    return moller_trumbore(o, d, tab.v0 + 3 * s, tab.e1 + 3 * s,
-                           tab.e2 + 3 * s, tmin, best_t, t, u, v);
-  }
-};
 
 // The packed records (TorchScene.packed_*): a node is two 16-byte words
 // {bmin, first} {bmax, count} of one 32-byte sector, a triangle three
@@ -157,13 +107,15 @@ __device__ __forceinline__ bool packed_test(const float4* tris, long long s,
   return moller_trumbore(o, d, v0, e1, e2, tmin, best_t, t, u, v);
 }
 
-// The per-lane sweeps' walk (K1/K2) over the packed records, near child
-// first: a node's links are one 8-byte word {succ, skip} of the lane's
-// octant row. One visit issues its three loads at once, none waiting on
-// the box test.
+// The walk over the packed records along per-octant links, near child
+// first (K1/K2, the octant links) or with every other interior level
+// dropped (K8/K9, the wide links): a node's links are one 8-byte word
+// {succ, skip} of the block's octant row. One visit issues its three
+// loads at once, none waiting on the box test, so the next node is in a
+// register before a warp's vote.
 struct PackedFetch {
   const float4* nodes;  // (M, 2) float4
-  const int2* links;    // (M,) int2: the lane's octant row
+  const int2* links;    // (M,) int2: the lane's octant row of the links
   const float4* tris;   // (T, 3) float4
 
   struct Node {
@@ -192,6 +144,20 @@ struct PackedFetch {
                                        float best_t, float* t, float* u,
                                        float* v) const {
     return packed_test(tris, s, o, d, tmin, best_t, t, u, v);
+  }
+};
+
+// The packed records (TorchScene.packed_nodes, packed_tris) with one
+// table of packed links (packed_links or packed_wide), as the per-lane and
+// consensus sweeps take them.
+struct Packed {
+  const float4* nodes;  // (M, 2) float4 {bmin, first} {bmax, count}
+  const int2* links;    // (8, M) int2 {succ, skip}
+  const float4* tris;   // (T, 3) float4 {v0, 0} {e1, 0} {e2, 0}
+
+  // the walk's fetch policy along links row `row` (the block's octant)
+  __device__ __forceinline__ PackedFetch at(long long row) const {
+    return PackedFetch{nodes, links + row, tris};
   }
 };
 
@@ -309,9 +275,9 @@ __device__ __forceinline__ bool occluded_in_entry(
   return done;
 }
 
-// The hit a sweep merges into the state: the last entry that improved t.
+// The hit a sweep merges into the state: that of the last entry that
+// improved t.
 struct Hit {
-  bool improved = false;
   int mat = 0, inst = 0;
   float u = 0.f, v = 0.f, n[3] = {0.f, 0.f, 0.f};
 };
@@ -335,7 +301,6 @@ __device__ __forceinline__ void record_hit(Hit* hit, const Entry& en,
   hit->v = bv;
   hit->mat = en.mat;
   hit->inst = en.inst;
-  hit->improved = true;
 }
 
 // A value a sweep reads or writes once (a ray plane, a window, the state,

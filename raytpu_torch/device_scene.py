@@ -14,9 +14,10 @@ tier, and once more with every other interior level dropped
 consensus tier; ``traversal`` and ``auto_tier`` say which tier the sweeps
 take. The per-lane tier's kernels read the nodes, octant links and
 triangles as packed 16-byte records (``packed_*``, :func:`with_packed`),
-the same bits as the tables they come from; the chained closest sweep and
-the one-mesh closest walk read the same node and triangle records with
-``bvh_miss``.
+the same bits as the tables they come from, and the consensus tier's the
+same node and triangle records with the wide links packed as the octant
+links are; the chained sweeps and the one-mesh walks read the same node
+and triangle records with ``bvh_miss``.
 
 Layouts match the JAX package, so buffers compare by a reshape: nodes are
 concatenated over meshes with mesh-local ``bvh_miss`` and ``bvh_tri_first``
@@ -82,11 +83,12 @@ class TorchScene:
     # walk's wide links, ops/mega.widen_octant_links)
     wide_succ: Optional[torch.Tensor] = None      # (8, M) int32
     wide_skip: Optional[torch.Tensor] = None      # (8, M) int32
-    # the packed records of K1/K2 (with the octant links) and of K10a/K11a
-    # (with bvh_miss), the bits of the tables above laid out for 16-byte
-    # loads (with_packed)
+    # the packed records of K1/K2 (with the octant links), of K8/K9 (with
+    # the wide links) and of K10a-K11b (with bvh_miss), the bits of the
+    # tables above laid out for 16-byte loads (with_packed)
     packed_nodes: Optional[torch.Tensor] = None   # (M, 8) f32, pack_nodes
     packed_links: Optional[torch.Tensor] = None   # (8, M, 2) int32, pack_links
+    packed_wide: Optional[torch.Tensor] = None    # (8, M, 2) int32, pack_links
     packed_tris: Optional[torch.Tensor] = None    # (T, 12) f32, pack_tris
     traversal_list: Tuple[Tuple[int, int], ...] = ()
     # the rows of ``entries`` on the host: the per-(instance, mesh) loop
@@ -168,8 +170,8 @@ def pack_nodes(bmin: torch.Tensor, bmax: torch.Tensor, first: torch.Tensor,
 
 
 def pack_links(succ: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-    """(8, M, 2) int32 ``{succ, skip}`` words of the (8, M) octant links:
-    an inner node's walk takes ``succ`` on a box hit and ``skip`` on a
+    """(8, M, 2) int32 ``{succ, skip}`` words of (8, M) links, octant or
+    wide: an inner node's walk takes ``succ`` on a box hit and ``skip`` on a
     miss, a leaf's always ``skip``."""
     return torch.stack((succ, skip), dim=-1).contiguous()
 
@@ -183,14 +185,15 @@ def pack_tris(v0: torch.Tensor, e1: torch.Tensor,
 
 
 def with_packed(ts: TorchScene) -> TorchScene:
-    """``ts`` with the packed records of K1/K2 and K10a/K11a built from its
-    ``bvh_*`` tables and octant links (once per scene: they do not depend
-    on the transforms)."""
+    """``ts`` with the packed records of K1/K2, K8/K9 and K10a-K11b built
+    from its ``bvh_*`` tables, octant links and wide links (once per scene:
+    they do not depend on the transforms)."""
     return dataclasses.replace(
         ts,
         packed_nodes=pack_nodes(ts.bvh_aabb_min, ts.bvh_aabb_max,
                                 ts.bvh_tri_first, ts.bvh_tri_count),
         packed_links=pack_links(ts.oct_succ, ts.oct_skip),
+        packed_wide=pack_links(ts.wide_succ, ts.wide_skip),
         packed_tris=pack_tris(ts.bvh_tri_v0, ts.bvh_tri_e1, ts.bvh_tri_e2))
 
 

@@ -27,10 +27,13 @@ the speed and which of two triangles hit at exactly the same t is kept.
 The wrappers take a CPU tensor to the plain version, launch K7 and the
 kernel of ``csrc/consensus.cu`` for a CUDA tensor (or raise), and raise
 unless the wave is whole blocks of ``BLOCK_PACKETS`` whose lanes are whole
-warps. The plain versions walk the same groups in the same order
-(``ops/traverse.closest_ref``/``anyhit_ref`` with ``consensus=WARP``), so
-kernel and plain version agree bit for bit, and the ``counts`` hook counts
-the kernel's box tests of live lanes and their triangle tests.
+warps. The kernels read the scene's packed records (``packed_nodes``,
+``packed_tris``) with the wide links packed ``{succ, skip}``
+(``packed_wide``); a scene without them raises. The plain versions walk
+the same groups in the same order (``ops/traverse.closest_ref``/
+``anyhit_ref`` with ``consensus=WARP``), so kernel and plain version agree
+bit for bit, and the ``counts`` hook counts the kernel's box tests of live
+lanes and their triangle tests.
 """
 
 from __future__ import annotations
@@ -41,13 +44,7 @@ from raytpu_torch import _build
 from raytpu_torch.device_scene import TorchScene
 from raytpu_torch.ops import perlane
 from raytpu_torch.ops.mega import BLOCK_PACKETS, check_blocks
-from raytpu_torch.ops.traverse import (
-    ST_T,
-    WARP,
-    anyhit_ref,
-    closest_ref,
-    table_ptrs,
-)
+from raytpu_torch.ops.traverse import ST_T, WARP, anyhit_ref, closest_ref
 
 
 def wide_links(ts: TorchScene):
@@ -80,26 +77,12 @@ def mega_closest_sweep(ts: TorchScene, rays: torch.Tensor, tmin: float,
         ts, rays, state[ST_T], tmin, "origin"))
 
 
-def _launch_operands(k: str, ts: TorchScene, rays, schedule):
-    """The operands of K8's and K9's C entry points after the per-call
-    ones: the schedule, the wide links (succ, skip) and the node count,
-    then the ``bvh_*`` tables with the entries in walk order. The scene's
-    tables are checked first."""
-    m = ts.bvh_aabb_min.shape[0]
-    succ, skip = _build.check_operands(k, [
-        (name, x, (8, m), torch.int32)
-        for name, x in zip(("wide_succ", "wide_skip"), wide_links(ts))])
-    tables = table_ptrs(k, ts, schedule[2])
-    return (*perlane.schedule_operands(k, rays, schedule), succ, skip, m,
-            *tables)
-
-
 def launch_closest(ts: TorchScene, rays: torch.Tensor, tmin: float,
                    state: torch.Tensor, schedule) -> torch.Tensor:
     """K8 alone, on a ``perlane.prepass`` ``schedule`` of these rays."""
     k = "mega_closest_sweep"
     t = ts.bvh_tri_v0.shape[0]
-    tables = _launch_operands(k, ts, rays, schedule)
+    tables = perlane.culled_operands(k, ts, rays, schedule, "packed_wide")
     _build.launch(
         k,
         *_build.check_planes(k, "rays", rays, (6, *rays.shape[1:])),
@@ -131,7 +114,7 @@ def launch_anyhit(ts: TorchScene, rays: torch.Tensor, tmin: float,
                   schedule) -> torch.Tensor:
     """K9 alone, on a ``perlane.prepass`` ``schedule`` of these rays."""
     k = "mega_anyhit_sweep"
-    tables = _launch_operands(k, ts, rays, schedule)
+    tables = perlane.culled_operands(k, ts, rays, schedule, "packed_wide")
     _build.launch(
         k,
         *_build.check_planes(k, "rays", rays, (6, *rays.shape[1:])),
@@ -140,6 +123,13 @@ def launch_anyhit(ts: TorchScene, rays: torch.Tensor, tmin: float,
         rays[0].numel(), float(tmin), *tables,
     )
     return occ
+
+
+def kernel_attributes() -> dict:
+    """K8's and K9's registers, local bytes, resident CTAs and SMs
+    (:func:`raytpu_torch._build.kernel_attributes`)."""
+    return _build.kernel_attributes(
+        "rt_consensus_attributes", ("mega_closest_sweep", "mega_anyhit_sweep"))
 
 
 # ---------------------------------------------------------------------------

@@ -76,14 +76,15 @@ def schedule_operands(k: str, rays, schedule):
     )
 
 
-def _launch_operands(k: str, ts: TorchScene, rays, schedule):
-    """The operands of K1's and K2's C entry points after the per-call
-    ones: the schedule, the packed links, the node count, the entries in
-    walk order and w2o, the packed nodes and triangles. The scene's tables
-    are checked first."""
+def culled_operands(k: str, ts: TorchScene, rays, schedule, table: str):
+    """The operands of the culled sweeps' C entry points (K1/K2, K8/K9)
+    after the per-call ones: the schedule, the scene's packed link
+    ``table`` (``"packed_links"`` or ``"packed_wide"``), the node count,
+    the entries in walk order and w2o, the packed nodes and triangles. The
+    scene's tables are checked first."""
     m = ts.bvh_aabb_min.shape[0]
     links, nodes, tris = packed_operands(
-        k, ts, ("packed_links", ts.packed_links, (8, m, 2), torch.int32))
+        k, ts, (table, getattr(ts, table), (8, m, 2), torch.int32))
     entries = schedule[2]
     c = _build.check_operand
     return (
@@ -124,7 +125,7 @@ def launch_closest(ts: TorchScene, rays: torch.Tensor, tmin: float,
     """K1 alone, on a :func:`prepass` ``schedule`` of these rays."""
     k = "perlane_closest_sweep"
     t = ts.bvh_tri_v0.shape[0]
-    tables = _launch_operands(k, ts, rays, schedule)
+    tables = culled_operands(k, ts, rays, schedule, "packed_links")
     taken = _work_counters(rays.device)
     _build.launch(
         k,
@@ -157,7 +158,7 @@ def launch_anyhit(ts: TorchScene, rays: torch.Tensor, tmin: float,
                   schedule) -> torch.Tensor:
     """K2 alone, on a :func:`prepass` ``schedule`` of these rays."""
     k = "perlane_anyhit_sweep"
-    tables = _launch_operands(k, ts, rays, schedule)
+    tables = culled_operands(k, ts, rays, schedule, "packed_links")
     taken = _work_counters(rays.device)
     _build.launch(
         k,

@@ -76,46 +76,23 @@ def unpack_state(state: torch.Tensor):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _entries_w2o(kernel: str, ts: TorchScene, entries=None):
-    """Validated ``(entries, E, w2o)``: the entry table (``entries``, if
-    given, in place of ``ts.entries``: the rows in another walk order), its
-    row count and the instances' world-to-object transforms."""
-    entries = ts.entries if entries is None else entries
-    e = entries.shape[0]
+def _entries_w2o(kernel: str, ts: TorchScene):
+    """Validated ``(entries, E, w2o)``: the entry table, its row count and
+    the instances' world-to-object transforms."""
+    e = ts.entries.shape[0]
     c = _build.check_operand
-    return (c(kernel, "entries", entries, (e, 5), torch.int32), e,
+    return (c(kernel, "entries", ts.entries, (e, 5), torch.int32), e,
             c(kernel, "w2o", ts.w2o, (ts.w2o.shape[0], 3, 4)))
-
-
-def table_ptrs(kernel: str, ts: TorchScene, entries=None):
-    """Validated device pointers of the entry table (:func:`_entries_w2o`)
-    and BVH arrays, in the order the C entry points take them (after the
-    per-call operands)."""
-    m = ts.bvh_aabb_min.shape[0]
-    t = ts.bvh_tri_v0.shape[0]
-    c = _build.check_operand
-    i32 = torch.int32
-    return (
-        *_entries_w2o(kernel, ts, entries),
-        c(kernel, "bvh_aabb_min", ts.bvh_aabb_min, (m, 3)),
-        c(kernel, "bvh_aabb_max", ts.bvh_aabb_max, (m, 3)),
-        c(kernel, "bvh_tri_first", ts.bvh_tri_first, (m,), i32),
-        c(kernel, "bvh_tri_count", ts.bvh_tri_count, (m,), i32),
-        c(kernel, "bvh_miss", ts.bvh_miss, (m,), i32),
-        c(kernel, "bvh_tri_v0", ts.bvh_tri_v0, (t, 3)),
-        c(kernel, "bvh_tri_e1", ts.bvh_tri_e1, (t, 3)),
-        c(kernel, "bvh_tri_e2", ts.bvh_tri_e2, (t, 3)),
-    )
 
 
 def packed_operands(kernel: str, ts: TorchScene, link) -> list:
     """Validated device pointers of the link table ``link`` (``(name,
     tensor, shape, dtype)``) that a packed walk follows and of the scene's
     packed node and triangle records: ``[link, nodes, tris]``. Every type
-    and shape is checked before any device; a scene without records
-    raises, and so do records that are not 16-byte aligned for the kernels'
-    vector loads."""
-    if ts.packed_nodes is None or ts.packed_tris is None:
+    and shape is checked before any device; a scene without records (or
+    without this link table) raises, and so do records that are not 16-byte
+    aligned for the kernels' vector loads."""
+    if ts.packed_nodes is None or ts.packed_tris is None or link[1] is None:
         raise ValueError(f"{kernel}: the scene has no packed records "
                          "(device_scene.with_packed builds them)")
     m = ts.bvh_aabb_min.shape[0]

@@ -264,6 +264,32 @@ def test_consensus_sweeps_bitwise(rig, strided):
             assert torch.equal(got, other)
 
 
+def test_consensus_sweeps_any_block_width(rig):
+    """K8/K9 on blocks of 160 lanes (8 packets of 20): whole warps, but a CTA
+    of 256 lanes spans two culling blocks, each warp with its own bit and
+    octant; still equal to their plain versions. Their launch bounds keep
+    4 CTAs on an SM with no local memory."""
+    r, rays = rig
+    ts = r.tscene
+    wave = rays[:, :, :20].contiguous()
+    win = torch.full(wave.shape[1:], 1e4, device="cuda")
+    win.view(-1)[::5] = 0.0
+    st = traverse.make_trace_state(win)
+    got = consensus.mega_closest_sweep(ts, wave, 1e-3, st.clone())
+    want = consensus.mega_closest_sweep_ref(ts, wave, 1e-3, st.clone())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (got[traverse.ST_VALID].view(torch.int32) != 0).any()
+    tmax = win * 0.002
+    occ = torch.zeros(wave.shape[1:], dtype=torch.int32, device="cuda")
+    got = consensus.mega_anyhit_sweep(ts, wave, 1e-3, tmax, occ.clone())
+    assert torch.equal(got, consensus.mega_anyhit_sweep_ref(ts, wave, 1e-3, tmax,
+                                                            occ.clone()))
+    assert (got != 0).any()
+    for name, attrs in consensus.kernel_attributes().items():
+        assert attrs["local_bytes"] == 0, (name, attrs)
+        assert attrs["registers"] <= 64 and attrs["ctas_per_sm"] >= 4, (name, attrs)
+
+
 def _ulps(a, b):
     """Largest distance in f32 ulps (same-sign values)."""
     ai = a.contiguous().view(torch.int32).long()

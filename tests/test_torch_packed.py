@@ -4,11 +4,12 @@ them, and of the culled sweeps, on the CPU.
 K1 and K2 (``csrc/perlane.cu``) read a scene's nodes, octant links and
 triangles as 16-byte records (``TorchScene.packed_nodes``,
 ``packed_links``, ``packed_tris``, built by ``device_scene.with_packed``
-for the port's own trees and for raytpu's chunked ones); K10a and K11a
-(``csrc/traverse.cu``) read the same node and triangle records in build
-order, with ``bvh_miss``. The records must hold the very bits of the
-tables they come from, so they are unpacked here and compared as int32
-bit patterns. The kernels against their plain versions are in
+for the port's own trees and for raytpu's chunked ones); K8 and K9
+(``csrc/consensus.cu``) the same node and triangle records with the wide
+links (``packed_wide``); K10a-K11b (``csrc/traverse.cu``) the same node
+and triangle records in build order, with ``bvh_miss``. The records must
+hold the very bits of the tables they come from, so they are unpacked
+here and compared as int32 bit patterns. The kernels against their plain versions are in
 ``test_torch_cuda.py`` (on the card); the launch operands of K1/K2, K8/K9
 and K10a/K11a must refuse tensors that are not on the card, a scene
 without records, and tables of the wrong shape or type.
@@ -63,16 +64,31 @@ def test_packed_nodes_unpack_bitwise(ts):
     assert leaf.any() and (~leaf).any()      # both kinds of record present
 
 
-def test_packed_links_unpack_bitwise(ts):
+@pytest.mark.parametrize("kind", ["octant", "wide"])
+def test_packed_links_unpack_bitwise(ts, kind):
+    """``packed_links`` holds the octant links, ``packed_wide`` the wide
+    links of the consensus walk, bit for bit."""
     m = ts.bvh_aabb_min.shape[0]
-    links = ts.packed_links
+    links, succ, skip = {
+        "octant": (ts.packed_links, ts.oct_succ, ts.oct_skip),
+        "wide": (ts.packed_wide, ts.wide_succ, ts.wide_skip)}[kind]
     assert links.shape == (8, m, 2) and links.dtype == I32
     assert links.is_contiguous()
-    assert torch.equal(links[..., 0], ts.oct_succ)
-    assert torch.equal(links[..., 1], ts.oct_skip)
-    # the walk leaves a leaf by its skip word, an inner node by either
+    assert torch.equal(links[..., 0], succ)
+    assert torch.equal(links[..., 1], skip)
+    # the walk leaves a leaf by its skip word, an inner node by either; the
+    # wide links drop interior levels, whose nodes hold the mesh's end node
+    # in both words (they are never reached)
     inner = ts.bvh_tri_first < 0
-    assert (links[:, inner, 0] != links[:, inner, 1]).all()
+    same = (links[..., 0] == links[..., 1]) & inner
+    if kind == "octant":
+        assert not same.any()
+    else:
+        ends = torch.zeros(m, dtype=I32)
+        for _, _, nb, nc, _ in ts.entry_rows:
+            ends[nb:nb + nc] = nc
+        assert torch.equal(same, (links[..., 0] == ends) & inner)
+        assert (inner & ~same).any()
 
 
 def test_packed_tris_unpack_bitwise(ts):
@@ -108,7 +124,7 @@ def test_packed_records_are_scene_constants(ts):
     """A transform update keeps the records (they do not depend on the
     transforms), so they are built once per scene."""
     moved = ts.with_transforms(ts.o2w.numpy(), ts.w2o.numpy())
-    for name in ("packed_nodes", "packed_links", "packed_tris"):
+    for name in ("packed_nodes", "packed_links", "packed_wide", "packed_tris"):
         assert getattr(moved, name) is getattr(ts, name)
 
 
@@ -128,23 +144,24 @@ def _launcher(sweep: str, ts, rays, win):
 @pytest.mark.parametrize("sweep", ["K1", "K2", "K8", "K9"])
 def test_launch_operands_refuse(ts, sweep):
     """The kernel-only launchers refuse CPU tensors, and refuse a scene
-    table of the wrong shape or type before they look at the device:
-    K1/K2 their packed records, K8/K9 their wide links."""
+    without packed records or with a record table of the wrong shape or
+    type before they look at the device: K1/K2 read the octant links
+    ``packed_links``, K8/K9 the wide links ``packed_wide``."""
     rays, win = (torch.from_numpy(x) for x in cone_rays(1, seed=4, k=32))
     launch = _launcher(sweep, ts, rays, win)
+    links = "packed_links" if sweep in ("K1", "K2") else "packed_wide"
     _build.reset_launch_counts()
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         launch(ts)
-    if sweep in ("K1", "K2"):
-        wrong = {"packed_nodes": ts.packed_nodes[:, :7],
-                 "packed_links": ts.packed_links[..., :1],
-                 "packed_tris": ts.packed_tris[:, :9]}
-        retyped = {"packed_nodes": ts.packed_nodes.view(I32),
-                   "packed_links": ts.packed_links.float()}
-    else:
-        wrong = {"wide_succ": ts.wide_succ[:, :-1],
-                 "wide_skip": ts.wide_skip[:4]}
-        retyped = {"wide_skip": ts.wide_skip.long()}
+    for name in ("packed_nodes", links, "packed_tris"):
+        with pytest.raises(ValueError, match="no packed records"):
+            launch(dataclasses.replace(ts, **{name: None}))
+    wrong = {"packed_nodes": ts.packed_nodes[:, :7],
+             links: getattr(ts, links)[..., :1],
+             "packed_tris": ts.packed_tris[:, :9]}
+    retyped = {"packed_nodes": ts.packed_nodes.view(I32),
+               links: getattr(ts, links).float(),
+               "packed_tris": ts.packed_tris.double()}
     for name, table in wrong.items():
         with pytest.raises(ValueError, match=f"{name} has shape"):
             launch(dataclasses.replace(ts, **{name: table}))
