@@ -64,7 +64,16 @@ loop:
   "xla", per-lane and pallas tiers;
 * the tie scene (two coincident boxes of different materials) through
   every tier ("xla" against the pallas tier through the same body): no
-  pixel may differ.
+  pixel may differ;
+* the entry points (``entry_points``): the bench's ``run_matrix`` over the
+  six stand-ins, 4 frames each on their default tiers (reusing the
+  Renderers above; config1 and config5 built anew), its
+  ``bit_identity_check`` (config2 stand-in at 128x96, and the tie scene),
+  ``python -m raytpu_torch.cli render --preset config1_standin`` in a
+  child process (the PNG, decoded with PIL, equal to the frame rendered
+  here), ``Flythrough.run_benchmark`` on the config5 stand-in for 8
+  frames, and ``python -m raytpu_torch.bench --frames 4`` in a child
+  process, whose last line must be its whole JSON line.
 
 Any failed check raises and exits non-zero. It imports nothing of JAX or
 raytpu.
@@ -176,9 +185,11 @@ def import_port():
     if str(REPO) not in sys.path:
         sys.path.insert(0, str(REPO))
     import torch  # noqa: F401
-    from raytpu_torch import _build, config, integrator, render, scene, scenes  # noqa: F401
+    from raytpu_torch import _build, bench, cli, config, integrator, presets, render, scene, scenes  # noqa: F401
+    from raytpu_torch.frontend import flythrough, headless  # noqa: F401
+    from raytpu_torch.io import image  # noqa: F401
     from raytpu_torch.ops import consensus, epilogue, mega, perlane, raygen, sky, traverse, vec3  # noqa: F401
-    from raytpu_torch.utils import ssim  # noqa: F401
+    from raytpu_torch.utils import log, ssim, timing  # noqa: F401
 
 
 def gpu_line() -> str:
@@ -1556,6 +1567,110 @@ def profile_frame(r, path: Path, label: str, gpu: str) -> dict:
                 sweep_launch_ms=sweep_ms)
 
 
+# the tier "auto" resolves each stand-in to (raytpu_torch.accel.resolve_auto_tier)
+STANDIN_TIERS = {"config1_standin": "mega", "config2_standin": "mega",
+                 "config3_standin": "mega", "config4_standin": "perlane",
+                 "config5_standin": "perlane", "reference_standin": "perlane"}
+MATRIX_FRAMES = 4   # timed frames a stand-in in the entry-points phase
+BENCH_KEYS = ("metric", "value", "unit", "configs", "bit_identical", "tie_check",
+              "stage_ms", "device", "cache")
+
+
+def run_module(args, label: str, timeout: int = 600) -> str:
+    """``python -m <args>`` from the repository root in a child process;
+    its standard output. A non-zero exit fails the run."""
+    res = subprocess.run([sys.executable, "-m", *args], cwd=REPO, capture_output=True,
+                         text=True, timeout=timeout)
+    check(res.returncode == 0, f"{label} exits 0 ({res.returncode}): "
+          f"{res.stderr[-3000:]}")
+    return res.stdout
+
+
+def entry_points(renderers: dict, gpu: str) -> dict:
+    """The user's entry points on the card: the bench's matrix over the six
+    stand-ins (``run_matrix``, reusing ``renderers``, each at the pose
+    ``set_transforms(0.0)``), its bit-identity and tie checks, a PNG
+    written by ``python -m raytpu_torch.cli render`` against the frame
+    rendered here, ``Flythrough.run_benchmark`` on the config5 stand-in, and
+    ``python -m raytpu_torch.bench``'s JSON line."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from raytpu_torch import bench, presets, scenes
+    from raytpu_torch.frontend.flythrough import Flythrough
+    from raytpu_torch.integrator import RenderStatic
+    from raytpu_torch.io.image import _to_uint8
+    from raytpu_torch.scene import AnimationState
+
+    for name, r in renderers.items():
+        check(r.render_static == RenderStatic.from_config(r.scene.config)
+              and r.tscene.traversal == r.scene.config.traversal,
+              f"{name}: the Renderer is back on its default path")
+        r.animation = AnimationState(r.scene.instances)
+        r.set_transforms(0.0)
+    configs = bench.run_matrix(frames=MATRIX_FRAMES, renderers=renderers)
+    print(gpu)
+    print(json.dumps({"configs": configs, "gpu": gpu}), flush=True)
+    check(list(configs) == list(presets.STANDINS), f"the matrix rows ({list(configs)})")
+    for name, row in configs.items():
+        check("frame_ms" in row and not row.get("suspect"),
+              f"{name}: a numeric, plausible matrix row ({row})")
+        check(row["tier"] == STANDIN_TIERS[name],
+              f"{name} renders on its default tier ({row['tier']})")
+        check(row["rays_per_frame"] >= row["width"] * row["height"] * row["spp"],
+              f"{name}: every primary ray counted ({row['rays_per_frame']})")
+    check(bench.matrix_complete(configs, need=len(configs)), "the matrix is complete")
+
+    bit = bench.bit_identity_check()
+    tie = bench.bit_identity_check(preset=bench.tie_scene_config())
+    print(f"bit_identical (config2 stand-in {bit['width']}x{bit['height']}, per-lane "
+          f"and consensus against the pallas tier): {bit}; tie_check: {tie} [{gpu}]",
+          flush=True)
+    check(bit["ok"], f"bit_identical ({bit})")
+    check(tie["ok"], f"tie_check ({tie})")
+
+    out = REPO / "build" / "entry_points" / "config1_standin.png"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    run_module(["raytpu_torch.cli", "render", "--preset", "config1_standin",
+                "-o", str(out)], "the CLI's render")
+    with Image.open(out) as im:
+        png = np.asarray(im.convert("RGB"))
+    want = _to_uint8(renderers["config1_standin"].step(0.0))
+    n_diff = int((png != want).any(axis=-1).sum())
+    print(f"CLI render of config1_standin: {out.name} {png.shape}, mean "
+          f"{png.mean():.3f}, pixels differing from the frame rendered here "
+          f"{n_diff}", flush=True)
+    check(png.shape == want.shape and n_diff == 0,
+          "the CLI's PNG equals the frame rendered here")
+    check(png.std() > 1.0, "the config1 stand-in's image is not constant")
+
+    fly = Flythrough(scenes.config5_standin())
+    fly_stats = fly.run_benchmark(max_frames=8)
+    img = fly.renderer.render()
+    print(f"flythrough of config5_standin: {fly_stats} [{gpu}]", flush=True)
+    check(fly_stats["frames"] == 8 and fly_stats["fps"] > 0, "the flythrough ran 8 frames")
+    check(bool(torch.isfinite(img).all()) and img.std().item() > 1e-3,
+          "the flythrough's frame is finite and not constant")
+    del fly, img
+
+    line = run_module(["raytpu_torch.bench", "--frames", "4"],
+                      "python -m raytpu_torch.bench").strip().splitlines()[-1]
+    print(f"bench line: {line}", flush=True)
+    res = json.loads(line)
+    missing = [k for k in BENCH_KEYS if k not in res]
+    check(not missing, f"the bench line has every key (missing {missing})")
+    check("vs_baseline" not in res and "stage_error" not in res
+          and not res.get("artifact_incomplete"), f"the bench line is whole ({res})")
+    check(sorted(res["configs"]) == sorted(presets.STANDINS), "the bench's six rows")
+    check(res["bit_identical"] and res["tie_check"]["ok"], "the bench's checks pass")
+    check(res["device"]["name"] in gpu and res["device"]["power_limit_w"] > 0,
+          f"the bench names the card ({res['device']})")
+    return {"configs": configs, "bit_identical": bit, "tie_check": tie,
+            "cli_png_pixels_differing": n_diff, "flythrough": fly_stats,
+            "bench_line": res}
+
+
 AB_FRAMES = (  # (stand-in, its tiers, the first its default, frames, t0 = dt)
     ("config4_standin", ("perlane", "pallas"), 7, 0.05),
     ("reference_standin", ("perlane",), 3, 0.05),
@@ -1805,7 +1920,7 @@ def main() -> int:
                              sweeps_only=True)
     import_port()
     from raytpu_torch import _build, scenes
-    from raytpu_torch.integrator import frame_tier, plain_kernels, render_frame
+    from raytpu_torch.integrator import PACKET_K, frame_tier, plain_kernels, render_frame
     from raytpu_torch.render import Renderer
     from raytpu_torch.scene import load_scene
     from raytpu_torch.utils.ssim import ssim
@@ -1914,7 +2029,7 @@ def main() -> int:
                                      idle=CHAINED + CONSENSUS + MESH)
     ref["profile"] = profile_frame(rr, prof_dir / "profile_reference.txt",
                                    "reference_standin", gpu)
-    del rr
+    renderers = {"config4_standin": r4, "reference_standin": rr}
 
     # the consensus tier's stand-ins: config3 (its frames count K8/K9's
     # launches for the kernels line), then config2
@@ -1938,14 +2053,14 @@ def main() -> int:
         cons[label]["kernels"] = res
         if cons_counts is None:
             cons_kern, cons_counts = res, counts_c
-        del rc
+        renderers[label] = rc
 
     small = Renderer(load_scene(scene4.config.replace(width=256, height=192),
                                 meshes=scene4.meshes, skybox=scene4.skybox))
     small.set_transforms(0.1)
     rs_s = small.render_static
     cam = small.camera_tensor()
-    check(frame_tier(small.tscene, 256) == "perlane", "256x192 renders per-lane")
+    check(frame_tier(small.tscene, 256, PACKET_K) == "perlane", "256x192 renders per-lane")
     img_k = render_frame(small.tscene, rs_s, cam)
     img_full = render_frame(small.tscene, dataclasses.replace(rs_s, wavefront="full"), cam)
     check(torch.equal(img_k, img_full),
@@ -1993,6 +2108,12 @@ def main() -> int:
           f"rays: max abs diff {eager_diff:.3g}", flush=True)
     check(eager_diff <= 1e-5, f"fused vs eager frame within 1e-5 ({eager_diff})")
     tie = tie_check(Renderer(scenes.tie_scene()))
+    del small
+
+    start = time.perf_counter()
+    entry = entry_points(renderers, gpu)
+    print(f"entry-points phase: {time.perf_counter() - start:.2f} s", flush=True)
+    del renderers
 
     print(json.dumps({"gpu": gpu, "config4_standin": c4,
                       "config4_standin_pallas": pal4, "config4_tier_waves": waves4,
@@ -2007,7 +2128,7 @@ def main() -> int:
                                       "perlane_equals_pallas": True,
                                       "mega_equals_perlane": True,
                                       "body_compact_equals_full": True},
-                      "tie_check": tie,
+                      "tie_check": tie, "entry_points": entry,
                       "full_wave_ties": kern["perlane_closest_sweep"]["full_wave_ties"],
                       "loop_full_wave_ties": kern["mesh_closest"]["full_wave_ties"],
                       "kernel_work": {k: v["work"] for k, v in kern.items() if "work" in v},

@@ -12,6 +12,13 @@ sorted live-first once after the first bounce; then a deferred sky fetch
 and detile. Each of these six kernels is hand-written CUDA (``csrc/``),
 built with nvcc at first use; each has a plain PyTorch version beside it,
 which CPU tensors take.
+
+The entry points keep the JAX package's module names: ``presets``
+(raytpu's presets and their asset-free stand-ins), ``bench``
+(``python -m raytpu_torch.bench``), ``cli`` (``python -m
+raytpu_torch.cli``), ``frontend`` (headless and flythrough),
+``io.image``, ``utils.timing`` and ``utils.log``. They render on the card
+unless the caller asks for the CPU.
 """
 
 from raytpu_torch._build import launch_counts, reset_launch_counts

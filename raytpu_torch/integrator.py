@@ -32,7 +32,9 @@ on the later bounces under "hybrid"; the chained sweeps (K10a, K10b;
 (:204-236) never takes the fused loop for it: an "xla" frame renders
 through the XLA body whatever ``fused`` says, and every sweep of it is the
 unpacked per-(instance, mesh) loop (``ops/trace.closest_hit_loop`` /
-``any_hit_loop``) on the one-mesh walks K11a/K11b.
+``any_hit_loop``) on the one-mesh walks K11a/K11b. The packed tiers
+reject packets other than ``PACKET_K`` lanes too (tiles other than 32x32),
+so such frames render so on every traversal value (``_tier``).
 
 Host syncs per frame (each counted in ``stats["host_syncs"]``): the loop
 condition once per bounce iteration (``any(window > 0)`` at full width,
@@ -108,6 +110,9 @@ __all__ = [
 ]
 
 SEG_PACKETS = 64  # packet-count granule of the JAX package (ops/mega.py)
+# lanes of a packet of the packed tiers and the fused loop: one 32x32 tile
+# (raytpu/ops/traverse_pallas.py PACKET_K); other tiles take the XLA body
+PACKET_K = 1024
 
 # every traversal tier of the JAX package computes the same hits; the port
 # walks them with the per-lane, the consensus or the chained sweeps, or the
@@ -249,17 +254,26 @@ def _check_traversal(traversal: str) -> None:
                          f"sweeps serve {_TRAVERSALS})")
 
 
-def _tier(ts: TorchScene, p: int, primary: bool) -> str:
-    """The sweeps a wave of ``p`` packets takes (``raytpu/ops/trace.py:550``
-    ``_use_perlane`` and :580 ``_use_mega``, without their TPU test):
-    "xla" (the per-(instance, mesh) loop) under "xla", every wave;
-    "perlane" under "perlane", under "auto" where the scene resolved to it,
-    and under "hybrid" on the ``primary`` (first-bounce) sweeps; "mega"
-    under "mega", under "auto" resolved to "mega" and under "hybrid" on
-    the later ones; "pallas" (the chained sweeps) under "pallas", and for
-    any wave that is not whole blocks of ``BLOCK_PACKETS``."""
+def _tier(ts: TorchScene, p: int, primary: bool, k: int) -> str:
+    """The sweeps a wave of ``p`` packets of ``k`` lanes takes
+    (``raytpu/ops/trace.py:550`` ``_use_perlane``, :580 ``_use_mega`` and
+    :600 ``_all_pallas``, without their TPU test): "xla" (the
+    per-(instance, mesh) loop) under "xla", and on every traversal value
+    for packets other than ``PACKET_K`` lanes; "perlane" under "perlane",
+    under "auto" where the scene resolved to it, and under "hybrid" on the
+    ``primary`` (first-bounce) sweeps; "mega" under "mega", under "auto"
+    resolved to "mega" and under "hybrid" on the later ones; "pallas" (the
+    chained sweeps) under "pallas", and for any wave that is not whole
+    blocks of ``BLOCK_PACKETS``.
+
+    At ``k != PACKET_K`` the JAX package's three packed tiers all refuse
+    the wave, so its per-(instance, mesh) loop takes it, and per mesh
+    ``_use_pallas`` (:619) picks the one-mesh Pallas kernel under "pallas"
+    and the XLA packet walk (``ops/packet.py``) under every other value.
+    Both compute one mesh's closest hit and occlusion, which K11a/K11b
+    compute in the port, so every value takes the loop on them."""
     _check_traversal(ts.traversal)
-    if ts.traversal == "xla":
+    if ts.traversal == "xla" or k != PACKET_K:
         return "xla"
     if p % BLOCK_PACKETS:
         return "pallas"
@@ -272,19 +286,20 @@ def _tier(ts: TorchScene, p: int, primary: bool) -> str:
     return "pallas"
 
 
-def frame_tier(ts: TorchScene, p: int) -> str:
-    """The sweeps a frame of ``p`` packets takes: "perlane", "mega",
-    "pallas" (the chained sweeps) or "xla" (the per-(instance, mesh) loop)
-    on every bounce, or "hybrid" (per-lane on the first bounce, consensus on
-    the later ones)."""
-    first, later = _tier(ts, p, True), _tier(ts, p, False)
+def frame_tier(ts: TorchScene, p: int, k: int) -> str:
+    """The sweeps a frame of ``p`` packets of ``k`` lanes takes:
+    "perlane", "mega", "pallas" (the chained sweeps) or "xla" (the
+    per-(instance, mesh) loop) on every bounce, or "hybrid" (per-lane on
+    the first bounce, consensus on the later ones)."""
+    first, later = _tier(ts, p, True, k), _tier(ts, p, False, k)
     return first if first == later else "hybrid"
 
 
-def _sweeps(ts: TorchScene, rs, p: int, primary: bool):
+def _sweeps(ts: TorchScene, rs, p: int, k: int, primary: bool):
     """``(closest, anyhit)`` packed sweep functions for a wave of ``p``
-    packets, with the same arguments whichever the packed tier."""
-    tier = _tier(ts, p, primary)
+    packets of ``k`` lanes, with the same arguments whichever the packed
+    tier."""
+    tier = _tier(ts, p, primary, k)
     if tier == "pallas":
         return _KERNELS["closest"], _KERNELS["anyhit"]
     return (_KERNELS[f"{tier}_closest"],
@@ -292,25 +307,27 @@ def _sweeps(ts: TorchScene, rs, p: int, primary: bool):
                               order=rs.shadow_order))
 
 
-def _traces(ts: TorchScene, rs, p: int, primary: bool):
-    """``(closest, occlusion)`` of a wave of ``p`` packets for the XLA
-    body, each with ``closest_hit_wave``'s / ``any_hit_wave``'s arguments:
-    the per-(instance, mesh) loop on K11a/K11b under "xla", else the tier's
-    packed sweeps (:func:`_sweeps`)."""
-    if _tier(ts, p, primary) == "xla":
+def _traces(ts: TorchScene, rs, p: int, k: int, primary: bool):
+    """``(closest, occlusion)`` of a wave of ``p`` packets of ``k`` lanes
+    for the XLA body, each with ``closest_hit_wave``'s / ``any_hit_wave``'s
+    arguments: the per-(instance, mesh) loop on K11a/K11b where the tier is
+    "xla" (:func:`_tier`), else the tier's packed sweeps
+    (:func:`_sweeps`)."""
+    if _tier(ts, p, primary, k) == "xla":
         return (functools.partial(closest_hit_loop,
                                   walk=_KERNELS["mesh_closest"]),
                 functools.partial(any_hit_loop, walk=_KERNELS["mesh_anyhit"]))
-    closest, anyhit = _sweeps(ts, rs, p, primary)
+    closest, anyhit = _sweeps(ts, rs, p, k, primary)
     return (functools.partial(closest_hit_wave, sweep=closest),
             functools.partial(any_hit_wave, sweep=anyhit))
 
 
-def _use_fused(ts: TorchScene, rs) -> bool:
-    """Whether the fused loop renders the frame (``integrator._use_fused``
-    :204, without its TPU test): ``fused="on"`` and a packed tier, which
-    "xla" is not."""
-    return rs.fused == "on" and ts.traversal != "xla"
+def _use_fused(ts: TorchScene, rs, p: int, k: int) -> bool:
+    """Whether the fused loop renders a frame of ``p`` packets of ``k``
+    lanes (``integrator._use_fused`` :204, without its TPU test):
+    ``fused="on"`` and a packed tier, which "xla" is not, nor any tier at
+    packets other than ``PACKET_K`` lanes (:234)."""
+    return rs.fused == "on" and _tier(ts, p, True, k) != "xla"
 
 
 def _count(stats, key, mask):
@@ -432,14 +449,14 @@ def _trace_sample(ts: TorchScene, rs: RenderStatic, o, d,
         while j <= rs.max_bounce_count and _any(active, stats):
             o, d, tmp, active, miss_rec = _bounce_core(
                 ts, rs, o, d, tmp, active, miss_rec, decay, stats,
-                _traces(ts, rs, p, primary=j == 0))
+                _traces(ts, rs, p, k, primary=j == 0))
             j += 1
     else:
         o, d, tmp, active, miss_rec = _bounce_core(      # the peeled j = 0
             ts, rs, o, d, tmp, active, miss_rec, decay, stats,
-            _traces(ts, rs, p, primary=True))
+            _traces(ts, rs, p, k, primary=True))
         j = 1
-        traces = _traces(ts, rs, budget, primary=False)
+        traces = _traces(ts, rs, budget, k, primary=False)
         while j <= rs.max_bounce_count:
             live = active.any(dim=1)
             n_live = int(_read(live.sum(), stats))
@@ -502,7 +519,7 @@ def _fused_step(ts, rs, rays, win, tmp, miss, decay_p, stats, primary):
     the sweeps by tier (:func:`_sweeps`; ``primary`` for the first bounce).
     ``rays``, ``tmp`` and ``miss`` are updated in place, ``win`` too: the
     arguments may be waves ``x[:, s:s+b]`` of the loop's buffers."""
-    closest, anyhit = _sweeps(ts, rs, rays.shape[1], primary)
+    closest, anyhit = _sweeps(ts, rs, rays.shape[1], rays.shape[2], primary)
     _count(stats, "closest_rays", win > 0.0)
     st = closest(ts, rays, RAY_TMIN, make_trace_state(win))
     srays, swin, ab, lit, _, nwin, _ = _KERNELS["shade"](
@@ -608,12 +625,12 @@ def render_packets(ts: TorchScene, rs: RenderStatic, camera: torch.Tensor,
     p, k = px.shape
     spp = rs.samples_per_pixel
     if stats is not None:
-        stats["tier"] = frame_tier(ts, p * spp)
+        stats["tier"] = frame_tier(ts, p * spp, k)
     pxs = px.repeat_interleave(spp, dim=0)
     pys = py.repeat_interleave(spp, dim=0)
     act = active0.repeat_interleave(spp, dim=0)
     s_row = torch.arange(spp, dtype=torch.float32, device=px.device).repeat(p)
-    fused = _use_fused(ts, rs)
+    fused = _use_fused(ts, rs, p * spp, k)
     if rays6 is None:
         rays6 = _KERNELS["raygen"](camera, s_row, pxs, pys, spp, rs.width,
                                    rs.height)

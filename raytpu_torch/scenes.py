@@ -22,7 +22,14 @@ through the fused, compacted bounce loop.
   ``config2`` and ``config3`` (``raytpu/presets.py:38,51``), the mirror
   teapot stand-in alone, and :func:`cornell_mesh` (open walls and three
   boxes in one refractive mesh) for ``cube_scene.obj``, in front of the
-  same sky. Both resolve to the consensus tier.
+  same sky. Both resolve to the consensus tier;
+* :func:`config1_standin` / :func:`config5_standin`: the presets
+  ``config1`` and ``config5`` (``raytpu/presets.py:24,88``), a
+  :func:`box_mesh` for ``cube.obj``: the diffuse cube alone and without a
+  sky (consensus tier), and the mirror teapot stand-in with a refractive
+  orbiting cube in front of the generated sky (per-lane tier).
+
+``raytpu_torch.presets.STANDINS`` names the six stand-ins.
 """
 
 from __future__ import annotations
@@ -218,7 +225,42 @@ def config3_standin(sky_size: int = 1024, **config) -> Scene:
                       skybox=procedural_skybox(sky_size))
 
 
-def _standin(width, height, bounces) -> Scene:
+def config1_standin(**config) -> Scene:
+    """config1's shape (``raytpu/presets.py:24``): one diffuse ``static``
+    cube (:func:`box_mesh`, 12 triangles, for ``cube.obj``), no sky;
+    512x512, 1 spp, 0 bounces (primary rays and hard shadows).
+    ``traversal="auto"`` resolves it to the consensus tier. ``config``
+    (RenderConfig fields) cuts it down for tests."""
+    cfg = RenderConfig(
+        objects=(ObjectConfig("generated://cube", MaterialType.DIFFUSE,
+                              "static"),),
+        skybox_dir=None, width=512, height=512, samples_per_pixel=1,
+        max_bounce_count=0,
+    ).replace(**config)
+    return load_scene(cfg, meshes=[box_mesh((0.0, 0.0, 0.0), 1.0)])
+
+
+def config5_standin(sky_size: int = 1024, **config) -> Scene:
+    """config5's shape (``raytpu/presets.py:88``, the flythrough): the
+    mirror teapot stand-in (``generate_highpoly(depth=4)``) ``spin`` and a
+    refractive cube (:func:`box_mesh`) ``orbit``, in front of the
+    generated sky; 1920x1080, 1 spp, 3 bounces. ``traversal="auto"``
+    resolves it to the per-lane tier (spp 1 with bounces). ``sky_size``
+    and ``config`` as for :func:`config2_standin`."""
+    cfg = RenderConfig(
+        objects=(
+            ObjectConfig("generated://highpoly4", MaterialType.MIRROR, "spin"),
+            ObjectConfig("generated://cube", MaterialType.REFRACTIVE, "orbit"),
+        ),
+        width=1920, height=1080, samples_per_pixel=1, max_bounce_count=3,
+    ).replace(**config)
+    meshes = [generate_highpoly(depth=4, radius=TEAPOT_RADIUS,
+                                name="teapot_standin"),
+              box_mesh((0.0, 0.0, 0.0), 1.0)]
+    return load_scene(cfg, meshes=meshes, skybox=procedural_skybox(sky_size))
+
+
+def _standin(width, height, bounces, depth) -> Scene:
     cfg = RenderConfig(
         objects=(
             ObjectConfig("generated://highpoly4", MaterialType.MIRROR, "spin"),
@@ -228,15 +270,17 @@ def _standin(width, height, bounces) -> Scene:
         max_bounce_count=bounces,
     )
     meshes = [generate_highpoly(depth=4, radius=TEAPOT_RADIUS, name="teapot_standin"),
-              armadillo_standin(depth=7)]
+              armadillo_standin(depth=depth)]
     return load_scene(cfg, meshes=meshes, skybox=procedural_skybox(1024))
 
 
-def config4_standin() -> Scene:
-    """config4's shape: 1920x1080, 4 spp, 3 bounces."""
-    return _standin(1920, 1080, 3)
+def config4_standin(depth: int = 7) -> Scene:
+    """config4's shape: 1920x1080, 4 spp, 3 bounces; ``depth`` is the
+    armadillo stand-in's subdivision depth (7: 327,680 triangles)."""
+    return _standin(1920, 1080, 3, depth)
 
 
-def reference_standin() -> Scene:
-    """The reference default's shape: 800x600, 4 spp, 63 bounces."""
-    return _standin(800, 600, 63)
+def reference_standin(depth: int = 7) -> Scene:
+    """The reference default's shape: 800x600, 4 spp, 63 bounces;
+    ``depth`` as for :func:`config4_standin`."""
+    return _standin(800, 600, 63, depth)

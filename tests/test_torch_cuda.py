@@ -413,3 +413,21 @@ def test_xla_frame_launches_mesh_walks(rig):
     body = dataclasses.replace(r.render_static, fused="off")
     assert torch.equal(img, render_frame(dataclasses.replace(ts, traversal="pallas"),
                                          body, r.camera_tensor()))
+
+
+def test_bench_run_benchmark_on_a_small_standin(rig):
+    """The bench's ``run_benchmark`` on the config1 stand-in at 128x128, on
+    the card: its default (consensus) tier, a finite frame time, and the
+    ray count of the plain versions' frame."""
+    from raytpu_torch import bench
+
+    r = bench.build_preset_renderer(scenes.config1_standin(width=128, height=128))
+    _build.reset_launch_counts()
+    out = bench.run_benchmark(preset=r.scene, frames=3, renderer=r)
+    counts = _build.launch_counts()
+    assert out["backend"] == "cuda" and out["tier"] == "mega"
+    assert counts["mega_closest_sweep"] > 0 and counts["mega_anyhit_sweep"] > 0, counts
+    assert 0 < out["frame_ms"] < 1e4 and not out.get("suspect")
+    with plain_kernels():
+        plain = bench.count_rays_frame(r.tscene, r.render_static, r.camera_tensor())
+    assert out["rays_per_frame"] == plain >= 128 * 128

@@ -112,7 +112,7 @@ def _same_rays_frames(width, height, spp, bounces, scene_fn=scenes.mixed_scene,
                                  s_idx, act))
 
     ts = from_raytpu(jr.device_scene, jr.static, "cpu")
-    assert tier is None or frame_tier(ts, n_pk * spp) == tier
+    assert tier is None or frame_tier(ts, n_pk * spp, k) == tier
     rs = RenderStatic.from_config(scene.config)
     (tpx, tpy), t_in = tiled_pixels(rs, "cpu")
     tpx, tpy, t_in = tpx[:n_pk], tpy[:n_pk], t_in[:n_pk]

@@ -364,20 +364,21 @@ def _frame_widths(ts, rs, cam, budget=None):
 @pytest.mark.parametrize("traversal", ["xla", "perlane", "mega", "pallas"])
 def test_body_compact_equals_full_width(traversal):
     """``body_compact``: from the same scene and rays, the compacted XLA
-    body's frames equal the full-width body's bit for bit. Tiles of 8x8
-    pixels make 128 packets of 64 lanes (budget 64), 96 of them in the
-    frame; with the budget cut to 16, the iterations after the peeled
+    body's frames equal the full-width body's bit for bit. At 128x96 the
+    32x32 tiles (the packed tiers' packets; other tiles render "xla" on
+    every value) make 128 packets of 1024 lanes (budget 64), 24 of them in
+    the frame; with the budget cut to 8, the iterations after the peeled
     first run several waves."""
-    r = Renderer(scenes.mixed_scene(64, 48, 2, 3), "cpu")
+    r = Renderer(scenes.mixed_scene(128, 96, 2, 3), "cpu")
     r.set_transforms(T_ANIM)
     ts = dataclasses.replace(r.tscene, traversal=traversal)
-    rs = dataclasses.replace(r.render_static, tile=8, fused="off")
+    rs = dataclasses.replace(r.render_static, fused="off")
     cam = r.camera_tensor()
     full, tier, widths = _frame_widths(ts, dataclasses.replace(
         rs, wavefront="full"), cam)
     assert tier == traversal and full.std() > 0.05
     assert len(widths) == 4 and set(widths) == {128}
-    for budget, wave in ((None, 64), (16, 16)):
+    for budget, wave in ((None, 64), (8, 8)):
         img, tier, widths = _frame_widths(ts, rs, cam, budget)
         assert tier == traversal
         assert widths[0] == 128 and set(widths[1:]) == {wave}, widths

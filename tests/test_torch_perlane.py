@@ -24,7 +24,7 @@ import torch
 from raytpu.render import Renderer as JaxRenderer
 from raytpu_torch import scenes
 from raytpu_torch.device_scene import from_raytpu
-from raytpu_torch.integrator import frame_tier, render_frame
+from raytpu_torch.integrator import PACKET_K, frame_tier, render_frame
 from raytpu_torch.ops import consensus, perlane, traverse
 from raytpu_torch.render import Renderer
 from tests.torch_twin import cone_rays, one_thread, raytpu_twin
@@ -164,11 +164,11 @@ def test_tier_dispatch():
              ("xla", "perlane"): "xla", ("mega", "perlane"): "mega"}
     for (trav, auto), tier in cases.items():
         t = dataclasses.replace(ts, traversal=trav, auto_tier=auto)
-        assert frame_tier(t, 64) == tier, (trav, auto)
+        assert frame_tier(t, 64, PACKET_K) == tier, (trav, auto)
         # not whole blocks of 8: the chained sweeps, but "xla" keeps its loop
-        assert frame_tier(t, 60) == ("xla" if trav == "xla" else "pallas")
+        assert frame_tier(t, 60, PACKET_K) == ("xla" if trav == "xla" else "pallas")
     with pytest.raises(ValueError, match="brute"):
-        frame_tier(dataclasses.replace(ts, traversal="brute"), 64)
+        frame_tier(dataclasses.replace(ts, traversal="brute"), 64, PACKET_K)
     # spp 1 with bounces, and the stand-ins' triangle counts, go per-lane
     assert Renderer(scenes.two_box_scene(32, 32, 1, 1), "cpu").tscene.auto_tier \
         == "perlane"
@@ -178,7 +178,7 @@ def test_tier_dispatch():
                      (scenes.config2_standin(16), 2048),
                      (scenes.config3_standin(16), 3840)):
         t = Renderer(scene, "cpu").tscene
-        assert (t.traversal, t.auto_tier, frame_tier(t, p)) \
+        assert (t.traversal, t.auto_tier, frame_tier(t, p, PACKET_K)) \
             == ("auto", "mega", "mega")
     rays = torch.zeros((6, 12, 64))
     for closest, anyhit in (
