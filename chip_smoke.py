@@ -13,7 +13,7 @@
                                          # times alone of the ports in DIRs,
                                          # in that order
 
-Builds the thirteen hand-written CUDA kernels from ``raytpu_torch/csrc``
+Builds the fourteen hand-written CUDA kernels from ``raytpu_torch/csrc``
 and the BVHs (the teapot stand-in's tree checked against a digest of the
 tree raytpu builds), holds every kernel against its plain PyTorch version
 on the card at the main path's shapes (and the per-lane sweeps K1/K2, the
@@ -65,6 +65,19 @@ loop:
 * the tie scene (two coincident boxes of different materials) through
   every tier ("xla" against the pallas tier through the same body): no
   pixel may differ;
+* the render options and builders (``options_phase``): config4's trees
+  by the LBVH built on the card (steps 1-4 timed, the tree equal to the
+  same function's on CPU tensors, the teapot stand-in's against
+  :data:`LBVH_DIGEST`), 5 timed frames on it and one profiled, and its
+  256x192 frame against the plain path and the native tree's frame; the
+  config2 stand-in on the SAH and median trees (:data:`SAH_DIGEST`,
+  :data:`MEDIAN_DIGEST`), a frame each against the native tree's; config4
+  unfolded (``fold_spp=False``) and in 4 ray chunks, timed, profiled and
+  on the pallas tier within 1e-6 of the default frame; ``sky_nearest``
+  (K6's single-tap mode) against its plain version bit for bit, and
+  config4 frames with the "nearest" and "bilinear2x" filters; a config2
+  frame with validation (no report; a NaN camera reports); and the
+  viewer loop on the config1 stand-in under :class:`RecordingCv2`;
 * the entry points (``entry_points``): the bench's ``run_matrix`` over the
   six stand-ins, 4 frames each on their default tiers (reusing the
   Renderers above; config1 and config5 built anew), its
@@ -82,7 +95,8 @@ The last three lines: the frames and checks as one JSON object, the
 per-kernel JSON line (launches counted during the frames of the path that
 runs the kernel: the default config4 frames, the default config3 frames
 for K8/K9, the config4 ``traversal="pallas"`` ones for K10a/K10b, or the
-config4 ``traversal="xla"`` ones for K11a/K11b; errors against the plain
+config4 ``traversal="xla"`` ones for K11a/K11b, the "nearest" ones for
+``sky_nearest``; errors against the plain
 versions, times on the sweeps' slice (K11a and K11b a sweep over both
 entries), bounds), and
 ``{"ok": true, "device": {...}}``.
@@ -109,6 +123,8 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                      "raytpu/ops/traverse_pallas.py:693"),
     "raygen": ("raytpu_torch/csrc/raygen.cu", "raytpu/ops/raygen.py:70"),
     "sky": ("raytpu_torch/csrc/sky.cu", "raytpu/ops/sky_mxu.py:120"),
+    # the same TPU kernel's single-tap mode (bilinear=False, :453 via :543)
+    "sky_nearest": ("raytpu_torch/csrc/sky.cu", "raytpu/ops/sky_mxu.py:120"),
     "shade_epilogue": ("raytpu_torch/csrc/epilogue.cu",
                        "raytpu/ops/epilogue.py:86"),
     "accumulate_epilogue": ("raytpu_torch/csrc/epilogue.cu",
@@ -132,6 +148,7 @@ PER_LANE = ("block_stats", "perlane_closest_sweep", "perlane_anyhit_sweep")
 CONSENSUS = ("mega_closest_sweep", "mega_anyhit_sweep")  # after K7 ("mega")
 MESH = ("mesh_closest", "mesh_anyhit")    # traversal="xla", the XLA body
 FUSED = ("shade_epilogue", "accumulate_epilogue")    # the fused loop only
+NEAREST = ("sky_nearest",)   # the "nearest" and "bilinear2x" filters only
 SWEEP_PACKETS = 256
 # sha256 of the teapot stand-in's tree (generate_highpoly(depth=4,
 # radius=3.0), leaf size 12): its aabb_min, aabb_max, tri_first, tri_count,
@@ -139,6 +156,13 @@ SWEEP_PACKETS = 256
 # (native/libraytpu_native.so) builds them. A host whose g++ contracts the
 # builder's float math otherwise builds another tree.
 TREE_DIGEST = "b54354457d7dfc75827a60170abac49920449bbe756799d910f4a2b5607d5f17"
+# The same digest of raytpu's trees of that mesh (the config2 stand-in's)
+# from its other builders, leaf size 12: build_lbvh (raytpu/accel/lbvh.py),
+# and build_bvh with method "sah" and "median" (raytpu/accel/bvh.py)
+# (tests/test_torch_builders.py computes them from raytpu's builders).
+LBVH_DIGEST = "b8ccde1e2b99425acf523012fc24f04975895723f6b34756313b2db159ee10f7"
+SAH_DIGEST = "c0536b9d7101ad9deedbda7c9d82d179521e56dee99bdaa25431b39f6a9e5539"
+MEDIAN_DIGEST = "1b865dce1c9a094d2f1b34e01430e361445c0defa1068a86a5f4acc4286d59d4"
 # Lanes (packet, lane) of the config4 stand-in's primary wave
 # (set_transforms(0.05), the raygen kernel's rays) where K1 and K10a keep two
 # different triangles of the armadillo stand-in hit at exactly the same t, a
@@ -170,7 +194,7 @@ EPILOGUE_ULPS = 2      # shade/accumulate kernel vs plain version, f32 ulps
 # whole trees.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-OPS_PER_LANE = {"raygen": 55, "sky": 80, "shade_epilogue": 100,
+OPS_PER_LANE = {"raygen": 55, "sky": 80, "sky_nearest": 50, "shade_epilogue": 100,
                 "accumulate_epilogue": 18, "block_stats": 21}
 SLAB_OPS, MT_OPS = 23, 51  # one node's box test, one Moller-Trumbore test
 
@@ -186,10 +210,11 @@ def import_port():
         sys.path.insert(0, str(REPO))
     import torch  # noqa: F401
     from raytpu_torch import _build, bench, cli, config, integrator, presets, render, scene, scenes  # noqa: F401
-    from raytpu_torch.frontend import flythrough, headless  # noqa: F401
+    from raytpu_torch.accel import bvh, lbvh  # noqa: F401
+    from raytpu_torch.frontend import flythrough, headless, interactive  # noqa: F401
     from raytpu_torch.io import image  # noqa: F401
     from raytpu_torch.ops import consensus, epilogue, mega, perlane, raygen, sky, traverse, vec3  # noqa: F401
-    from raytpu_torch.utils import log, ssim, timing  # noqa: F401
+    from raytpu_torch.utils import log, ssim, timing, validation  # noqa: F401
 
 
 def gpu_line() -> str:
@@ -1319,7 +1344,7 @@ def standin_tiers(r, label: str, gpu: str, prof_dir: Path, n_tied: int):
     mega = render_frames(r, 5, 0.0, 0.0, label, gpu, "mega")
     counts = _build.launch_counts()
     mega["launches"] = check_launches(counts, f"{label} frames",
-                                      idle=CHAINED + PER_LANE[1:] + MESH)
+                                      idle=CHAINED + PER_LANE[1:] + MESH + NEAREST)
     mega["profile"] = profile_frame(r, prof_dir / f"profile_{label}.txt", label, gpu)
     img = r.render()
     r.tscene = dataclasses.replace(ts, traversal="pallas")
@@ -1328,7 +1353,7 @@ def standin_tiers(r, label: str, gpu: str, prof_dir: Path, n_tied: int):
     check(pal["rays"] == mega["rays"], f"{label}: both tiers trace the same rays")
     pal["launches"] = check_launches(_build.launch_counts(),
                                      f"{label} pallas-tier frames",
-                                     idle=PER_LANE + CONSENSUS + MESH)
+                                     idle=PER_LANE + CONSENSUS + MESH + NEAREST)
     pal["profile"] = profile_frame(r, prof_dir / f"profile_{label}_pallas.txt",
                                    f"{label}_pallas", gpu)
     n_diff = int((r.render() != img).any(dim=-1).sum().item())
@@ -1565,6 +1590,374 @@ def profile_frame(r, path: Path, label: str, gpu: str) -> dict:
           f"table in {path} [{gpu}]", flush=True)
     return dict(wall_ms=wall, busy_ms=busy, idle_share=idle, kernels_ms=per_kernel,
                 sweep_launch_ms=sweep_ms)
+
+
+class RecordingCv2:
+    """A stand-in for the ``cv2`` module of the viewer loop: ``waitKey``
+    answers from ``keys`` in turn, ``imshow`` records a copy of each image,
+    ``namedWindow`` raises ``error`` if ``display`` is False."""
+
+    class error(Exception):
+        pass
+
+    EVENT_MOUSEMOVE, EVENT_RBUTTONDOWN, EVENT_RBUTTONUP = 0, 2, 5
+
+    def __init__(self, keys, display: bool = True):
+        self.keys = list(keys)
+        self.display = display
+        self.shown = []
+        self.closed = False
+
+    def namedWindow(self, name):
+        if not self.display:
+            raise self.error("no display")
+
+    def setMouseCallback(self, name, fn):
+        self.on_mouse = fn
+
+    def waitKey(self, delay):
+        return self.keys.pop(0)
+
+    def imshow(self, name, img):
+        self.shown.append(img.copy())
+
+    def destroyAllWindows(self):
+        self.closed = True
+
+
+def viewer_loop(scene, device, clock=(0.0, 0.5, 1.0, 1.5)) -> dict:
+    """``run_interactive`` on ``scene`` under :class:`RecordingCv2` (put in
+    ``sys.modules`` for the call only), which presses ``w`` for two frames
+    and then ESC, with the module's clock fixed to ``clock``; each image
+    shown must be, byte for byte, raytpu's conversion of the frame a
+    ``Renderer`` gives at that frame's pose (the camera moved forward by
+    ``camera_speed`` times the time step, the instances at the time)."""
+    import types
+
+    import numpy as np
+    from raytpu_torch.camera import MoveDirection
+    from raytpu_torch.frontend import interactive
+    from raytpu_torch.render import Renderer
+
+    cv2 = RecordingCv2([ord("w"), ord("w"), 27])
+    ticks = iter(clock)
+    saved_cv2, saved_time = sys.modules.get("cv2"), interactive.time
+    sys.modules["cv2"] = cv2
+    interactive.time = types.SimpleNamespace(perf_counter=lambda: next(ticks))
+    try:
+        interactive.run_interactive(scene, device=device)
+    finally:
+        interactive.time = saved_time
+        if saved_cv2 is None:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = saved_cv2
+    check(cv2.closed and not cv2.keys, "the viewer left on ESC and closed its window")
+    check(len(cv2.shown) == 2, f"the viewer showed two frames ({len(cv2.shown)})")
+    r = Renderer(scene, device)
+    cfg, last = scene.config, 0.0
+    for shown, t in zip(cv2.shown, clock[1:]):
+        tp = (t - clock[0]) * 0.1
+        r.camera.move(MoveDirection.FORWARD, cfg.camera_speed * (tp - last))
+        last = tp
+        img = r.step(tp)
+        want = (np.clip(img, 0, 1)[..., ::-1] * 255).astype(np.uint8)
+        check(shown.dtype == np.uint8 and np.array_equal(shown, want),
+              "the viewer shows raytpu's bytes of the Renderer's frame at its pose")
+        check(want.std() > 1.0, "the viewer's frame is not constant")
+    return {"frames": len(cv2.shown), "shape": list(cv2.shown[0].shape)}
+
+
+def tree_arrays(bvh) -> tuple:
+    return (bvh.aabb_min, bvh.aabb_max, bvh.tri_first, bvh.tri_count, bvh.miss,
+            bvh.tri_order)
+
+
+def lbvh_checks(r4, t_bvh: float, gpu: str, prof_dir: Path) -> tuple:
+    """The config4 stand-in on LBVH trees built on the card: the build
+    times of steps 1-4 and of the threading (the armadillo stand-in)
+    beside the native build's ``t_bvh``, the card's tree against the same
+    function on CPU tensors, the teapot stand-in's tree against
+    :data:`LBVH_DIGEST`, five timed frames on the per-lane tier and one
+    profiled. Returns the record and the LBVH Renderer."""
+    import numpy as np
+    import torch
+    from raytpu_torch.accel import lbvh
+    from raytpu_torch.device_scene import corner_tables
+    from raytpu_torch.render import Renderer
+    from raytpu_torch.scene import load_scene
+
+    scene4 = r4.scene
+    v0, e1, e2, _ = corner_tables(scene4)
+    _, ps = scene4.geometry.mesh_slice(scene4.geometry.num_meshes - 1)
+    big = (v0[ps], e1[ps], e2[ps])
+    lbvh.device_steps(*(x[:4096] for x in big), r4.device)   # warm the ops
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    steps = lbvh.device_steps(*big, r4.device)
+    torch.cuda.synchronize()
+    t_steps = time.perf_counter() - start
+    start = time.perf_counter()
+    card = lbvh.thread(steps, scene4.config.leaf_size)
+    t_thread = time.perf_counter() - start
+    start = time.perf_counter()
+    host = lbvh.thread(lbvh.device_steps(*big, "cpu"), scene4.config.leaf_size)
+    t_cpu = time.perf_counter() - start
+    same = all(a.dtype == b.dtype and np.array_equal(a, b)
+               for a, b in zip(tree_arrays(card), tree_arrays(host)))
+    print(f"LBVH of the config4 stand-in's {big[0].shape[0]} triangles: steps 1-4 on "
+          f"the card {t_steps * 1e3:.3f} ms, threading on the host "
+          f"{t_thread * 1e3:.3f} ms ({card.num_nodes} nodes); the same on CPU "
+          f"tensors {t_cpu:.2f} s; native builder (the whole scene, BVH build + "
+          f"upload) {t_bvh:.2f} s [{gpu}]", flush=True)
+    check(same, "the card's LBVH equals the LBVH from CPU tensors, bit for bit")
+
+    start = time.perf_counter()
+    rl = Renderer(load_scene(scene4.config.replace(bvh_builder="lbvh"),
+                             meshes=scene4.meshes, skybox=scene4.skybox), r4.device)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - start
+    digest = tree_digest(first_tree(rl.tscene))
+    print(f"config4 stand-in on LBVH trees: Renderer build {t_build:.2f} s "
+          f"({rl.tscene.bvh_aabb_min.shape[0]} nodes); teapot stand-in LBVH sha256 "
+          f"{digest} (raytpu's {LBVH_DIGEST})", flush=True)
+    check(digest == LBVH_DIGEST, "the port builds raytpu's LBVH of the teapot stand-in")
+    frames = render_frames(rl, 5, 0.05, 0.05, "config4_standin_lbvh", gpu, "perlane")
+    frames["profile"] = profile_frame(rl, prof_dir / "profile_config4_lbvh.txt",
+                                      "config4_standin_lbvh", gpu)
+    return dict(steps_ms=t_steps * 1e3, thread_ms=t_thread * 1e3, cpu_s=t_cpu,
+                renderer_s=t_build, nodes=card.num_nodes, native_bvh_s=t_bvh,
+                frames=frames), rl
+
+
+def small_frames(r4, rl, gpu: str) -> dict:
+    """At 256x192, the LBVH tree's frame: the kernel path against the
+    plain path from the same primary rays, and against the native tree's
+    frame (SSIM, and the pixels over 1e-5)."""
+    from raytpu_torch.integrator import render_frame
+    from raytpu_torch.scene import AnimationState
+    from raytpu_torch.utils.ssim import ssim
+
+    for r in (r4, rl):   # the same pose on both trees
+        r.animation = AnimationState(r.scene.instances)
+        r.set_transforms(0.1)
+    rs = dataclasses.replace(r4.render_static, width=256, height=192)
+    got, want = same_rays_frames(rl, rs, rs, plain_b=True)
+    same = max((a - b).abs().max().item() for a, b in zip(got, want))
+    img_l = render_frame(rl.tscene, rs, rl.camera_tensor())
+    img_n = render_frame(r4.tscene, rs, r4.camera_tensor())
+    over = int(((img_l - img_n).abs() > 1e-5).any(dim=-1).sum().item())
+    s = ssim(img_l.cpu().numpy(), img_n.cpu().numpy())
+    print(f"256x192 on the LBVH tree: kernel vs plain path from the same primary rays "
+          f"max abs diff {same:.3g}; vs the native tree's frame SSIM {s:.6f}, "
+          f"{over} pixels over 1e-5 [{gpu}]", flush=True)
+    check(same <= 1e-6, f"LBVH 256x192 kernel vs plain path within 1e-6 ({same})")
+    check(s > 0.98, f"LBVH vs native 256x192 SSIM > 0.98 ({s})")
+    return dict(same_rays_max_abs_diff=same, ssim_to_native=s, pixels_over_1e5=over)
+
+
+def host_builders(rc2, gpu: str) -> dict:
+    """The config2 stand-in on the SAH and median trees: their digests, one
+    frame each on the consensus tier against the native tree's frame."""
+    import torch
+    from raytpu_torch.render import Renderer
+    from raytpu_torch.scene import AnimationState, load_scene
+    from raytpu_torch.utils.ssim import ssim
+
+    out = {}
+    rc2.animation = AnimationState(rc2.scene.instances)
+    rc2.set_transforms(0.0)
+    base = rc2.render().cpu().numpy()
+    for method, pinned in (("sah", SAH_DIGEST), ("median", MEDIAN_DIGEST)):
+        start = time.perf_counter()
+        rb = Renderer(load_scene(rc2.scene.config.replace(bvh_builder=method),
+                                 meshes=rc2.scene.meshes, skybox=rc2.scene.skybox),
+                      rc2.device)
+        t_build = time.perf_counter() - start
+        digest = tree_digest(first_tree(rb.tscene))
+        check(digest == pinned, f"the port builds raytpu's {method} tree of the "
+              f"teapot stand-in ({digest})")
+        rb.set_transforms(0.0)
+        stats = {}
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        img = rb.render(stats=stats)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - start) * 1e3
+        check(stats["tier"] == "mega", f"the {method} frame is on the consensus tier")
+        img = img.cpu().numpy()
+        s = ssim(img, base)
+        over = int((abs(img - base) > 1e-5).any(axis=-1).sum())
+        print(f"config2 stand-in on the {method} tree: build {t_build:.2f} s "
+              f"({rb.tscene.bvh_aabb_min.shape[0]} nodes), digest equals raytpu's; "
+              f"frame {ms:.3f} ms on the consensus tier, SSIM {s:.6f} to the native "
+              f"tree's frame, {over} pixels over 1e-5 [{gpu}]", flush=True)
+        check(s > 0.98, f"{method} vs native frame SSIM > 0.98 ({s})")
+        out[method] = dict(build_s=t_build, frame_ms=ms, ssim_to_native=s,
+                           pixels_over_1e5=over)
+    return out
+
+
+def option_frames(r4, gpu: str, prof_dir: Path) -> tuple:
+    """config4 at full width with ``fold_spp=False`` and with
+    ``ray_chunk`` = a quarter of the frame: 2 timed frames each on the
+    default tier and one profiled, and on the pallas tier their equality (within 1e-6) to
+    the folded and unchunked frame; then the two new filters: ``sky_nearest``
+    against its plain version on the primary wave, bit for bit, and one timed
+    frame each, whose launches of it are counted, against the same frame
+    with the single tap's plain version. Returns the record and the
+    ``sky_nearest`` row."""
+    import torch
+    from raytpu_torch import _build
+    from raytpu_torch.device_scene import pack_skybox_2x
+    from raytpu_torch.integrator import kernels, render_frame
+    from raytpu_torch.ops import sky
+
+    rs4, ts4 = r4.render_static, r4.tscene
+    out = {}
+    rs_u = dataclasses.replace(rs4, fold_spp=False)
+    rs_c = dataclasses.replace(rs4, ray_chunk=rs4.width * rs4.height // 4)
+    folded = render_frames(r4, 2, 0.05, 0.05, "config4_standin", gpu, "perlane")
+    for key, rs in (("unfolded", rs_u), ("chunked", rs_c)):
+        r4.render_static = rs
+        out[key] = render_frames(r4, 2, 0.05, 0.05, f"config4_standin_{key}", gpu,
+                                 "perlane")
+        out[key]["profile"] = profile_frame(
+            r4, prof_dir / f"profile_config4_{key}.txt", f"config4_standin_{key}", gpu)
+        r4.render_static = rs4
+    r4.tscene = dataclasses.replace(ts4, traversal="pallas")
+    got, want = same_rays_frames(r4, rs_u, rs4)
+    out["unfolded"]["same_rays_max_abs_diff_to_folded"] = max(
+        (a - b).abs().max().item() for a, b in zip(got, want))
+    cam = r4.camera_tensor()
+    stats = {}
+    chunked = render_frame(r4.tscene, rs_c, cam, stats=stats)
+    out["chunked"]["max_abs_diff_to_whole"] = (
+        chunked - render_frame(r4.tscene, rs4, cam)).abs().max().item()
+    r4.tscene = ts4
+    del got, want, chunked
+    print(f"config4 unfolded (one wave a sample): pallas-tier frame vs the folded "
+          f"frame from the same rays max abs diff "
+          f"{out['unfolded']['same_rays_max_abs_diff_to_folded']:.3g}; host syncs "
+          f"{out['unfolded']['host_syncs']} against folded {folded['host_syncs']}; "
+          f"chunked ({stats['host_syncs']} host syncs on the pallas tier): vs the "
+          f"whole frame {out['chunked']['max_abs_diff_to_whole']:.3g}", flush=True)
+    check(out["unfolded"]["same_rays_max_abs_diff_to_folded"] <= 1e-6,
+          "config4 unfolded frame within 1e-6 of the folded one (pallas tier)")
+    check(out["chunked"]["max_abs_diff_to_whole"] <= 1e-6,
+          "config4 chunked frame within 1e-6 of the whole frame (pallas tier)")
+    out["folded"] = folded
+
+    # the single tap, K6's second mode, on every lane of the primary wave
+    rays, _ = primary_wave(r4)
+    h, w = ts4.sky_hw
+    dirs = (rays[3], rays[4], -rays[5])
+
+    def near_k():
+        return sky.sample_cubemap_u32_nearest(ts4.skybox_u32, h, w, dirs)
+
+    def near_p():
+        return sky.sample_cubemap_u32_nearest_ref(ts4.skybox_u32, h, w, dirs)
+
+    nk = near_k()
+    exact = all(torch.equal(a, b) for a, b in zip(nk, near_p()))
+    err = max((a - b).abs().max().item() for a, b in zip(nk, near_p()))
+    texels = int(sky.nearest_index(h, w, dirs).unique().numel())
+    n = dirs[0].numel()
+    row = dict(max_abs_err=err, ms=cuda_ms(near_k, 3, 10), plain_ms=cuda_ms(near_p, 3, 10),
+               shape=list(dirs[0].shape),
+               bound=bound(nbytes(*dirs, *nk) + 4 * texels,
+                           OPS_PER_LANE["sky_nearest"] * n))
+    print(f"sky_nearest {list(dirs[0].shape)} lanes, {h}x{w} faces: bit for bit "
+          f"{exact}; {row['ms']:.4f} ms (CUDA events), plain {row['plain_ms']:.4f} ms, "
+          f"bound {row['bound'][0]:.4f} ms by {row['bound'][1]} ({texels} distinct "
+          f"texels) [{gpu}]", flush=True)
+    check(exact, "sky_nearest equals its plain version bit for bit")
+
+    ts2x = dataclasses.replace(ts4, skybox_u32_2x=torch.as_tensor(
+        pack_skybox_2x(r4.scene.skybox), device=r4.device))
+    for f in ("nearest", "bilinear2x"):
+        r4.tscene = ts2x
+        r4.render_static = dataclasses.replace(rs4, skybox_filter=f)
+        _build.reset_launch_counts()
+        out[f] = render_frames(r4, 1, 0.05, 0.05, f"config4_standin_{f}", gpu, "perlane")
+        out[f]["launches"] = check_launches(
+            _build.launch_counts(), f"config4 {f} frames",
+            idle=CHAINED + CONSENSUS + MESH + ("sky",))
+        cam = r4.camera_tensor()
+        img = render_frame(r4.tscene, r4.render_static, cam)
+        with kernels(sky_nearest=sky.sample_cubemap_u32_nearest_ref):
+            plain = render_frame(r4.tscene, r4.render_static, cam)
+        out[f]["max_abs_diff_to_plain_tap"] = (img - plain).abs().max().item()
+        check(out[f]["max_abs_diff_to_plain_tap"] <= 1e-6,
+              f"config4 {f} frame within 1e-6 of the frame with the plain single tap")
+        if f == "nearest":
+            row["launches"] = out[f]["launches"]["sky_nearest"]
+    r4.tscene, r4.render_static = ts4, rs4
+    del ts2x
+    print(f"sky_nearest launches per frame {row['launches'] / 2:.1f} (2 frames); "
+          f"nearest and bilinear2x frames within 1e-6 of the plain single tap's "
+          f"({out['nearest']['max_abs_diff_to_plain_tap']:.3g}, "
+          f"{out['bilinear2x']['max_abs_diff_to_plain_tap']:.3g})", flush=True)
+    return out, row
+
+
+def validation_checks(rc2, gpu: str) -> dict:
+    """A config2 frame with ``validation=True``: no report, its host syncs
+    beside the frame's without; a NaN camera makes the guard report."""
+    import torch
+    from raytpu_torch.integrator import render_frame
+    from raytpu_torch.utils import log, validation
+
+    errors = []
+    saved = log.error
+    log.error = errors.append
+    try:
+        validation.check_scene(rc2.tscene)
+        rs = dataclasses.replace(rc2.render_static, validation=True)
+        cam = rc2.camera_tensor()
+        on, off = {}, {}
+        render_frame(rc2.tscene, rs, cam, stats=on)
+        render_frame(rc2.tscene, rc2.render_static, cam, stats=off)
+        check(not errors, f"no validation report on a clean frame ({errors})")
+        bad = cam.clone()
+        bad[3] = float("nan")
+        render_frame(rc2.tscene, rs, bad)
+        torch.cuda.synchronize()
+    finally:
+        log.error = saved
+    print(f"config2 validation: clean frame reports nothing, host syncs "
+          f"{on['host_syncs']} (without validation {off['host_syncs']}); NaN camera "
+          f"reports {errors} [{gpu}]", flush=True)
+    check(errors and all(re.fullmatch(
+        r"validation: \d+ non-finite values in (bounce-loop radiance|final ray "
+        r"directions)", e) for e in errors)
+        and any(e.endswith("final ray directions") for e in errors),
+        f"the guard reports the NaN camera ({errors})")
+    return dict(host_syncs=on["host_syncs"], host_syncs_without=off["host_syncs"],
+                nan_reports=errors)
+
+
+def options_phase(r4, rc2, t_bvh: float, gpu: str, prof_dir: Path) -> tuple:
+    """The render options and builders: the LBVH on the card
+    (:func:`lbvh_checks`, :func:`small_frames`), the SAH and median trees
+    (:func:`host_builders`), the unfolded loop, ray chunks and the two
+    single-tap filters at full width (:func:`option_frames`), validation
+    (:func:`validation_checks`) and the viewer loop (:func:`viewer_loop`).
+    Returns the record and the ``sky_nearest`` row."""
+    from raytpu_torch import scenes
+
+    start = time.perf_counter()
+    lb, rl = lbvh_checks(r4, t_bvh, gpu, prof_dir)
+    lb["small_frame"] = small_frames(r4, rl, gpu)
+    del rl
+    rec = {"lbvh": lb, "host_builders": host_builders(rc2, gpu)}
+    rec["options"], row = option_frames(r4, gpu, prof_dir)
+    rec["validation"] = validation_checks(rc2, gpu)
+    rec["viewer"] = viewer_loop(scenes.config1_standin(width=64, height=64), r4.device)
+    rec["seconds"] = time.perf_counter() - start
+    print(f"render-options phase: {rec['seconds']:.2f} s", flush=True)
+    return rec, row
 
 
 # the tier "auto" resolves each stand-in to (raytpu_torch.accel.resolve_auto_tier)
@@ -1973,7 +2366,7 @@ def main() -> int:
     counts = _build.launch_counts()
     check(set(counts) == set(KERNELS), f"chip_smoke lists every kernel ({counts})")
     c4["launches"] = check_launches(counts, "config4 frames",
-                                    idle=CHAINED + CONSENSUS + MESH)
+                                    idle=CHAINED + CONSENSUS + MESH + NEAREST)
     c4["profile"] = profile_frame(r4, prof_dir / "profile_config4.txt",
                                   "config4_standin", gpu)
 
@@ -1984,7 +2377,7 @@ def main() -> int:
     check(pal4["rays"] == c4["rays"], "both tiers trace the same rays in the same frames")
     pal_counts = _build.launch_counts()
     pal4["launches"] = check_launches(pal_counts, "config4 pallas-tier frames",
-                                      idle=PER_LANE + CONSENSUS + MESH)
+                                      idle=PER_LANE + CONSENSUS + MESH + NEAREST)
     pal4["profile"] = profile_frame(r4, prof_dir / "profile_config4_pallas.txt",
                                     "config4_standin_pallas", gpu)
     r4.tscene = dataclasses.replace(r4.tscene, traversal="auto")
@@ -2004,7 +2397,7 @@ def main() -> int:
     xla4 = render_frames(r4, 2, 0.05, 0.05, "config4_standin_xla", gpu, "xla")
     mesh_counts = _build.launch_counts()
     xla4["launches"] = check_launches(mesh_counts, "config4 xla frames",
-                                      idle=CHAINED + PER_LANE + CONSENSUS + FUSED)
+                                      idle=CHAINED + PER_LANE + CONSENSUS + FUSED + NEAREST)
     xla4["profile"] = profile_frame(r4, prof_dir / "profile_config4_xla.txt",
                                     "config4_standin_xla", gpu)
     got, want = same_rays_frames(r4, rs4, rs4, ts_b=dataclasses.replace(
@@ -2026,7 +2419,7 @@ def main() -> int:
     _build.reset_launch_counts()
     ref = render_frames(rr, 2, 0.05, 0.05, "reference_standin", gpu, "perlane")
     ref["launches"] = check_launches(_build.launch_counts(), "reference frames",
-                                     idle=CHAINED + CONSENSUS + MESH)
+                                     idle=CHAINED + CONSENSUS + MESH + NEAREST)
     ref["profile"] = profile_frame(rr, prof_dir / "profile_reference.txt",
                                    "reference_standin", gpu)
     renderers = {"config4_standin": r4, "reference_standin": rr}
@@ -2110,6 +2503,9 @@ def main() -> int:
     tie = tie_check(Renderer(scenes.tie_scene()))
     del small
 
+    opts, kern_near = options_phase(r4, renderers["config2_standin"], t_bvh, gpu,
+                                    prof_dir)
+
     start = time.perf_counter()
     entry = entry_points(renderers, gpu)
     print(f"entry-points phase: {time.perf_counter() - start:.2f} s", flush=True)
@@ -2128,15 +2524,19 @@ def main() -> int:
                                       "perlane_equals_pallas": True,
                                       "mega_equals_perlane": True,
                                       "body_compact_equals_full": True},
-                      "tie_check": tie, "entry_points": entry,
+                      "tie_check": tie, "render_options": opts,
+                      "entry_points": entry,
                       "full_wave_ties": kern["perlane_closest_sweep"]["full_wave_ties"],
                       "loop_full_wave_ties": kern["mesh_closest"]["full_wave_ties"],
                       "kernel_work": {k: v["work"] for k, v in kern.items() if "work" in v},
                       "prepass": {k: {f: v[f] for f in v if "prepass" in f or "ops" in f}
                                   for k, v in kern.items() if "prepass_ms" in v}}))
     kern.update(cons_kern)
+    kern["sky_nearest"] = kern_near
 
     def launches(name):
+        if name in NEAREST:
+            return kern_near["launches"]
         return (pal_counts if name in CHAINED else cons_counts if name in CONSENSUS
                 else mesh_counts if name in MESH else counts)[name]
 

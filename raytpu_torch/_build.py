@@ -48,6 +48,9 @@ _SIGNATURES = {
     "anyhit_sweep": [_P, _L, _P, _P, _L, _F, _P, _I, _P, _P, _P, _P, _P],
     "raygen": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
     "sky": [_P, _I, _I, _P, _P, _P, _P, _L, _P],
+    # K6's single-tap mode (raytpu/ops/sky_mxu.py:120 with bilinear=False,
+    # :453 via :543): the same operands as "sky"
+    "sky_nearest": [_P, _I, _I, _P, _P, _P, _P, _L, _P],
     "shade_epilogue": [_P, _L, _P, _L, _P, _P, _L, _P, _P, _L, _P, _P, _L,
                        _P, _P, _L, _F, _F, _F, _P],
     "accumulate_epilogue": [_P, _P, _L, _P, _P, _L, _P, _L, _I, _F, _P],

@@ -1,9 +1,15 @@
 """BVH attachment for the PyTorch port (counterpart of
 ``raytpu/accel/__init__.py:26-147`` and ``resolve_auto_tier`` :302).
 
-One threaded SAH tree per mesh, built by the native builder, with its
-per-octant links for the per-lane tier and their wide rethreading for the
-consensus tier. The JAX
+One threaded tree per mesh, with its per-octant links for the per-lane
+tier and their wide rethreading for the consensus tier, built as
+``RenderConfig.bvh_builder`` says (:40-75): "auto" and "native" by the
+native SAH builder (``accel/native.py``), "sah" and "median" by the host
+builders of ``accel/bvh.py``, "lbvh" by the device LBVH of
+``accel/lbvh.py`` on the scene's device. raytpu's "auto" falls back to its
+Python "sah" where its native library is missing; the port builds its
+native library from source or raises, so that fallback never applies. The
+JAX
 package's SMEM chunking (``accel/__init__.py:93-101``) exists only because
 the TPU kernels keep a tree in 1 MB of scalar memory; a GPU thread walks a
 whole mesh's tree from device memory, so the port builds no chunks, and
@@ -16,11 +22,15 @@ entries. To walk raytpu's chunked trees instead, use
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
 
 from raytpu_torch.scene import Scene
+from raytpu_torch.accel import bvh as host_bvh
+from raytpu_torch.accel import native
+from raytpu_torch.accel.lbvh import build_lbvh
 from raytpu_torch.accel.native import Bvh, build_bvh
 from raytpu_torch.device_scene import (
     TorchScene,
@@ -30,7 +40,15 @@ from raytpu_torch.device_scene import (
 )
 from raytpu_torch.ops.mega import mesh_octant_links, mesh_wide_links
 
-__all__ = ["Bvh", "attach_bvh", "build_bvh", "resolve_auto_tier"]
+__all__ = ["BVH_BUILDERS", "Bvh", "attach_bvh", "build_bvh", "resolve_auto_tier"]
+
+# RenderConfig.bvh_builder's values (mesh_builder)
+BVH_BUILDERS = ("auto", "native", "sah", "median", "lbvh")
+
+# the largest leaf raytpu's traversal unrolls (raytpu/ops/intersect.py:56,
+# the same environment override as RenderConfig.leaf_size); attach_bvh
+# refuses larger leaves as raytpu's does (accel/__init__.py:54-58)
+LEAF_UNROLL = int(os.environ.get("RAYTPU_LEAF_SIZE", "12"))
 
 
 def resolve_auto_tier(total_tris: int, spp: int, bounces: int) -> str:
@@ -45,12 +63,30 @@ def resolve_auto_tier(total_tris: int, spp: int, bounces: int) -> str:
     return "mega"
 
 
+def mesh_builder(method: str, leaf_size: int, device):
+    """``build(v0, e1, e2) -> Bvh`` of the builder ``method`` (a
+    ``RenderConfig.bvh_builder`` value)."""
+    if method in ("auto", "native"):
+        return lambda v0, e1, e2: native.build_bvh(v0, e1, e2, leaf_size)
+    if method in ("sah", "median"):
+        return lambda v0, e1, e2: host_bvh.build_bvh(
+            v0, e1, e2, leaf_size=leaf_size, method=method)
+    if method == "lbvh":
+        return lambda v0, e1, e2: build_lbvh(v0, e1, e2, leaf_size, device)
+    raise ValueError(f"bvh_builder={method!r}: use one of {BVH_BUILDERS}")
+
+
 def attach_bvh(tscene: TorchScene, scene: Scene, leaf_size: int) -> TorchScene:
-    """Build one tree per mesh of ``scene``, concatenate the ``bvh_*``
-    arrays (node and slot indices stay mesh-local), thread each tree per
-    octant, plain and wide, pack the per-lane sweeps' records, fill the
-    entry table, one entry per instance, and resolve the traversal tier
-    from the scene's config."""
+    """Build one tree per mesh of ``scene`` with the builder its config
+    names (:func:`mesh_builder`), concatenate the ``bvh_*`` arrays (node
+    and slot indices stay mesh-local), thread each tree per octant, plain
+    and wide, pack the per-lane sweeps' records, fill the entry table, one
+    entry per instance, and resolve the traversal tier from the scene's
+    config."""
+    if leaf_size > LEAF_UNROLL:
+        raise ValueError(
+            f"leaf_size {leaf_size} exceeds traversal LEAF_UNROLL {LEAF_UNROLL}")
+    build = mesh_builder(scene.config.bvh_builder, leaf_size, tscene.device)
     v0_all, e1_all, e2_all, n_soa = corner_tables(scene)
     nodes = {k: [] for k in ("aabb_min", "aabb_max", "tri_first",
                              "tri_count", "miss")}
@@ -60,7 +96,7 @@ def attach_bvh(tscene: TorchScene, scene: Scene, leaf_size: int) -> TorchScene:
     for mesh_id in range(scene.geometry.num_meshes):
         _, ps = scene.geometry.mesh_slice(mesh_id)
         v0, e1, e2 = v0_all[ps], e1_all[ps], e2_all[ps]
-        bvh = build_bvh(v0, e1, e2, leaf_size=leaf_size)
+        bvh = build(v0, e1, e2)
         node_ranges.append((node_acc, bvh.num_nodes))
         tri_ranges.append((tri_acc, bvh.num_triangles))
         node_acc += bvh.num_nodes

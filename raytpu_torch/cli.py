@@ -8,6 +8,7 @@ system, and renders on the card unless ``--cpu`` is given:
     python -m raytpu_torch.cli render     --mesh a.obj:mirror --mesh b.obj:diffuse:orbit
     python -m raytpu_torch.cli flythrough --preset config5_standin --frames 120 -o frames/
     python -m raytpu_torch.cli bench      --preset config4_standin
+    python -m raytpu_torch.cli interactive --preset config1_standin   # cv2 + a display
     python -m raytpu_torch.cli render     --preset config1_standin --width 64 --height 64 --cpu
 
 Presets are the JAX package's (``config1`` ... ``config5``,
@@ -197,10 +198,11 @@ def cmd_bench(args) -> int:
 
 
 def cmd_interactive(args) -> int:
-    log.fail("interactive is not ported yet: the windowed viewer "
-             "(raytpu/frontend/interactive.py) needs cv2 and a window; use "
-             "render or flythrough, or the JAX package's python -m raytpu.cli "
-             "interactive")
+    device = _device(args)
+    from raytpu_torch.frontend.interactive import run_interactive
+
+    run_interactive(_build_scene(args), device=device)
+    return 0
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -235,7 +237,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser("interactive",
-                       help="windowed WASD+mouse viewer (not ported yet)")
+                       help="windowed WASD+mouse viewer (needs cv2 and a display)")
     _add_scene_args(p)
     p.set_defaults(fn=cmd_interactive)
 

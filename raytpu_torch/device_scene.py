@@ -64,6 +64,11 @@ class TorchScene:
     # value): the shade and accumulate kernels take them as arguments, so a
     # launch reads nothing back from the device
     light: Tuple[float, float, float, float]
+    # the 2x bilinear-prefiltered sky of the "bilinear2x" filter
+    # (pack_skybox_2x), (6*2H*2W,) int32 words: four times the sky's bytes
+    # (100.7 MB for a 6x1024x1024 sky), so built only for a scene whose
+    # config asks for that filter (None otherwise)
+    skybox_u32_2x: Optional[torch.Tensor] = None
     # threaded BVH, concatenated over traversal meshes (None until attached)
     bvh_aabb_min: Optional[torch.Tensor] = None   # (M, 3) f32
     bvh_aabb_max: Optional[torch.Tensor] = None   # (M, 3) f32
@@ -151,6 +156,38 @@ def pack_skybox(skybox: Optional[np.ndarray]) -> Tuple[np.ndarray, Tuple[int, in
     return words.reshape(-1).view(np.int32), (skybox.shape[1], skybox.shape[2])
 
 
+def pack_skybox_2x(skybox: Optional[np.ndarray]) -> np.ndarray:
+    """(6, H, W, 3) float sky -> (6*2H*2W,) int32 RGB8 words of its 2x
+    bilinear prefilter, as ``raytpu.device_scene.build_device_scene``
+    (:245-272) computes it: per face the separable half-texel upsample in
+    f32, then ``+0.5``, clip and pack. A single tap into it is bilinear
+    filtering with weights on the half-texel grid."""
+    if skybox is None:
+        skybox = np.zeros((6, 1, 1, 3), np.float32)
+    skybox = np.asarray(skybox, np.float32)
+    fh, fw = skybox.shape[1], skybox.shape[2]
+
+    def upsample_axis(img, axis, size):
+        pos = np.clip((np.arange(2 * size, dtype=np.float32) - 0.5) / 2.0,
+                      0, size - 1)
+        i0 = np.floor(pos).astype(np.int64)
+        i1 = np.minimum(i0 + 1, size - 1)
+        w = (pos - i0).astype(np.float32)
+        a = np.take(img, i0, axis=axis)
+        b = np.take(img, i1, axis=axis)
+        shape = [1] * img.ndim
+        shape[axis] = 2 * size
+        w = w.reshape(shape)
+        return a * (1 - w) + b * w
+
+    words = np.empty((6, 2 * fh * 2 * fw), np.uint32)
+    for f in range(6):
+        face2 = upsample_axis(upsample_axis(skybox[f], 0, fh), 1, fw)
+        f8 = np.clip(face2 * 255.0 + 0.5, 0, 255).astype(np.uint32)
+        words[f] = (f8[..., 0] | (f8[..., 1] << 8) | (f8[..., 2] << 16)).reshape(-1)
+    return words.reshape(-1).view(np.int32)
+
+
 def host_light(pos, intensity) -> Tuple[float, float, float, float]:
     """The light as four host floats, each rounded to f32 as the device
     copies are."""
@@ -199,7 +236,8 @@ def with_packed(ts: TorchScene) -> TorchScene:
 
 def build_device_scene(scene: Scene, device) -> TorchScene:
     """Host :class:`raytpu_torch.scene.Scene` -> :class:`TorchScene` on ``device``
-    (no BVH yet: :func:`raytpu_torch.accel.attach_bvh` adds it)."""
+    (no BVH yet: :func:`raytpu_torch.accel.attach_bvh` adds it); the 2x sky
+    only where ``scene.config.skybox_filter`` is "bilinear2x"."""
     device = torch.device(device)
     anim = scene.animation()
     _, _, _, n_soa = corner_tables(scene)
@@ -221,6 +259,8 @@ def build_device_scene(scene: Scene, device) -> TorchScene:
         instance_mesh=tuple(inst.mesh_id for inst in scene.instances),
         light=host_light(scene.config.light_position,
                          scene.config.light_intensity),
+        skybox_u32_2x=(dev(pack_skybox_2x(scene.skybox))
+                       if scene.config.skybox_filter == "bilinear2x" else None),
     )
 
 
@@ -240,7 +280,7 @@ def from_raytpu(dev, static, device) -> TorchScene:
     same chunked ``bvh_*`` arrays, the same ``traversal_list`` and the same
     traversal tier, so both packages walk the identical trees in the
     identical order. The octant links, plain and wide, are threaded per
-    chunk.
+    chunk. raytpu builds every scene's 2x sky, and it comes across too.
 
     ``dev``/``static`` are read through ``np.asarray`` only; this module
     never imports JAX."""
@@ -269,6 +309,7 @@ def from_raytpu(dev, static, device) -> TorchScene:
         light_intensity=t(dev.light_intensity),
         tri_n_soa=t(dev.tri_n_soa),
         skybox_u32=t(np.asarray(dev.skybox_u32).view(np.int32)),
+        skybox_u32_2x=t(np.asarray(dev.skybox_u32_2x).view(np.int32)),
         sky_hw=tuple(int(x) for x in static.sky_hw),
         instance_mesh=tuple(static.instance_mesh),
         light=host_light(dev.light_pos, dev.light_intensity),

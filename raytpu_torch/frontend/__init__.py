@@ -1,6 +1,7 @@
 """Frontends of the port (counterparts of ``raytpu/frontend``): headless
-stills and sequences, and the scripted flythrough. The windowed viewer
-(``raytpu/frontend/interactive.py``) is not ported yet."""
+stills and sequences, the scripted flythrough, and the windowed viewer
+(``frontend/interactive.py``, imported on its own: it needs cv2 when it
+runs)."""
 
 from raytpu_torch.frontend.headless import render_sequence, render_still
 from raytpu_torch.frontend.flythrough import (

@@ -4,9 +4,11 @@
 (``_wave_budget`` :239, ``_wave_rungs`` :258), the XLA bounce body of
 ``_trace_sample`` (:611-898, ``bounce_core`` :651) with its per-iteration
 resort (``body_compact`` :748) for ``fused="off"`` and for
-``traversal="xla"``, the deferred sky fetch (:575), the interleaved spp
-fold of ``render_packets`` (:901-970), tile-major pixel packets (:1002),
-``render_frame`` (:1047) and ``detile`` (:1092).
+``traversal="xla"``, the deferred sky fetch (:575) with its three filters,
+the validation guards (:567-571, :857-862), ``render_packets`` (:901-970)
+with its interleaved spp fold and its unfolded loop of one wave per sample,
+tile-major pixel packets (:1002), ``render_frame`` (:1047) with its ray
+chunks, and ``detile`` (:1092).
 
 The default path (``fused="on"``, ``wavefront="compact"``): per bounce a
 closest-hit sweep, the fused shade pass, a shadow any-hit sweep and the
@@ -54,6 +56,7 @@ from typing import Optional
 
 import torch
 
+from raytpu_torch.accel import BVH_BUILDERS
 from raytpu_torch.config import (
     HIT_EPSILON,
     RAY_TMAX,
@@ -85,7 +88,12 @@ from raytpu_torch.ops.perlane import (
     perlane_closest_sweep_ref,
 )
 from raytpu_torch.ops.raygen import primary_rays_soa, raygen_packed, raygen_packed_ref
-from raytpu_torch.ops.sky import sample_cubemap_u32, sample_cubemap_u32_ref
+from raytpu_torch.ops.sky import (
+    sample_cubemap_u32,
+    sample_cubemap_u32_nearest,
+    sample_cubemap_u32_nearest_ref,
+    sample_cubemap_u32_ref,
+)
 from raytpu_torch.ops.trace import (
     any_hit_loop,
     any_hit_wave,
@@ -103,6 +111,7 @@ from raytpu_torch.ops.traverse import (
     mesh_closest,
     mesh_closest_ref,
 )
+from raytpu_torch.utils import validation
 
 __all__ = [
     "RenderStatic", "primary_rays_soa", "render_packets", "render_frame",
@@ -127,6 +136,7 @@ _KERNELS = {"raygen": raygen_packed, "closest": closest_sweep,
             "mega_closest": mega_closest_sweep,
             "mega_anyhit": mega_anyhit_sweep, "mesh_closest": mesh_closest,
             "mesh_anyhit": mesh_anyhit, "sky": sample_cubemap_u32,
+            "sky_nearest": sample_cubemap_u32_nearest,
             "shade": shade_epilogue, "accumulate": accumulate_epilogue}
 _PLAIN = {"raygen": raygen_packed_ref, "closest": closest_sweep_ref,
           "anyhit": anyhit_sweep_ref,
@@ -135,8 +145,9 @@ _PLAIN = {"raygen": raygen_packed_ref, "closest": closest_sweep_ref,
           "mega_closest": mega_closest_sweep_ref,
           "mega_anyhit": mega_anyhit_sweep_ref,
           "mesh_closest": mesh_closest_ref, "mesh_anyhit": mesh_anyhit_ref,
-          "sky": sample_cubemap_u32_ref, "shade": shade_epilogue_ref,
-          "accumulate": accumulate_epilogue_ref}
+          "sky": sample_cubemap_u32_ref,
+          "sky_nearest": sample_cubemap_u32_nearest_ref,
+          "shade": shade_epilogue_ref, "accumulate": accumulate_epilogue_ref}
 
 
 @contextlib.contextmanager
@@ -144,8 +155,9 @@ def kernels(**fns):
     """Within the block, frames call ``fns`` in place of the kernel
     wrappers of those names (``raygen``, ``closest``, ``anyhit``,
     ``perlane_closest``, ``perlane_anyhit``, ``mega_closest``,
-    ``mega_anyhit``, ``mesh_closest``, ``mesh_anyhit``, ``sky``, ``shade``,
-    ``accumulate``), with the wrappers' arguments."""
+    ``mega_anyhit``, ``mesh_closest``, ``mesh_anyhit``, ``sky``,
+    ``sky_nearest``, ``shade``, ``accumulate``), with the wrappers'
+    arguments."""
     unknown = set(fns) - set(_KERNELS)
     if unknown:
         raise KeyError(f"no kernel wrapper named {sorted(unknown)}")
@@ -165,7 +177,7 @@ def plain_kernels():
 
 @dataclasses.dataclass(frozen=True)
 class RenderStatic:
-    """Render parameters the ported slice implements.
+    """Render parameters of the port (``raytpu/integrator.py:97-202``).
 
     ``fused``: "on" runs the fused bounce loop (the shade and accumulate
     kernels on the packed buffers); "off" the eager XLA body of
@@ -179,7 +191,21 @@ class RenderStatic:
     (``_wave_rungs``), "off" keeps the one budget. ``shadow_order``: the
     per-lane and consensus shadow sweeps' entry order
     (``raytpu/integrator.py:129``), "light" (nearest the light first) or
-    "origin" (by entry depth)."""
+    "origin" (by entry depth).
+
+    ``skybox_filter``: "bilinear" (K6), "nearest" (one tap, K6's single-tap
+    mode) or "bilinear2x" (one tap into the scene's 2x prefiltered map,
+    ``TorchScene.skybox_u32_2x``). ``fold_spp``: True traces every sample
+    in one wave (``render_packets``), False one wave per sample.
+    ``ray_chunk``: rays per chunk of the frame (whole packets, rounded up
+    to ``SEG_PACKETS``; 0 traces the whole frame at once). ``validation``:
+    the non-finite guards at the end of both bounce loops
+    (``utils/validation.guard``).
+
+    The JAX package's ``sample_group`` (:151-160) groups a tile's folded
+    sample packets into one consensus group of its TPU megakernel; the
+    port's consensus sweeps group lanes by warp (``ops/consensus.py``), so
+    nothing carries over."""
 
     width: int
     height: int
@@ -192,33 +218,36 @@ class RenderStatic:
     tile: int = 32
     fold_spp: bool = True
     shadow_order: str = "light"
+    ray_chunk: int = 0
+    validation: bool = False
+
+    @property
+    def packet_size(self) -> int:
+        return self.tile * self.tile
 
     def __post_init__(self):
-        if not self.fold_spp:
-            raise ValueError("fold_spp=False (one wave per sample) is not "
-                             "ported yet; the port folds spp into the wave")
-        if self.skybox_filter != "bilinear":
-            raise ValueError(
-                f"skybox_filter={self.skybox_filter!r} is not ported yet "
-                "(only 'bilinear')")
-        for name, allowed in (("wavefront", ("full", "compact")),
+        for name, allowed in (("skybox_filter", ("bilinear", "nearest",
+                                                  "bilinear2x")),
+                              ("wavefront", ("full", "compact")),
                               ("fused", ("on", "off")),
                               ("ladder", ("auto", "off")),
                               ("shadow_order", ("light", "origin"))):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"{name}={getattr(self, name)!r}: use one "
                                  f"of {allowed}")
+        if self.ray_chunk < 0:
+            raise ValueError(f"ray_chunk={self.ray_chunk}: use 0 (the whole "
+                             "frame) or a positive ray count")
 
     @classmethod
     def from_config(cls, config: RenderConfig) -> "RenderStatic":
-        """The slice's parameters from a ``RenderConfig``. Raises on every
-        value the slice does not implement, rather than ignoring it. All
-        ``sky_sampler`` values compute the same bilinear function, so each
-        maps to the port's one sampler."""
+        """The render parameters of a ``RenderConfig``. Raises on every
+        value the port does not implement, rather than ignoring it. All
+        ``sky_sampler`` values compute the same filter, so each maps to the
+        port's one sampler of it; every ``bvh_builder`` of the JAX package
+        is accepted (``accel.attach_bvh`` builds its tree)."""
         unsupported = {
-            "ray_chunk": (config.ray_chunk, 0),
             "devices": (config.devices, 1),
-            "validation": (config.validation, False),
             "divergence": (config.divergence, "off"),
             "bounce_unroll": (config.bounce_unroll, False),
             "chunk_tris": (config.chunk_tris, 0),
@@ -233,11 +262,10 @@ class RenderStatic:
             raise ValueError("RenderConfig.sky_rebin='on' is a rejected TPU "
                              "experiment and is not ported")
         _check_traversal(config.traversal)
-        if config.bvh_builder not in ("auto", "native"):
+        if config.bvh_builder not in BVH_BUILDERS:
             raise ValueError(
-                f"RenderConfig.bvh_builder={config.bvh_builder!r} is not "
-                "ported yet (the port builds the native builder's trees; "
-                "raytpu's 'sah' is its Python builder, whose trees differ)")
+                f"RenderConfig.bvh_builder={config.bvh_builder!r}: use one of "
+                f"{BVH_BUILDERS}")
         return cls(
             width=config.width,
             height=config.height,
@@ -245,6 +273,8 @@ class RenderStatic:
             max_bounce_count=config.max_bounce_count,
             skybox_filter=config.skybox_filter,
             wavefront=config.wavefront,
+            ray_chunk=config.ray_chunk,
+            validation=config.validation,
         )
 
 
@@ -406,14 +436,30 @@ def _bounce_core(ts, rs, o, d, tmp, active, miss_rec, decay, stats, traces):
     return o, d, tmp, cont, miss_rec
 
 
-def _deferred_sky(ts, missed, d, tmp):
-    """Once-per-wave sky fetch for the miss lanes (``integrator.py:575``):
-    z-flipped lookup, non-miss lanes pointed at (0, 0, 1) and masked."""
+def _deferred_sky(ts, rs, missed, d, tmp, stats):
+    """Once-per-wave sky fetch for the miss lanes (``integrator.py:575-607``):
+    z-flipped lookup, non-miss lanes pointed at (0, 0, 1) and masked, by
+    ``rs.skybox_filter``: "bilinear" through K6, "nearest" through K6's
+    single tap, "bilinear2x" through the single tap on the 2x map. With
+    ``rs.validation``, the radiance and the final directions pass the
+    guard first (:567-571, :857-862)."""
+    if rs.validation:
+        validation.guard(tmp, "bounce-loop radiance", stats)
+        validation.guard(d, "final ray directions", stats)
     zero = torch.zeros_like(d[0])
     dirs = (torch.where(missed, d[0], zero), torch.where(missed, d[1], zero),
             torch.where(missed, -d[2], zero + 1.0))
     h, w = ts.sky_hw
-    sky = _KERNELS["sky"](ts.skybox_u32, h, w, dirs)
+    if rs.skybox_filter == "bilinear":
+        sky = _KERNELS["sky"](ts.skybox_u32, h, w, dirs)
+    elif rs.skybox_filter == "nearest":
+        sky = _KERNELS["sky_nearest"](ts.skybox_u32, h, w, dirs)
+    else:   # "bilinear2x": one tap into the 2x-prefiltered map
+        if ts.skybox_u32_2x is None:
+            raise ValueError(
+                "skybox_filter='bilinear2x' needs the scene's 2x sky, which "
+                "build_device_scene makes for a config with that filter")
+        sky = _KERNELS["sky_nearest"](ts.skybox_u32_2x, 2 * h, 2 * w, dirs)
     return v3.where(missed, sky, tmp)
 
 
@@ -479,7 +525,7 @@ def _trace_sample(ts: TorchScene, rs: RenderStatic, o, d,
             active, miss_rec = (planes[i].index_select(0, inv) for i in (9, 10))
             j += 1
     # at loop exit d is each miss lane's miss direction (no carry needed)
-    return _deferred_sky(ts, miss_rec, d, tmp)
+    return _deferred_sky(ts, rs, miss_rec, d, tmp, stats)
 
 
 def _seg_divisor(p: int, cap: int) -> int:
@@ -606,8 +652,8 @@ def _trace_sample_fused(ts: TorchScene, rs: RenderStatic, rays: torch.Tensor,
         miss = miss.index_select(0, inv)
 
     # at loop exit d is each miss lane's miss direction (no carry needed)
-    return _deferred_sky(ts, miss != 0, (rays[3], rays[4], rays[5]),
-                         (tmp[0], tmp[1], tmp[2]))
+    return _deferred_sky(ts, rs, miss != 0, (rays[3], rays[4], rays[5]),
+                         (tmp[0], tmp[1], tmp[2]), stats)
 
 
 def render_packets(ts: TorchScene, rs: RenderStatic, camera: torch.Tensor,
@@ -615,34 +661,68 @@ def render_packets(ts: TorchScene, rs: RenderStatic, camera: torch.Tensor,
                    rays6: Optional[torch.Tensor] = None,
                    stats: Optional[dict] = None):
     """Render packets of pixels ``px``/``py`` (P, K) -> Vec3 color (P, K),
-    sample-averaged. All spp sample waves are folded into the packet axis,
-    interleaved (packet t*spp + s = tile t, sample s).
+    sample-averaged (``integrator.render_packets`` :901-970). With
+    ``rs.fold_spp`` (and spp > 1) all spp sample waves are folded into the
+    packet axis, interleaved (packet t*spp + s = tile t, sample s), and the
+    colors are their mean; else one wave of the P packets a sample, sample
+    index i on every packet, and the colors are their sum scaled by 1/spp
+    (:951-970), which may round apart from the mean.
 
-    ``rays6`` replaces the raygen: the packed (6, spp*P, K) primary rays of
-    the folded wave (left unchanged). ``stats``, if a dict, receives device
+    ``rays6`` replaces the raygen: the packed (6, spp*P, K) primary rays in
+    the folded layout (left unchanged; the unfolded loop takes sample i's
+    packets ``rays6[:, i::spp]``). ``stats``, if a dict, receives device
     counters of the rays traced (``closest_rays``, ``shadow_rays``), the
-    host count ``host_syncs`` and the sweeps' ``tier`` (:func:`frame_tier`)."""
+    host count ``host_syncs``, all summed over the waves, and the sweeps'
+    ``tier`` of one wave (:func:`frame_tier`)."""
     p, k = px.shape
     spp = rs.samples_per_pixel
+    if not rs.fold_spp and spp > 1:
+        return _render_samples(ts, rs, camera, px, py, active0, rays6, stats)
     if stats is not None:
         stats["tier"] = frame_tier(ts, p * spp, k)
     pxs = px.repeat_interleave(spp, dim=0)
     pys = py.repeat_interleave(spp, dim=0)
     act = active0.repeat_interleave(spp, dim=0)
     s_row = torch.arange(spp, dtype=torch.float32, device=px.device).repeat(p)
-    fused = _use_fused(ts, rs, p * spp, k)
+    colors = _trace_wave(ts, rs, camera, pxs, pys, act, s_row, rays6, stats)
+    return tuple(c.reshape(p, spp, k).mean(dim=1) for c in colors)
+
+
+def _render_samples(ts, rs, camera, px, py, active0, rays6, stats):
+    """The unfolded loop (``render_packets.sample_body`` :951-970): one wave
+    of the P packets per sample, colors summed, then scaled by 1/spp. The
+    tier and the fused choice are those of a P-packet wave."""
+    p, k = px.shape
+    spp = rs.samples_per_pixel
+    if stats is not None:
+        stats["tier"] = frame_tier(ts, p, k)
+    accum = None
+    for i in range(spp):
+        s_row = torch.full((p,), float(i), dtype=torch.float32, device=px.device)
+        rays_i = None if rays6 is None else rays6[:, i::spp].contiguous()
+        colors = _trace_wave(ts, rs, camera, px, py, active0, s_row, rays_i,
+                             stats)
+        accum = colors if accum is None else v3.add(accum, colors)
+    return v3.scale(1.0 / spp, accum)
+
+
+def _trace_wave(ts, rs, camera, px, py, act, s_row, rays6, stats):
+    """One wave of packets ``px``/``py`` (P, K) with per-packet sample index
+    ``s_row`` (P,): the raygen (unless ``rays6`` gives its rays, which are
+    left unchanged), then the fused loop or the XLA body -> Vec3 color."""
+    p, k = px.shape
+    spp = rs.samples_per_pixel
+    fused = _use_fused(ts, rs, p, k)
     if rays6 is None:
-        rays6 = _KERNELS["raygen"](camera, s_row, pxs, pys, spp, rs.width,
+        rays6 = _KERNELS["raygen"](camera, s_row, px, py, spp, rs.width,
                                    rs.height)
     elif fused:
         rays6 = rays6.clone()  # the fused loop bounces the rays in place
     if fused:
-        colors = _trace_sample_fused(ts, rs, rays6, s_row, act, stats)
-    else:
-        o = (rays6[0], rays6[1], rays6[2])
-        d = (rays6[3], rays6[4], rays6[5])
-        colors = _trace_sample(ts, rs, o, d, s_row[:, None], act, stats)
-    return tuple(c.reshape(p, spp, k).mean(dim=1) for c in colors)
+        return _trace_sample_fused(ts, rs, rays6, s_row, act, stats)
+    o = (rays6[0], rays6[1], rays6[2])
+    d = (rays6[3], rays6[4], rays6[5])
+    return _trace_sample(ts, rs, o, d, s_row[:, None], act, stats)
 
 
 def tiled_pixels(rs: RenderStatic, device):
@@ -687,7 +767,29 @@ def detile(colors, rs: RenderStatic) -> torch.Tensor:
 
 def render_frame(ts: TorchScene, rs: RenderStatic, camera: torch.Tensor,
                  stats: Optional[dict] = None) -> torch.Tensor:
-    """Full frame -> (H, W, 3) f32 image on the scene's device."""
+    """Full frame -> (H, W, 3) f32 image on the scene's device.
+
+    With ``rs.ray_chunk`` (``integrator.render_frame`` :1064-1088) the
+    packets go through :func:`render_packets` in chunks of
+    ``max(1, ray_chunk // packet_size)`` packets, rounded up to a
+    ``SEG_PACKETS`` multiple, when that is fewer than the frame's: the
+    frame is padded with dead packets to whole chunks, and ``stats`` sums
+    over the chunks."""
     (px, py), in_frame = tiled_pixels(rs, ts.device)
-    colors = render_packets(ts, rs, camera, px, py, in_frame, stats=stats)
+    p = px.shape[0]
+    chunk = 0
+    if rs.ray_chunk:
+        chunk = max(1, rs.ray_chunk // rs.packet_size)
+        chunk = -(-chunk // SEG_PACKETS) * SEG_PACKETS
+    if not chunk or chunk >= p:
+        colors = render_packets(ts, rs, camera, px, py, in_frame, stats=stats)
+        return detile(colors, rs)
+    pad = (-p) % chunk
+    if pad:
+        px, py, in_frame = (torch.cat([x, x.new_zeros((pad, x.shape[1]))])
+                            for x in (px, py, in_frame))
+    parts = [render_packets(ts, rs, camera, px[s:s + chunk], py[s:s + chunk],
+                            in_frame[s:s + chunk], stats=stats)
+             for s in range(0, p + pad, chunk)]
+    colors = tuple(torch.cat([c[i] for c in parts])[:p] for i in range(3))
     return detile(colors, rs)

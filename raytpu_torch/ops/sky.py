@@ -1,11 +1,15 @@
 """Cube-map sky sampling (counterpart of ``raytpu/ops/sky.py:21-140`` and
-of the MXU sampler ``raytpu/ops/sky_mxu.py``, whose function is
-``sample_cubemap_u32``).
+of the MXU sampler ``raytpu/ops/sky_mxu.py``, whose functions are
+``sample_cubemap_u32`` in its bilinear mode and
+``sample_cubemap_u32_nearest`` in its single-tap mode).
 
-``sample_cubemap_u32`` is the kernel wrapper (CPU tensors take the plain
-version, CUDA tensors launch ``csrc/sky.cu``); ``sample_cubemap_u32_ref``
-is ``sky.py:113-140`` op for op. Faces are +X, -X, +Y, -Y, +Z, -Z; the
-z-flip of the reference's lookup is applied by the caller.
+``sample_cubemap_u32`` and ``sample_cubemap_u32_nearest`` are the kernel
+wrappers (CPU tensors take the plain versions, CUDA tensors launch
+``csrc/sky.cu``'s ``sky_kernel`` and ``sky_nearest_kernel``);
+``sample_cubemap_u32_ref`` is ``sky.py:113-140`` and
+``sample_cubemap_u32_nearest_ref`` ``sky.py:99-110``, op for op. Faces are
++X, -X, +Y, -Y, +Z, -Z; the z-flip of the reference's lookup is applied by
+the caller.
 """
 
 from __future__ import annotations
@@ -82,11 +86,40 @@ def sample_cubemap_u32_ref(sky_u32: torch.Tensor, h: int, w: int, dirs):
     return tuple(out)
 
 
+def nearest_index(h: int, w: int, dirs) -> torch.Tensor:
+    """The word each lane of ``dirs`` takes in a single-tap lookup
+    (``sky.py:104-107``): ``floor(s*w)`` truncated to int32 and clamped,
+    likewise for t, on its face."""
+    face, s, t = face_st(*dirs)
+    xc = torch.clamp(torch.floor(s * w).to(torch.int32), 0, w - 1)
+    yc = torch.clamp(torch.floor(t * h).to(torch.int32), 0, h - 1)
+    return face.long() * (h * w) + yc.long() * w + xc.long()
+
+
+def sample_cubemap_u32_nearest_ref(sky_u32: torch.Tensor, h: int, w: int,
+                                   dirs):
+    """Plain single-tap cube-map lookup, one word a lane; on the 2x
+    prefiltered map (``device_scene.pack_skybox_2x``) it is the
+    "bilinear2x" filter."""
+    return _unpack_rgb8(sky_u32[nearest_index(h, w, dirs)])
+
+
 def sample_cubemap_u32(sky_u32: torch.Tensor, h: int, w: int, dirs):
     """Bilinear cube-map lookup for every lane of ``dirs``."""
     if dirs[0].device.type == "cpu":
         return sample_cubemap_u32_ref(sky_u32, h, w, dirs)
-    k = "sky"
+    return _launch("sky", sky_u32, h, w, dirs)
+
+
+def sample_cubemap_u32_nearest(sky_u32: torch.Tensor, h: int, w: int, dirs):
+    """Single-tap cube-map lookup for every lane of ``dirs``."""
+    if dirs[0].device.type == "cpu":
+        return sample_cubemap_u32_nearest_ref(sky_u32, h, w, dirs)
+    return _launch("sky_nearest", sky_u32, h, w, dirs)
+
+
+def _launch(k: str, sky_u32: torch.Tensor, h: int, w: int, dirs):
+    """Launch sky kernel ``k`` over every lane of ``dirs`` -> Vec3."""
     shape = dirs[0].shape
     n = dirs[0].numel()
     dirs = [x.contiguous() for x in dirs]  # held until the launch is queued

@@ -14,6 +14,7 @@ from raytpu_torch.scene import AnimationState, Scene
 from raytpu_torch.accel import attach_bvh
 from raytpu_torch.device_scene import build_device_scene
 from raytpu_torch.integrator import RenderStatic, render_frame
+from raytpu_torch.utils import validation
 
 
 class Renderer:
@@ -31,6 +32,8 @@ class Renderer:
                                  leaf_size=scene.config.leaf_size)
         self.animation = AnimationState(scene.instances)
         self.time_param = 0.0
+        if scene.config.validation:
+            validation.check_scene(self.tscene)
 
     def set_transforms(self, time_param: float) -> None:
         """Advance instance animation to ``time_param`` (the refit analog,
@@ -46,9 +49,13 @@ class Renderer:
         return torch.as_tensor(self.camera.basis(), device=self.device)
 
     def render(self, stats: Optional[dict] = None) -> torch.Tensor:
-        """One frame -> (H, W, 3) f32 tensor on the device."""
-        return render_frame(self.tscene, self.render_static,
-                            self.camera_tensor(), stats=stats)
+        """One frame -> (H, W, 3) f32 tensor on the device (checked by
+        ``validation.check_frame`` when the config asks for validation)."""
+        img = render_frame(self.tscene, self.render_static,
+                           self.camera_tensor(), stats=stats)
+        if self.scene.config.validation:
+            validation.check_frame(img)
+        return img
 
     def render_u8(self) -> torch.Tensor:
         """Render and quantize to uint8 on the device."""

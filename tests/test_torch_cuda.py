@@ -80,6 +80,41 @@ def test_raygen_and_sky(rig):
         assert (x - y).abs().max() <= 1e-6
 
 
+def test_sky_nearest_bitwise(rig):
+    """K6's single-tap mode equals its plain version bit for bit, on the
+    rig's directions and on the face edges and axes."""
+    r, rays = rig
+    h, w = r.tscene.sky_hw
+    edge = torch.tensor([[1, 1, 0.3], [-1, 0.2, 1], [0.5, -1, -1], [0, 0, 1],
+                         [0, -1, 0], [-1, 0, 0], [1, 1, 1]], device="cuda")
+    for dirs in ((rays[3], rays[4], -rays[5]),
+                 tuple(edge[:, c].contiguous() for c in range(3))):
+        _build.reset_launch_counts()
+        got = sky.sample_cubemap_u32_nearest(r.tscene.skybox_u32, h, w, dirs)
+        assert _build.launch_counts()["sky_nearest"] == 1
+        want = sky.sample_cubemap_u32_nearest_ref(r.tscene.skybox_u32, h, w, dirs)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+
+
+def test_lbvh_on_card_equals_cpu():
+    """The LBVH's steps 1-4 on the card give the tree of the same steps on
+    CPU tensors, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from raytpu_torch.accel import lbvh
+    from raytpu_torch.io.genmesh import generate_highpoly
+
+    mesh = generate_highpoly(depth=5, radius=3.0)
+    tri = mesh.triangles.astype(np.int64)
+    v0 = mesh.positions[tri[:, 0]]
+    e1, e2 = mesh.positions[tri[:, 1]] - v0, mesh.positions[tri[:, 2]] - v0
+    card = lbvh.build_lbvh(v0, e1, e2, leaf_size=12, device="cuda")
+    host = lbvh.build_lbvh(v0, e1, e2, leaf_size=12, device="cpu")
+    for a, b in zip(card, host):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
 def test_frame_goes_through_kernels(rig):
     """The default frame (auto -> mega on this scene), the chained-tier,
     the per-lane and the "xla" frames together launch every kernel, each
@@ -93,6 +128,13 @@ def test_frame_goes_through_kernels(rig):
         _build.reset_launch_counts()
         imgs[trav] = render_frame(ts, r.render_static, r.camera_tensor())
         counts[trav] = _build.launch_counts()
+        assert counts[trav]["sky"] > 0 and counts[trav]["sky_nearest"] == 0
+    _build.reset_launch_counts()     # the "nearest" filter: K6's single tap
+    render_frame(r.tscene, dataclasses.replace(r.render_static,
+                                               skybox_filter="nearest"),
+                 r.camera_tensor())
+    counts["nearest"] = _build.launch_counts()
+    assert counts["nearest"]["sky_nearest"] > 0 and counts["nearest"]["sky"] == 0
     sweeps = {"auto": ("block_stats", "mega_closest_sweep", "mega_anyhit_sweep"),
               "pallas": ("closest_sweep", "anyhit_sweep"),
               "perlane": ("block_stats", "perlane_closest_sweep",

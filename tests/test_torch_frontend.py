@@ -159,13 +159,16 @@ def test_cli_render_writes_a_file(tmp_path):
     assert img.shape == (32, 48, 3) and img.std() > 1.0
 
 
-def test_cli_interactive_raises():
-    with pytest.raises(RaytpuError, match="not ported yet"):
-        cli.main(["interactive", "--preset", "config1_standin", "--cpu"])
+def test_cli_interactive_raises(monkeypatch):
+    """The CLI reaches the viewer, which raises without cv2."""
+    monkeypatch.setitem(sys.modules, "cv2", None)   # import cv2 fails
+    with pytest.raises(RaytpuError, match="interactive frontend needs OpenCV"):
+        cli.main(["interactive", "--preset", "config1_standin", "--width", "16",
+                  "--height", "16", "--cpu"])
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--ray-chunk", "4096"], "ray_chunk"),
+    (["--ray-chunk", "-1"], "ray_chunk"),
     (["--chunk-tris", "512"], "chunk_tris"),
     (["--divergence", "split"], "divergence"),
     (["--devices", "2"], "devices"),

@@ -223,24 +223,29 @@ def test_unported_config_values_raise():
     assert base.wavefront == "compact"
     RenderStatic.from_config(base)  # the asset-free default is accepted
     RenderStatic.from_config(base.replace(wavefront="full"))
-    for knob in (dict(wavefront="sorted"), dict(skybox_filter="nearest"),
-                 dict(ray_chunk=4096), dict(devices=2), dict(validation=True),
+    for knob in (dict(wavefront="sorted"), dict(skybox_filter="cubic"),
+                 dict(ray_chunk=-1), dict(devices=2),
                  dict(divergence="split"), dict(bounce_unroll=True),
                  dict(sky_rebin="on"), dict(traversal="brute"),
-                 dict(chunk_tris=256), dict(bvh_builder="lbvh"),
-                 dict(bvh_builder="median"), dict(bvh_builder="sah")):
+                 dict(chunk_tris=256), dict(bvh_builder="brute")):
         with pytest.raises(ValueError):
             RenderStatic.from_config(base.replace(**knob))
+    # the values ported in the options slice
+    for knob in (dict(skybox_filter="nearest"), dict(skybox_filter="bilinear2x"),
+                 dict(ray_chunk=4096), dict(validation=True),
+                 dict(bvh_builder="sah"), dict(bvh_builder="median"),
+                 dict(bvh_builder="lbvh"), dict(bvh_builder="native")):
+        rs = RenderStatic.from_config(base.replace(**knob))
+        for name, value in knob.items():
+            assert name == "bvh_builder" or getattr(rs, name) == value
     for trav in ("auto", "pallas", "xla", "perlane", "mega", "hybrid"):
         RenderStatic.from_config(base.replace(traversal=trav))
-    with pytest.raises(ValueError, match="fold_spp"):
-        RenderStatic(32, 32, 2, 1, fold_spp=False)
+    assert not RenderStatic(32, 32, 2, 1, fold_spp=False).fold_spp
     # the eager body composes with full-width and compacted waves
     RenderStatic(32, 32, 2, 1, wavefront="full", fused="off")
     RenderStatic(32, 32, 2, 1, wavefront="compact", fused="off")
-    RenderStatic.from_config(base.replace(bvh_builder="native"))
     for bad in (dict(fused="auto"), dict(ladder="on"),
-                dict(shadow_order="far")):
+                dict(shadow_order="far"), dict(skybox_filter="trilinear")):
         with pytest.raises(ValueError):
             RenderStatic(32, 32, 2, 1, **bad)
 
