@@ -86,7 +86,22 @@ loop:
   child process (the PNG, decoded with PIL, equal to the frame rendered
   here), ``Flythrough.run_benchmark`` on the config5 stand-in for 8
   frames, and ``python -m raytpu_torch.bench --frames 4`` in a child
-  process, whose last line must be its whole JSON line.
+  process, whose last line must be its whole JSON line;
+* the sharded path (``sharding_phase``, ``raytpu_torch/parallel``) over
+  meshes of repeated ``cuda:0`` slots (:data:`SHARDED_FRAMES`: config4
+  over 4 slots on its per-lane tier and on the pallas tier, config2 over 3
+  and config3 over 4 on the consensus tier, the 256x192 frame over 8 slots,
+  two of them all padding, on "auto", "pallas" and "xla" and over 2 with
+  the "nearest" filter, the tie scene on "pallas" and "mega"), each
+  against the single-device frame: bit for bit on the pallas and "xla"
+  tiers, elsewhere differing only in known-tie pixels; every kernel must
+  launch in those frames; their times and host syncs beside the
+  single-device frames'; the Renderer's refusal of more cards than the
+  machine has, ``run_benchmark`` over a 4-slot mesh, and the frames over
+  distinct cards where the machine has several;
+* the native loaders (``native_loaders``): ``raytpu_torch/io/native.py``
+  built on this machine, the armadillo stand-in's OBJ parsed against the
+  Python parser and a generated JPEG decoded against PIL.
 
 Any failed check raises and exits non-zero. It imports nothing of JAX or
 raytpu.
@@ -212,7 +227,8 @@ def import_port():
     from raytpu_torch import _build, bench, cli, config, integrator, presets, render, scene, scenes  # noqa: F401
     from raytpu_torch.accel import bvh, lbvh  # noqa: F401
     from raytpu_torch.frontend import flythrough, headless, interactive  # noqa: F401
-    from raytpu_torch.io import image  # noqa: F401
+    from raytpu_torch.io import image, native  # noqa: F401
+    from raytpu_torch.parallel import dist  # noqa: F401
     from raytpu_torch.ops import consensus, epilogue, mega, perlane, raygen, sky, traverse, vec3  # noqa: F401
     from raytpu_torch.utils import log, ssim, timing, validation  # noqa: F401
 
@@ -2064,6 +2080,236 @@ def entry_points(renderers: dict, gpu: str) -> dict:
             "bench_line": res}
 
 
+# The sharding phase's frames: (label, the Renderer's key in the phase's
+# dict, traversal (None: the scene's default), skybox filter (None: the
+# config's), mesh slots, all on the Renderer's device, cuda:0)
+SHARDED_FRAMES = (
+    ("config4_perlane", "config4_standin", None, None, 4),
+    ("config4_pallas", "config4_standin", "pallas", None, 4),
+    ("config2_consensus", "config2_standin", None, None, 3),   # 19 tile rows -> 21
+    ("config3_consensus", "config3_standin", None, None, 4),
+    ("small_auto", "small", None, None, 8),                   # 6 rows: 2 dead slots
+    ("small_pallas", "small", "pallas", None, 8),
+    ("small_xla", "small", "xla", None, 8),
+    ("small_nearest", "small", None, "nearest", 2),
+    ("tie_pallas", "tie", "pallas", None, 2),
+    ("tie_mega", "tie", "mega", None, 2),
+)
+SHARD_TIMED = 3   # timed frames of each, single-device and sharded
+
+
+def host_ms(fn, n: int) -> list:
+    """Host ms of ``n`` calls of ``fn``, each drained, after one more."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - start) * 1e3)
+    return ms
+
+
+def sharding_phase(renderers: dict, gpu: str) -> dict:
+    """The sharded path (``raytpu_torch.parallel``) on one card, its slots
+    repeated on ``cuda:0`` (:data:`SHARDED_FRAMES`): each frame against the
+    single-device frame of the same pose on the same card, bit for bit on
+    the pallas and "xla" tiers; on the per-lane and consensus tiers every
+    differing pixel must be a known tie, a pixel where the single-device
+    frame and its pallas-tier frame differ too. The sharded frames run
+    with the launch counters reset, and every kernel must launch there.
+    Then the times of both (median of :data:`SHARD_TIMED`, host clock,
+    drained) with their host syncs, the sharded Renderer's refusal of more
+    cards than the machine has, ``run_benchmark`` over an explicit 4-slot
+    mesh, and frames over distinct cards where there are several."""
+    import torch
+    from raytpu_torch import _build, bench, scenes
+    from raytpu_torch.integrator import _wave_budget, _wave_rungs, render_frame
+    from raytpu_torch.parallel import Mesh, make_mesh, render_sharded, replicate
+    from raytpu_torch.render import Renderer
+
+    start = time.perf_counter()
+    cases = []
+    for label, key, trav, sky_filter, n in SHARDED_FRAMES:
+        r = renderers[key]
+        ts = dataclasses.replace(r.tscene, traversal=trav) if trav else r.tscene
+        rs = r.render_static
+        if sky_filter:
+            rs = dataclasses.replace(rs, skybox_filter=sky_filter)
+        mesh = Mesh((r.device,) * n)
+        cam = r.camera_tensor()
+        stats = {}
+        single = render_frame(ts, rs, cam, stats=stats)
+        tier = stats["tier"]
+        # the pixels of known ties: where this tier's frame and the pallas
+        # tier's differ on one device
+        tied = None
+        if tier not in ("pallas", "xla"):
+            pal = render_frame(dataclasses.replace(ts, traversal="pallas"), rs, cam)
+            tied = (single != pal).any(dim=-1)
+        cases.append(dict(label=label, ts=ts, rs=rs, cam=cam, mesh=mesh,
+                          replicas=replicate(ts, mesh), single=single, tier=tier,
+                          tied=tied, single_syncs=stats["host_syncs"]))
+    torch.cuda.synchronize()
+
+    _build.reset_launch_counts()
+    for c in cases:
+        c["stats"] = {}
+        c["sharded"] = render_sharded(c["replicas"], c["rs"], c["cam"], c["mesh"],
+                                      stats=c["stats"])
+    torch.cuda.synchronize()
+    counts = check_launches(_build.launch_counts(), "sharded frames", idle=())
+
+    rec = {"gpu": gpu, "frames": {}}
+    for c in cases:
+        label, st = c["label"], c["stats"]
+        check(st["tier"] == c["tier"], f"{label}: the slots take the frame's tier "
+              f"({st['tier']}, {c['tier']})")
+        got, want = c["sharded"], c["single"]
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"{label}: a finite frame of the frame's shape")
+        diff = (got != want).any(dim=-1)
+        n_diff = int(diff.sum().item())
+        if c["tied"] is None:
+            n_tie = 0
+            check(n_diff == 0, f"{label}: the sharded frame equals the single-device "
+                  f"frame bit for bit ({n_diff} pixels differ)")
+        else:
+            n_tie = int(c["tied"].sum().item())
+            outside = int((diff & ~c["tied"]).sum().item())
+            check(outside == 0, f"{label}: every differing pixel is a known tie "
+                  f"({outside} of {n_diff} are not)")
+        c["ms_single"] = host_ms(lambda: render_frame(c["ts"], c["rs"], c["cam"]),
+                                 SHARD_TIMED)
+        c["ms_sharded"] = host_ms(lambda: render_sharded(
+            c["replicas"], c["rs"], c["cam"], c["mesh"]), SHARD_TIMED)
+        slots = [dict(s, rungs=_wave_rungs(s["packets"], _wave_budget(s["packets"]))
+                      if _wave_budget(s["packets"]) else [])
+                 for s in st["slots"]]
+        rs = c["rs"]
+        row = {"size": f"{rs.width}x{rs.height}", "tier": c["tier"],
+               "slots": c["mesh"].size, "pixels_differing": n_diff,
+               "known_tie_pixels": n_tie, "single_ms": c["ms_single"],
+               "sharded_ms": c["ms_sharded"],
+               "single_median_ms": statistics.median(c["ms_single"]),
+               "sharded_median_ms": statistics.median(c["ms_sharded"]),
+               "single_syncs": c["single_syncs"], "sharded_syncs": st["host_syncs"],
+               "slot_packets_rungs_syncs": [(s["packets"], s["rungs"], s["host_syncs"])
+                                            for s in slots]}
+        rec["frames"][label] = row
+        print(f"sharded {label} ({row['size']}, tier {row['tier']}, {row['slots']} "
+              f"slots on {c['mesh'].devices[0]}): pixels differing from the single-device frame "
+              f"{n_diff} (known-tie pixels of this tier {n_tie}"
+              f"{'' if c['tied'] is not None else ', none allowed'}); frame ms "
+              f"single {[round(x, 3) for x in row['single_ms']]} median "
+              f"{row['single_median_ms']:.3f}, sharded "
+              f"{[round(x, 3) for x in row['sharded_ms']]} median "
+              f"{row['sharded_median_ms']:.3f}; host syncs {row['single_syncs']} "
+              f"-> {row['sharded_syncs']}; slots (packets a wave, rungs, syncs) "
+              f"{row['slot_packets_rungs_syncs']} [{gpu}]", flush=True)
+    del cases
+
+    cards = torch.cuda.device_count()
+    tie_scene = scenes.tie_scene(devices=cards + 1)
+    try:
+        Renderer(tie_scene)
+        refused = ""
+    except ValueError as exc:
+        refused = str(exc)
+    print(f"Renderer with devices={cards + 1} on {cards} card(s): {refused!r}", flush=True)
+    check(f"requested {cards + 1} devices, have {cards}" in refused,
+          "the sharded Renderer refuses more cards than the machine has, naming the count")
+
+    rc2 = renderers["config2_standin"]
+    out = bench.run_benchmark(preset=rc2.scene, frames=4, renderer=rc2,
+                              mesh=Mesh((rc2.device,) * 4))
+    print(json.dumps(out), flush=True)
+    check(out["devices"] == 4 and out["frame_ms"] > 0 and out["rays_per_frame"] > 0,
+          "run_benchmark over 4 slots says devices 4")
+    rec["run_benchmark"] = {k: out[k] for k in ("devices", "tier", "rays_per_frame",
+                                                "frame_ms")}
+
+    if cards > 1:
+        n = min(cards, 4)
+        r4 = renderers["config4_standin"]
+        ts = dataclasses.replace(r4.tscene, traversal="pallas")
+        cam = r4.camera_tensor()
+        want = render_frame(ts, r4.render_static, cam)
+        got = render_sharded(ts, r4.render_static, cam, make_mesh(n))
+        check(torch.equal(got, want), f"config4 pallas over {n} distinct cards equals "
+              "the single-device frame bit for bit")
+        rec["distinct_cards"] = n
+        print(f"config4 pallas over {n} distinct cards: bit for bit [{gpu}]", flush=True)
+    else:
+        rec["distinct_cards"] = "not run: one card"
+        print("frames over distinct cards: not run (one card)", flush=True)
+    rec["seconds"] = time.perf_counter() - start
+    rec["launches"] = counts
+    print(f"sharding phase: {rec['seconds']:.2f} s", flush=True)
+    return rec
+
+
+def native_loaders(mesh, gpu: str) -> dict:
+    """The native OBJ parser and JPEG decoder (``raytpu_torch/io/native.py``)
+    built on this machine: the armadillo stand-in written as an OBJ file
+    (positions and normals to 9 digits) parsed natively and in Python,
+    equal within ``tests/test_native.py``'s bounds, and a smooth generated
+    1024x1024 face written by PIL as a JPEG, decoded natively and by PIL
+    within those bounds; seconds of each."""
+    import numpy as np
+    from PIL import Image
+    from raytpu_torch.io import native, obj
+
+    start = time.perf_counter()
+    native.library()
+    build_s = time.perf_counter() - start
+    out = REPO / "build" / "native_check"
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / "armadillo.obj"
+
+    def rows(tag, a):
+        return [f"{tag} {x:.9g} {y:.9g} {z:.9g}\n" for x, y, z in a.tolist()]
+
+    path.write_text("".join(rows("v", mesh.positions) + rows("vn", mesh.normals)
+                            + [f"f {a} {b} {c}\n" for a, b, c
+                               in (mesh.triangles + 1).tolist()]))
+    start = time.perf_counter()
+    got = native.load_obj(str(path))
+    parse_s = time.perf_counter() - start
+    start = time.perf_counter()
+    want = obj.load_obj_numpy(str(path))
+    python_s = time.perf_counter() - start
+    check(np.array_equal(got.triangles, want.triangles), "native OBJ triangles")
+    check(np.allclose(got.positions, want.positions, rtol=1e-7, atol=0)
+          and np.allclose(got.normals, want.normals, rtol=1e-7, atol=1e-6),
+          "native OBJ positions and normals within test_native.py's bounds")
+    y, x = np.mgrid[0:1024, 0:1024].astype(np.float32)
+    rgb = np.stack([128 + 100 * np.sin(x / 80.0), 128 + 90 * np.cos(y / 80.0),
+                    (x + y) * 0.12], axis=-1)
+    jpg = out / "face.jpg"
+    Image.fromarray(np.clip(rgb, 0, 255).astype(np.uint8)).save(jpg, quality=92)
+    start = time.perf_counter()
+    ours = native.read_jpeg(str(jpg))
+    decode_s = time.perf_counter() - start
+    start = time.perf_counter()
+    with Image.open(jpg) as im:
+        ref = np.asarray(im.convert("RGB"))
+    pil_s = time.perf_counter() - start
+    d = np.abs(ours.astype(int) - ref.astype(int))
+    check(ours.shape == ref.shape and d.mean() < 0.5 and (d > 16).mean() < 1e-4,
+          f"native JPEG decode within test_native.py's bounds of PIL ({d.mean()})")
+    rec = {"build_s": build_s, "obj_triangles": int(got.num_triangles),
+           "obj_bytes": path.stat().st_size, "parse_native_s": parse_s,
+           "parse_python_s": python_s, "decode_native_s": decode_s,
+           "decode_pil_s": pil_s, "jpeg_mean_abs_diff": float(d.mean())}
+    print(f"native loaders: {rec} [{gpu}; host CPU]", flush=True)
+    return rec
+
+
 AB_FRAMES = (  # (stand-in, its tiers, the first its default, frames, t0 = dt)
     ("config4_standin", ("perlane", "pallas"), 7, 0.05),
     ("reference_standin", ("perlane",), 3, 0.05),
@@ -2500,8 +2746,8 @@ def main() -> int:
     print(f"256x192 fused compacted frame vs eager frame from the same primary "
           f"rays: max abs diff {eager_diff:.3g}", flush=True)
     check(eager_diff <= 1e-5, f"fused vs eager frame within 1e-5 ({eager_diff})")
-    tie = tie_check(Renderer(scenes.tie_scene()))
-    del small
+    tie_r = Renderer(scenes.tie_scene())
+    tie = tie_check(tie_r)
 
     opts, kern_near = options_phase(r4, renderers["config2_standin"], t_bvh, gpu,
                                     prof_dir)
@@ -2509,7 +2755,9 @@ def main() -> int:
     start = time.perf_counter()
     entry = entry_points(renderers, gpu)
     print(f"entry-points phase: {time.perf_counter() - start:.2f} s", flush=True)
-    del renderers
+    sharding = sharding_phase({**renderers, "small": small, "tie": tie_r}, gpu)
+    del renderers, small, tie_r
+    loaders = native_loaders(scene4.meshes[1], gpu)
 
     print(json.dumps({"gpu": gpu, "config4_standin": c4,
                       "config4_standin_pallas": pal4, "config4_tier_waves": waves4,
@@ -2525,7 +2773,8 @@ def main() -> int:
                                       "mega_equals_perlane": True,
                                       "body_compact_equals_full": True},
                       "tie_check": tie, "render_options": opts,
-                      "entry_points": entry,
+                      "entry_points": entry, "sharding": sharding,
+                      "native_loaders": loaders,
                       "full_wave_ties": kern["perlane_closest_sweep"]["full_wave_ties"],
                       "loop_full_wave_ties": kern["mesh_closest"]["full_wave_ties"],
                       "kernel_work": {k: v["work"] for k, v in kern.items() if "work" in v},

@@ -5,18 +5,28 @@ with a plain C interface, under ``build/raytpu_torch/`` at the repository
 root, named by a hash of the sources and flags (a changed source builds
 anew): one nvcc process per source, all started together, then one link.
 The library is loaded with ctypes. Pointers go in as
-``ctypes.c_void_p``, the stream is PyTorch's current one, and every C entry
-point returns ``cudaGetLastError()`` after its launch; :func:`launch` raises
-on a non-zero code.
+``ctypes.c_void_p``, each one a :class:`Pointer` that remembers its tensor's
+device: :func:`launch` makes that device current for the call and appends
+its current stream (so a launch on ``cuda:1`` goes to ``cuda:1``'s stream
+whichever device the calling thread had current), and raises when the
+operands of one launch lie on two devices. Every C entry point returns
+``cudaGetLastError()`` after its launch; :func:`launch` raises on a non-zero
+code.
 
 Flags: ``--fmad=false`` and no ``--use_fast_math``, so every float operation
 rounds once, as a PyTorch eager op does (the sweeps then match their plain
 versions bit for bit, and the raygen hash keeps the precise ``sinf``).
 
 Each kernel has a launch counter (:func:`launch_counts`): :func:`launch`
-adds one after a launch it issued, and nothing else touches it. A run shows
-that the main path went through the kernels by resetting the counters,
-rendering, and reading them.
+adds one after a launch it issued, under a lock (the slots of a sharded
+frame launch from several host threads), and nothing else touches it. A run
+shows that the main path went through the kernels by resetting the
+counters, rendering, and reading them.
+
+:func:`gxx_library` builds the host libraries of ``native/`` (the BVH
+builder, the OBJ parser and the JPEG decoder) with g++ into the same
+directory, by the same rule: a hash of the sources and flags names the
+library, and a changed source builds anew.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -85,6 +96,9 @@ _ATTRIBUTES = ("rt_perlane_attributes", "rt_consensus_attributes",
 _launches = dict.fromkeys(KERNELS, 0)
 _lib = None
 _lock = threading.Lock()
+
+# g++ flags of the host libraries of native/ (gxx_library)
+CXX_FLAGS = ("-O3", "-mfma", "-std=c++17", "-fPIC", "-shared")
 
 
 def _nvcc() -> str:
@@ -161,19 +175,48 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+class Pointer(int):
+    """A tensor's device pointer (an ``int``, as ctypes takes it) that
+    remembers the tensor's device; :func:`check_operand` makes them."""
+
+    device: torch.device
+
+    def __new__(cls, t: torch.Tensor) -> "Pointer":
+        ptr = super().__new__(cls, t.data_ptr())
+        ptr.device = t.device
+        return ptr
+
+
+def _one_device(kernel: str, devices) -> torch.device:
+    """The one device of ``devices``; raises if there are several."""
+    found = sorted(set(devices), key=str)
+    if len(found) > 1:
+        raise ValueError(
+            f"{kernel}: the operands of one launch lie on {len(found)} devices "
+            f"({', '.join(map(str, found))}); a kernel reads one card's memory")
+    if not found:
+        raise ValueError(f"{kernel}: no tensor operand")
+    return found[0]
+
+
 def launch(kernel: str, *args) -> None:
-    """Launch ``kernel`` on the current stream with ``args`` (ints, floats
-    and pointers as the C signature lists them; the stream is appended),
+    """Launch ``kernel`` with ``args`` (ints, floats and pointers as the C
+    signature lists them) on the device of its tensor operands (the
+    :class:`Pointer` arguments, which must all lie on one device), made
+    current for the call, and on that device's current stream (appended);
     count the launch, and raise if CUDA reports an error."""
     if not torch.cuda.is_available():
         raise RuntimeError(f"{kernel}: CUDA is not available on this machine")
+    dev = _one_device(kernel, (a.device for a in args if isinstance(a, Pointer)))
     lib = library()
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib, "rt_" + kernel)(*args, stream)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, "rt_" + kernel)(*args, stream)
     if err != 0:
         msg = lib.rt_error_string(err).decode()
         raise RuntimeError(f"{kernel}: CUDA error {err} ({msg})")
-    _launches[kernel] += 1
+    with _lock:
+        _launches[kernel] += 1
 
 
 def kernel_attributes(entry: str, names) -> dict:
@@ -196,12 +239,14 @@ def kernel_attributes(entry: str, names) -> dict:
 
 def launch_counts() -> dict:
     """Launches issued per kernel since the last reset."""
-    return dict(_launches)
+    with _lock:
+        return dict(_launches)
 
 
 def reset_launch_counts() -> None:
-    for k in _launches:
-        _launches[k] = 0
+    with _lock:
+        for k in _launches:
+            _launches[k] = 0
 
 
 def _check_layout(kernel: str, name: str, t: torch.Tensor, shape,
@@ -223,22 +268,24 @@ def _check(kernel: str, name: str, t: torch.Tensor, shape, dtype) -> None:
 
 
 def check_operand(kernel: str, name: str, t: torch.Tensor, shape=None,
-                  dtype=torch.float32) -> int:
+                  dtype=torch.float32) -> Pointer:
     """Validate one kernel operand and return its device pointer: a
     contiguous CUDA tensor of ``dtype`` (and ``shape`` where given)."""
     _check(kernel, name, t, shape, dtype)
     if not t.is_contiguous():
         raise ValueError(f"{kernel}: {name} is not contiguous")
-    return t.data_ptr()
+    return Pointer(t)
 
 
 def check_operands(kernel: str, operands) -> list:
     """:func:`check_operand` on each ``(name, tensor, shape, dtype)`` of
     ``operands``, every type and shape before any device: a table of the
-    wrong layout is named wherever it lies."""
+    wrong layout is named wherever it lies; then all on one device."""
     for op in operands:
         _check_layout(kernel, *op)
-    return [check_operand(kernel, *op) for op in operands]
+    ptrs = [check_operand(kernel, *op) for op in operands]
+    _one_device(kernel, (p.device for p in ptrs))
+    return ptrs
 
 
 def check_planes(kernel: str, name: str, t: torch.Tensor, shape,
@@ -250,4 +297,54 @@ def check_planes(kernel: str, name: str, t: torch.Tensor, shape,
     _check(kernel, name, t, shape, dtype)
     if not t[0].is_contiguous():
         raise ValueError(f"{kernel}: {name}'s planes are not contiguous")
-    return t.data_ptr(), t.stride(0)
+    return Pointer(t), t.stride(0)
+
+
+def host_has_fma() -> bool:
+    """Whether this is an x86-64 host whose CPU reports ``fma``."""
+    if platform.machine() not in ("x86_64", "AMD64"):
+        return False
+    try:
+        with open("/proc/cpuinfo") as f:
+            return any(line.startswith("flags")
+                       and "fma" in line.split(":", 1)[1].split() for line in f)
+    except OSError:
+        return False
+
+
+def gxx_library(stem: str, sources, what: str) -> Path:
+    """Compile ``sources`` with ``g++`` and :data:`CXX_FLAGS` into one
+    shared library in :data:`BUILD_DIR` unless this exact build exists
+    (named ``<stem>_<hash of the sources and flags>.so``); return its path.
+
+    Why ``-mfma``: raytpu's committed ``native/libraytpu_native.so`` was
+    built with ``-march=native``, so g++ contracted its ``a*b + c`` into
+    fused multiply-adds, and the same source built without FMA rounds
+    otherwise (other SAH splits, JPEG pixels one apart). A host whose CPU
+    has no FMA cannot build raytpu's results, so this raises there, naming
+    ``what`` it would have built, rather than build different ones."""
+    if not host_has_fma():
+        raise RuntimeError(
+            f"{what} needs an x86-64 CPU with FMA: raytpu's results come "
+            "from a build whose float math is contracted into fused "
+            f"multiply-adds, and this host ({platform.machine()}) reports no "
+            "'fma' in /proc/cpuinfo, so it would compute other ones")
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    for src in sources:
+        h.update(Path(src).name.encode())
+        h.update(Path(src).read_bytes())
+    out = BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
+    cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), *map(str, sources)]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as exc:
+        raise RuntimeError(f"{what}: cannot run g++ ({exc})") from exc
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"g++ exited {res.returncode}:\n{' '.join(cmd)}\n{res.stderr}")
+    os.replace(tmp, out)
+    return out

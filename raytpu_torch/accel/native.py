@@ -2,39 +2,32 @@
 ``raytpu/accel/native.py``).
 
 ``native/bvh_build.cpp`` is compiled from source with ``g++ -O3 -mfma
--std=c++17 -fPIC -shared`` into ``build/raytpu_torch/`` at first use. The
+-std=c++17 -fPIC -shared`` into ``build/raytpu_torch/`` at first use
+(``_build.gxx_library``, which ``io/native.py`` shares). The
 committed ``native/libraytpu_native.so`` is not loaded: it was built with
 ``-march=native`` on another host. ``raytpu.accel.native`` is not reused
 either, because importing it runs ``raytpu/accel/__init__.py``, which
 imports JAX.
 
-Why ``-mfma``: with FMA instructions available, g++ contracts the builder's
-``a*b + c`` into fused multiply-adds, as the committed library's
-``-march=native`` build does, and some SAH splits round to another choice
-than without them. Built with ``-mfma``, the source gives the committed
-library's trees bit for bit; without it, other trees (``tests/
-test_torch_meshwalk.py`` holds the two builds equal). A host whose CPU has no
-FMA cannot build those trees, so the build raises there rather than build
-different ones.
+Why ``-mfma`` (``gxx_library``): without FMA contraction some SAH splits
+round to another choice than the committed library's. Built with it, the
+source gives that library's trees bit for bit (``tests/
+test_torch_meshwalk.py`` holds the two builds equal); a host whose CPU has
+no FMA raises rather than build different trees.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import platform
-import subprocess
 import threading
 from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 
-from raytpu_torch._build import BUILD_DIR
+from raytpu_torch._build import gxx_library, host_has_fma  # noqa: F401
 
 SOURCE = Path(__file__).resolve().parents[2] / "native" / "bvh_build.cpp"
-CXX_FLAGS = ("-O3", "-mfma", "-std=c++17", "-fPIC", "-shared")
 
 _lib = None
 _lock = threading.Lock()
@@ -61,45 +54,12 @@ class Bvh(NamedTuple):
         return int(self.tri_order.shape[0])
 
 
-def host_has_fma() -> bool:
-    """Whether this is an x86-64 host whose CPU reports ``fma``."""
-    if platform.machine() not in ("x86_64", "AMD64"):
-        return False
-    try:
-        with open("/proc/cpuinfo") as f:
-            return any(line.startswith("flags")
-                       and "fma" in line.split(":", 1)[1].split() for line in f)
-    except OSError:
-        return False
-
-
-def _build_library() -> Path:
-    if not host_has_fma():
-        raise RuntimeError(
-            "the native BVH builder needs an x86-64 CPU with FMA: raytpu's "
-            "trees come from a build whose float math is contracted into "
-            f"fused multiply-adds, and this host ({platform.machine()}) "
-            "reports no 'fma' in /proc/cpuinfo, so it would build other trees")
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode())
-    out = BUILD_DIR / f"libbvh_build_{digest.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"g++ exited {res.returncode}:\n{' '.join(cmd)}\n{res.stderr}")
-    os.replace(tmp, out)
-    return out
-
-
 def _load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(_build_library()))
+            lib = ctypes.CDLL(str(gxx_library(
+                "libbvh_build", [SOURCE], "the native BVH builder")))
             f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
             i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
             lib.bvh_build_sah.restype = ctypes.c_int64

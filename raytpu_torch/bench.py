@@ -42,6 +42,7 @@ from raytpu_torch.integrator import (
 )
 from raytpu_torch.ops import perlane
 from raytpu_torch.ops.traverse import make_trace_state
+from raytpu_torch.parallel import Mesh, make_mesh, render_sharded, replicate
 from raytpu_torch.presets import STANDINS, load_preset_scene
 from raytpu_torch.render import Renderer
 from raytpu_torch.scene import Scene
@@ -222,18 +223,18 @@ def bit_identity_check(preset="config2_standin", width: int = 128,
 PLAUSIBLE_MRAYS = 3000.0
 
 
-def _plausibility_guard(out: Dict, frame, frames: int) -> None:
+def _plausibility_guard(out: Dict, frame, frames: int, devices=()) -> None:
     """Guard a measured frame time against timing artifacts: if the PRIMARY
     rays alone (width*height*spp, a lower bound on the traced rays) imply
     more than ``PLAUSIBLE_MRAYS``, re-measure with ``pipelined=False``
-    (every frame drained before the next timestamp) and record both
-    numbers with ``suspect: true``."""
+    (every frame drained, on each of ``devices`` too, before the next
+    timestamp) and record both numbers with ``suspect: true``."""
     min_rays = out["width"] * out["height"] * out["spp"]
     implied_mrays = min_rays / max(out["frame_ms"], 1e-9) / 1e3
     if implied_mrays <= PLAUSIBLE_MRAYS:
         return
     mean2, _ = measure_frame(frame, warmup=0, iters=max(4, frames // 4),
-                             pipelined=False)
+                             pipelined=False, devices=devices)
     out["suspect"] = True
     out["suspect_pipelined_ms"] = out["frame_ms"]
     out["suspect_implied_mrays"] = implied_mrays
@@ -257,20 +258,24 @@ def build_preset_renderer(preset, highpoly_depth: int = 7,
 def run_benchmark(preset="config4_standin", frames: int = 24,
                   highpoly_depth: int = 7, devices: int = 1,
                   renderer: Optional[Renderer] = None,
-                  device="cuda") -> Dict:
+                  device="cuda", mesh: Optional[Mesh] = None) -> Dict:
     """Benchmark a preset (a name, a RenderConfig or a Scene): steady-state
     frame time after one warm-up frame, exact Mrays/s (the count costs one
     more frame), FPS, and the tier the frame's sweeps took. ``renderer``: a
     pre-built Renderer (:func:`build_preset_renderer`) to reuse; it renders
     at its current pose and on its own device.
 
-    ``devices > 1`` raises: the sharded path (``raytpu/parallel/dist.py``)
-    is not ported."""
-    if devices > 1:
-        log.fail(f"devices={devices}: multi-device sharding "
-                 "(raytpu/parallel/dist.py) is not ported yet")
+    ``devices > 1`` times the sharded frame (``parallel.render_sharded``)
+    over ``make_mesh(devices)`` of the renderer's device type, or over
+    ``mesh`` where given (``raytpu/bench.py:555-582``); the rays are
+    counted on one device's frame, as the JAX package counts them, and the
+    line gets ``"devices"``."""
+    if mesh is None and devices < 1:
+        log.fail(f"devices={devices}: use 1 device or more")
     if renderer is None:
         renderer = build_preset_renderer(preset, highpoly_depth, device)
+    if mesh is None and devices > 1:
+        mesh = make_mesh(devices, renderer.device)
     rs = renderer.render_static
     cam = renderer.camera_tensor()
 
@@ -279,13 +284,23 @@ def run_benchmark(preset="config4_standin", frames: int = 24,
     rays = count_rays_frame(renderer.tscene, rs, cam, stats)
     count_s = time.perf_counter() - t0
 
-    def frame():
-        return render_frame(renderer.tscene, rs, cam)
+    if mesh is not None:
+        replicas = replicate(renderer.tscene, mesh)
+        sync = mesh.distinct()
 
-    mean_s, times = measure_frame(frame, warmup=1, iters=frames)
+        def frame():
+            return render_sharded(replicas, rs, cam, mesh)
+    else:
+        sync = ()
+
+        def frame():
+            return render_frame(renderer.tscene, rs, cam)
+
+    mean_s, times = measure_frame(frame, warmup=1, iters=frames, devices=sync)
     out = {
         "preset": preset if isinstance(preset, str) else "custom",
         "backend": renderer.device.type,
+        **({"devices": mesh.size} if mesh is not None and mesh.size > 1 else {}),
         "width": rs.width,
         "height": rs.height,
         "spp": rs.samples_per_pixel,
@@ -298,7 +313,7 @@ def run_benchmark(preset="config4_standin", frames: int = 24,
         "count_overhead_s": count_s,
         "frame_times_ms": [t * 1e3 for t in times],
     }
-    _plausibility_guard(out, frame, frames)
+    _plausibility_guard(out, frame, frames, sync)
     return out
 
 

@@ -114,6 +114,21 @@ class TorchScene:
             w2o=torch.as_tensor(np.asarray(w2o, np.float32), device=self.device),
         )
 
+    def to(self, device) -> "TorchScene":
+        """This scene on ``device``: every tensor field (the ``bvh_*`` and
+        packed tables, the skies, the entries, octant and wide links, the
+        transforms) copied there, the host fields kept. On the scene's own
+        device, a copy that shares the tensors. Either way a new object,
+        so the cached properties below are its own: one replica per slot
+        of a sharded frame, and no two host threads fill one cache."""
+        device = torch.device(device)
+        if device == self.o2w.device:
+            return dataclasses.replace(self)
+        moved = {f.name: getattr(self, f.name).to(device)
+                 for f in dataclasses.fields(self)
+                 if isinstance(getattr(self, f.name), torch.Tensor)}
+        return dataclasses.replace(self, device=device, **moved)
+
     # What the per-lane prepass needs from the transforms alone, computed
     # at the frame's first per-lane sweep and kept for its others (device
     # tensors, no sync).

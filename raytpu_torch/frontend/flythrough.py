@@ -26,7 +26,7 @@ from raytpu_torch.camera import MoveDirection
 from raytpu_torch.render import Renderer
 from raytpu_torch.scene import Scene
 from raytpu_torch.utils import log
-from raytpu_torch.utils.timing import FpsCounter, block_until_ready
+from raytpu_torch.utils.timing import FpsCounter, block_until_ready, synchronize
 
 KEYMAP = {
     "w": MoveDirection.FORWARD,
@@ -114,14 +114,16 @@ class Flythrough:
 
         The first frame is excluded (steady state, like the reference's
         uncapped TEST_FPS counter after warm-up). Each frame stays on the
-        card and is drained with ``torch.cuda.synchronize`` before the
-        next, so the wall clock measures frame completion, not host
+        card and is drained with ``torch.cuda.synchronize`` (of every card
+        a sharded frame used) before the next, so the wall clock measures
+        frame completion, not host
         readback (a display path would consume the device buffer)."""
         counter = FpsCounter(print_fn=log.verbose)
         t_start = None
         frame_count = 0
         for _, img in self.frames(device=True):
             block_until_ready(img)
+            synchronize(self.renderer.devices)
             if t_start is None:
                 t_start = time.perf_counter()  # exclude the first frame
                 continue

@@ -7,8 +7,10 @@ resort (``body_compact`` :748) for ``fused="off"`` and for
 ``traversal="xla"``, the deferred sky fetch (:575) with its three filters,
 the validation guards (:567-571, :857-862), ``render_packets`` (:901-970)
 with its interleaved spp fold and its unfolded loop of one wave per sample,
-tile-major pixel packets (:1002), ``render_frame`` (:1047) with its ray
-chunks, and ``detile`` (:1092).
+``render_pixels`` (:976) for a list of pixels, tile-major pixel packets
+(:1002), ``render_frame`` (:1047) with its ray chunks, and ``detile``
+(:1092). ``parallel/dist.py`` shards a frame's tile rows over several
+devices, each slot through ``render_packets``.
 
 The default path (``fused="on"``, ``wavefront="compact"``): per bounce a
 closest-hit sweep, the fused shade pass, a shadow any-hit sweep and the
@@ -114,8 +116,8 @@ from raytpu_torch.ops.traverse import (
 from raytpu_torch.utils import validation
 
 __all__ = [
-    "RenderStatic", "primary_rays_soa", "render_packets", "render_frame",
-    "detile", "tiled_pixels", "kernels", "plain_kernels",
+    "RenderStatic", "primary_rays_soa", "render_packets", "render_pixels",
+    "render_frame", "detile", "tiled_pixels", "kernels", "plain_kernels",
 ]
 
 SEG_PACKETS = 64  # packet-count granule of the JAX package (ops/mega.py)
@@ -245,9 +247,13 @@ class RenderStatic:
         value the port does not implement, rather than ignoring it. All
         ``sky_sampler`` values compute the same filter, so each maps to the
         port's one sampler of it; every ``bvh_builder`` of the JAX package
-        is accepted (``accel.attach_bvh`` builds its tree)."""
+        is accepted (``accel.attach_bvh`` builds its tree). ``devices`` is
+        the Renderer's (``devices > 1`` shards the frame, ``parallel/``);
+        it must be at least 1."""
+        if config.devices < 1:
+            raise ValueError(f"RenderConfig.devices={config.devices!r}: use 1 "
+                             "device or more")
         unsupported = {
-            "devices": (config.devices, 1),
             "divergence": (config.divergence, "off"),
             "bounce_unroll": (config.bounce_unroll, False),
             "chunk_tris": (config.chunk_tris, 0),
@@ -723,6 +729,26 @@ def _trace_wave(ts, rs, camera, px, py, act, s_row, rays6, stats):
     o = (rays6[0], rays6[1], rays6[2])
     d = (rays6[3], rays6[4], rays6[5])
     return _trace_sample(ts, rs, o, d, s_row[:, None], act, stats)
+
+
+def render_pixels(ts: TorchScene, rs: RenderStatic, camera: torch.Tensor,
+                  pix: torch.Tensor, stats: Optional[dict] = None) -> torch.Tensor:
+    """Colors of the pixels ``pix`` (R, 2) ``(x, y)`` -> (R, 3) f32
+    (``integrator.render_pixels`` :976): the list in packets of
+    ``min(packet_size, R)`` lanes, padded to whole packets and to a
+    ``SEG_PACKETS`` multiple of them with dead lanes, through
+    :func:`render_packets`."""
+    r = pix.shape[0]
+    k = min(rs.packet_size, r)
+    lanes = -(-r // k) * k
+    p = lanes // k
+    p_pad = p + (-p) % SEG_PACKETS
+    xy = torch.zeros((p_pad * k, 2), dtype=torch.float32, device=pix.device)
+    xy[:r] = pix.to(torch.float32)
+    active0 = (torch.arange(p_pad * k, device=pix.device) < r).reshape(p_pad, k)
+    colors = render_packets(ts, rs, camera, xy[:, 0].reshape(p_pad, k),
+                            xy[:, 1].reshape(p_pad, k), active0, stats=stats)
+    return torch.stack(colors, dim=-1).reshape(-1, 3)[:r]
 
 
 def tiled_pixels(rs: RenderStatic, device):

@@ -3,8 +3,8 @@ of ``raytpu``): skybox face decode and framebuffer writeback.
 
 * decode: six RGB JPEG faces in the order right, left, top, bottom, front,
   back (``src/main.cpp:2064-2079``), the cubemap layer order +X, -X, +Y,
-  -Y, +Z, -Z of a Vulkan cube image, with PIL (the JAX package falls back
-  to its native decoder, ``raytpu/io/native.py``, which the port lacks);
+  -Y, +Z, -Z of a Vulkan cube image, with PIL, and where PIL is missing
+  with the native decoder (``io/native.py``), as the JAX package does;
 * writeback: PNG and PPM files in place of the reference's swapchain
   (``src/main.cpp:2597-2735``). The PNG encoder is the JAX package's own,
   on the standard library's zlib, so both packages write the same bytes
@@ -33,11 +33,16 @@ SKYBOX_FACE_FILES: Sequence[str] = (
 
 
 def read_image(path: str) -> np.ndarray:
-    """Decode an image file to (H, W, 3) uint8 RGB with PIL."""
+    """Decode an image file to (H, W, 3) uint8 RGB with PIL, or where PIL
+    is missing with the native JPEG decoder (``raytpu/io/image.py:40``)."""
     try:
         from PIL import Image
-    except ImportError as exc:
-        raise RuntimeError(f"no JPEG decoder (PIL) available for {path}") from exc
+    except ImportError:
+        from raytpu_torch.io import native
+
+        if native.available():
+            return native.read_jpeg(path)
+        raise RuntimeError(f"no JPEG decoder available for {path}") from None
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"), dtype=np.uint8)
 

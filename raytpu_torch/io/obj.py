@@ -23,15 +23,17 @@ TPU-native equivalent of the reference's tinyobjloader usage
   less faithful on reference assets.
 
 The port's own copy of ``raytpu/io/obj.py`` (the port imports nothing of
-``raytpu``), without its optional C++ parser backend: the NumPy parser below
-reads ~100k-face files in well under a second.
+``raytpu``), with its policy for the C++ parser (``io/native.py``, built
+from ``native/objparse.cpp`` at first use): taken whenever it is available.
+The native parser reads numbers with ``strtof``; the Python parser rounds
+``float()``'s double to f32, which can differ in the last bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -129,8 +131,17 @@ def compute_smooth_normals(positions: np.ndarray, triangles: np.ndarray) -> np.n
     return (normals / lens).astype(np.float32)
 
 
-def load_obj(path: str) -> Mesh:
-    """Parse an OBJ file into a :class:`Mesh`."""
+def load_obj(path: str, use_native: Optional[bool] = None) -> Mesh:
+    """Parse an OBJ file into a :class:`Mesh` (``raytpu/io/obj.py:133``).
+
+    ``use_native``: ``None`` takes the C++ parser when its library is built
+    or can be built here, ``True`` forces it (and raises if it cannot be
+    built), ``False`` takes the Python parser."""
+    if use_native is None or use_native:
+        from raytpu_torch.io import native
+
+        if use_native or native.available():
+            return native.load_obj(path)
     return load_obj_numpy(path)
 
 

@@ -1,6 +1,8 @@
 """High-level render API of the PyTorch port (counterpart of
 ``raytpu/render.py``): host Scene -> images on a torch device, the card
-unless the caller asks for the CPU."""
+unless the caller asks for the CPU. With ``config.devices > 1`` every
+frame is sharded by tile rows over a mesh of that many devices
+(``raytpu/render.py:65-83``, ``parallel/dist.py``)."""
 
 from __future__ import annotations
 
@@ -14,22 +16,32 @@ from raytpu_torch.scene import AnimationState, Scene
 from raytpu_torch.accel import attach_bvh
 from raytpu_torch.device_scene import build_device_scene
 from raytpu_torch.integrator import RenderStatic, render_frame
+from raytpu_torch.parallel import make_mesh, render_sharded, replicate
 from raytpu_torch.utils import validation
 
 
 class Renderer:
     """Owns the device scene, the animation state and the camera;
-    ``step(t)`` advances the animation and renders one frame."""
+    ``step(t)`` advances the animation and renders one frame.
+
+    With ``scene.config.devices > 1`` it builds the mesh once
+    (``make_mesh(devices, device)``, which raises when fewer devices of
+    that type exist) and keeps one scene replica per slot (``replicas``),
+    made from ``tscene`` at the first frame and again whenever ``tscene``
+    is replaced; ``set_transforms`` moves every replica."""
 
     def __init__(self, scene: Scene, device="cuda",
                  camera: Optional[Camera] = None):
         self.scene = scene
         self.device = torch.device(device)
         self.camera = camera or Camera(scene.config.camera_position)
-        # validate the config before the (slow) BVH build
+        # validate the config and the mesh before the (slow) BVH build
         self.render_static = RenderStatic.from_config(scene.config)
+        self.mesh = (make_mesh(scene.config.devices, self.device)
+                     if scene.config.devices > 1 else None)
         self.tscene = attach_bvh(build_device_scene(scene, self.device), scene,
                                  leaf_size=scene.config.leaf_size)
+        self._replicas = None          # (the tscene they came from, replicas)
         self.animation = AnimationState(scene.instances)
         self.time_param = 0.0
         if scene.config.validation:
@@ -40,19 +52,38 @@ class Renderer:
         ``src/main.cpp:2836-2861``)."""
         self.time_param = time_param
         self.animation.step(time_param)
-        self.tscene = self.tscene.with_transforms(
-            self.animation.transforms_3x4(),
-            self.animation.inverse_transforms_3x4(),
-        )
+        o2w = self.animation.transforms_3x4()
+        w2o = self.animation.inverse_transforms_3x4()
+        self.tscene = self.tscene.with_transforms(o2w, w2o)
+        if self._replicas is not None:
+            self._replicas = (self.tscene, [ts.with_transforms(o2w, w2o)
+                                            for ts in self._replicas[1]])
+
+    @property
+    def replicas(self) -> list:
+        """The scene replica of each mesh slot (sharded renderers only)."""
+        if self._replicas is None or self._replicas[0] is not self.tscene:
+            self._replicas = (self.tscene, replicate(self.tscene, self.mesh))
+        return self._replicas[1]
+
+    @property
+    def devices(self) -> tuple:
+        """The devices a frame runs on: the mesh's, each once, or the one."""
+        return self.mesh.distinct() if self.mesh is not None else (self.device,)
 
     def camera_tensor(self) -> torch.Tensor:
         return torch.as_tensor(self.camera.basis(), device=self.device)
 
     def render(self, stats: Optional[dict] = None) -> torch.Tensor:
-        """One frame -> (H, W, 3) f32 tensor on the device (checked by
+        """One frame -> (H, W, 3) f32 tensor on the device, sharded over the
+        mesh onto its first slot's device where there is one (checked by
         ``validation.check_frame`` when the config asks for validation)."""
-        img = render_frame(self.tscene, self.render_static,
-                           self.camera_tensor(), stats=stats)
+        if self.mesh is not None:
+            img = render_sharded(self.replicas, self.render_static,
+                                 self.camera_tensor(), self.mesh, stats=stats)
+        else:
+            img = render_frame(self.tscene, self.render_static,
+                               self.camera_tensor(), stats=stats)
         if self.scene.config.validation:
             validation.check_frame(img)
         return img

@@ -9,7 +9,8 @@ per-frame timers and :func:`mrays_per_sec` the Mrays/s meter.
 Which clock: every number here is the host's ``time.perf_counter`` around
 work that ends in :func:`block_until_ready`, which is
 ``torch.cuda.synchronize`` on the card of the result (nothing for a CPU
-tensor, whose eager ops are done when they return). That is wall time
+tensor, whose eager ops are done when they return), and for a sharded
+frame in :func:`synchronize` of every card it used (``Renderer.devices``). That is wall time
 with the device drained: what a viewer waits for a frame, host issue and
 the frame's own host syncs included, not the device's busy time (which
 only a profiler reads). Kernel times come from CUDA events
@@ -34,6 +35,15 @@ def block_until_ready(out):
     if isinstance(dev, torch.device) and dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return out
+
+
+def synchronize(devices) -> None:
+    """Wait until every CUDA device of ``devices`` is done: the cards of a
+    sharded frame, each of which ran its own slots' work (the result's
+    card alone does not say that the others finished)."""
+    for dev in dict.fromkeys(map(torch.device, devices)):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 class FpsCounter:
@@ -94,9 +104,10 @@ def mrays_per_sec(num_rays: int, seconds: float) -> float:
 
 
 def measure_frame(render_fn, *args, warmup: int = 1, iters: int = 5,
-                  pipelined: bool = True):
+                  pipelined: bool = True, devices=()):
     """Time ``render_fn(*args)``, which returns a tensor, on the host clock
-    with the device drained (see the module docstring). Returns
+    with the device drained, and every CUDA device of ``devices`` (see the
+    module docstring). Returns
     ``(mean_seconds, per-iteration list)``; in pipelined mode the list has
     one entry, the mean, since enqueue-all/block-once has no per-iteration
     resolution.
@@ -108,16 +119,19 @@ def measure_frame(render_fn, *args, warmup: int = 1, iters: int = 5,
     ``pipelined=False`` every frame blocks: strict call-return latency."""
     for _ in range(warmup):
         block_until_ready(render_fn(*args))
+        synchronize(devices)
     if pipelined:
         t0 = time.perf_counter()
         for _ in range(iters):
             out = render_fn(*args)
         block_until_ready(out)
+        synchronize(devices)
         total = time.perf_counter() - t0
         return total / iters, [total / iters]
     times: List[float] = []
     for _ in range(iters):
         t0 = time.perf_counter()
         block_until_ready(render_fn(*args))
+        synchronize(devices)
         times.append(time.perf_counter() - t0)
     return sum(times) / len(times), times

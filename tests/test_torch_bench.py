@@ -109,8 +109,21 @@ def test_run_matrix_budget_admission():
 
 
 def test_run_benchmark_refuses_devices():
-    with pytest.raises(bench.log.RaytpuError, match="not ported"):
-        bench.run_benchmark(devices=2)
+    with pytest.raises(bench.log.RaytpuError, match="devices=0"):
+        bench.run_benchmark(devices=0)
+
+
+def test_run_benchmark_sharded_over_cpu_slots():
+    """``devices=2`` on the CPU times the frame sharded over two CPU slots
+    and says so; the rays are one device's frame's, as the JAX package
+    counts them."""
+    scene = scenes.config1_standin(width=16, height=16)
+    with one_thread():
+        out = bench.run_benchmark(preset=scene, frames=2, devices=2, device="cpu")
+        one = bench.run_benchmark(preset=scene, frames=2, device="cpu")
+    assert out["devices"] == 2 and "devices" not in one
+    assert out["rays_per_frame"] == one["rays_per_frame"] > 0
+    assert out["frame_ms"] > 0 and out["tier"] == one["tier"]
 
 
 def test_bench_cli_prints_one_json_line():

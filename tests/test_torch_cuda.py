@@ -473,3 +473,23 @@ def test_bench_run_benchmark_on_a_small_standin(rig):
     with plain_kernels():
         plain = bench.count_rays_frame(r.tscene, r.render_static, r.camera_tensor())
     assert out["rays_per_frame"] == plain >= 128 * 128
+
+
+def test_sharded_frame_on_repeated_slots_equals_single(rig):
+    """Two slots on ``cuda:0`` (a mesh may repeat a card): each slot's
+    thread launches the pallas tier's kernels, and the frame equals the
+    single-device frame bit for bit."""
+    from raytpu_torch.parallel import Mesh, render_sharded
+
+    r, _ = rig
+    ts = dataclasses.replace(r.tscene, traversal="pallas")
+    want = render_frame(ts, r.render_static, r.camera_tensor())
+    _build.reset_launch_counts()
+    stats = {}
+    got = render_sharded(ts, r.render_static, r.camera_tensor(),
+                         Mesh(("cuda:0", "cuda:0")), stats=stats)
+    counts = _build.launch_counts()
+    assert stats["tier"] == "pallas" and len(stats["slots"]) == 2
+    assert counts["closest_sweep"] > 0 and counts["anyhit_sweep"] > 0, counts
+    assert got.device == torch.device("cuda", 0)
+    assert torch.equal(got, want)

@@ -171,13 +171,26 @@ def test_cli_interactive_raises(monkeypatch):
     (["--ray-chunk", "-1"], "ray_chunk"),
     (["--chunk-tris", "512"], "chunk_tris"),
     (["--divergence", "split"], "divergence"),
-    (["--devices", "2"], "devices"),
+    (["--devices", "0"], "devices"),
     (["--traversal", "brute"], "brute"),
 ])
 def test_cli_rejects_what_the_port_lacks(tmp_path, flags, match):
     with pytest.raises(ValueError, match=match):
         cli.main(["render", "--preset", "config1_standin", "--width", "16",
                   "--height", "16", "--cpu", "-o", str(tmp_path / "x.png"), *flags])
+
+
+def test_cli_render_devices_writes_the_same_png(tmp_path):
+    """``render --devices 2 --cpu`` shards the frame over two CPU slots and
+    writes the bytes of ``--devices 1``."""
+    paths = []
+    for n in (1, 2):
+        paths.append(tmp_path / f"d{n}.png")
+        cli.main(["render", "--preset", "config1_standin", "--width", "48",
+                  "--height", "40", "--cpu", "--devices", str(n), "-o",
+                  str(paths[-1])])
+    assert paths[0].read_bytes() == paths[1].read_bytes()
+    assert read_png(str(paths[1])).std() > 1.0
 
 
 def test_cli_rejects_bad_material_and_preset(tmp_path):

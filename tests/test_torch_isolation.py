@@ -35,19 +35,26 @@ def _run_isolated(code):
 
 
 def test_port_never_imports_jax():
-    """Every module, and an "xla" frame through the compacted body (the
-    per-(instance, mesh) loop's plain walks) on the CPU."""
+    """Every module (the sharding module and the native loaders' binding
+    among them), an "xla" frame through the compacted body (the
+    per-(instance, mesh) loop's plain walks) on the CPU, and the same frame
+    sharded over two CPU slots."""
     _run_isolated(
         "import pkgutil, importlib, sys, raytpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages("
         "raytpu_torch.__path__, 'raytpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "assert len(mods) >= 25 and 'raytpu_torch.ops.consensus' in mods, mods\n"
+        "assert {'raytpu_torch.parallel.dist', 'raytpu_torch.io.native'} <= set(mods)\n"
         "from raytpu_torch import scenes\n"
+        "from raytpu_torch.parallel import make_mesh, render_sharded\n"
         "from raytpu_torch.render import Renderer\n"
         "r = Renderer(scenes.two_box_scene(64, 64, 2, 2, traversal='xla'), 'cpu')\n"
         "stats = {}\n"
-        "assert r.render(stats=stats).std() > 0.01 and stats['tier'] == 'xla'\n"
+        "img = r.render(stats=stats)\n"
+        "assert img.std() > 0.01 and stats['tier'] == 'xla'\n"
+        "assert (render_sharded(r.tscene, r.render_static, r.camera_tensor(),\n"
+        "                       make_mesh(2, 'cpu')) == img).all()\n"
     )
 
 
@@ -224,7 +231,7 @@ def test_unported_config_values_raise():
     RenderStatic.from_config(base)  # the asset-free default is accepted
     RenderStatic.from_config(base.replace(wavefront="full"))
     for knob in (dict(wavefront="sorted"), dict(skybox_filter="cubic"),
-                 dict(ray_chunk=-1), dict(devices=2),
+                 dict(ray_chunk=-1), dict(devices=0),
                  dict(divergence="split"), dict(bounce_unroll=True),
                  dict(sky_rebin="on"), dict(traversal="brute"),
                  dict(chunk_tris=256), dict(bvh_builder="brute")):
@@ -232,12 +239,12 @@ def test_unported_config_values_raise():
             RenderStatic.from_config(base.replace(**knob))
     # the values ported in the options slice
     for knob in (dict(skybox_filter="nearest"), dict(skybox_filter="bilinear2x"),
-                 dict(ray_chunk=4096), dict(validation=True),
+                 dict(ray_chunk=4096), dict(validation=True), dict(devices=2),
                  dict(bvh_builder="sah"), dict(bvh_builder="median"),
                  dict(bvh_builder="lbvh"), dict(bvh_builder="native")):
         rs = RenderStatic.from_config(base.replace(**knob))
         for name, value in knob.items():
-            assert name == "bvh_builder" or getattr(rs, name) == value
+            assert name in ("bvh_builder", "devices") or getattr(rs, name) == value
     for trav in ("auto", "pallas", "xla", "perlane", "mega", "hybrid"):
         RenderStatic.from_config(base.replace(traversal=trav))
     assert not RenderStatic(32, 32, 2, 1, fold_spp=False).fold_spp

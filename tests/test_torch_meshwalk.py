@@ -464,7 +464,9 @@ def test_tree_digest_is_raytpu_library_tree(builder):
 
 
 def test_native_build_refuses_a_host_without_fma(monkeypatch):
-    monkeypatch.setattr(native, "host_has_fma", lambda: False)
+    from raytpu_torch import _build
+
+    monkeypatch.setattr(_build, "host_has_fma", lambda: False)
     monkeypatch.setattr(native, "_lib", None)
     with pytest.raises(RuntimeError, match="FMA"):
         native.build_bvh(*_corners(scenes.cornell_mesh()), leaf_size=12)
