@@ -13,7 +13,7 @@
                                          # times alone of the ports in DIRs,
                                          # in that order
 
-Builds the fourteen hand-written CUDA kernels from ``raytpu_torch/csrc``
+Builds the sixteen hand-written CUDA kernels from ``raytpu_torch/csrc``
 and the BVHs (the teapot stand-in's tree checked against a digest of the
 tree raytpu builds), holds every kernel against its plain PyTorch version
 on the card at the main path's shapes (and the per-lane sweeps K1/K2, the
@@ -65,6 +65,25 @@ loop:
 * the tie scene (two coincident boxes of different materials) through
   every tier ("xla" against the pallas tier through the same body): no
   pixel may differ;
+* the knobs phase (``knobs_phase``): ``brute_closest_kernel`` and
+  ``brute_anyhit_kernel`` against their plain versions bit for bit on a
+  slice of config2's primary wave; the brute oracle (``brute_oracle``) on
+  the primary waves of config1-3 and the 256x192 config4 frame: K1, K8,
+  K10a and the loop on K11a equal to the brute loop on every lane but
+  proven exact ties (config3's must include ``CONSENSUS_TIES``), K2, K9,
+  K10b and the loop on K11b equal to the brute occlusion flag for flag on
+  the shadow rays of K10a's hits; the brute loop's triangle at config4's
+  ``EXACT_TIES`` lane one of the two tied ones; then frames, each against
+  its reference at one pose, differing only in pixels of proven tie
+  lanes, with frame ms, host syncs and idle share: config1 (512x512) and
+  config3 with no BVH (``traversal="brute"``, which must launch the brute
+  kernels and no sweep) against their ``"xla"`` and XLA-body frames,
+  config2 and config3 under ``divergence`` "split", "split_all" and
+  "sort" against their XLA-body frames, config2 with ``bounce_unroll``
+  against its full-width body frame (no host sync), and config4 at
+  ``chunk_tris=11264`` (31 entries, its trees against
+  :data:`CHUNK_DIGEST`) on the per-lane and pallas tiers against the
+  unchunked frames;
 * the render options and builders (``options_phase``): config4's trees
   by the LBVH built on the card (steps 1-4 timed, the tree equal to the
   same function's on CPU tensors, the teapot stand-in's against
@@ -92,9 +111,10 @@ loop:
   over 4 slots on its per-lane tier and on the pallas tier, config2 over 3
   and config3 over 4 on the consensus tier, the 256x192 frame over 8 slots,
   two of them all padding, on "auto", "pallas" and "xla" and over 2 with
-  the "nearest" filter, the tie scene on "pallas" and "mega"), each
-  against the single-device frame: bit for bit on the pallas and "xla"
-  tiers, elsewhere differing only in known-tie pixels; every kernel must
+  the "nearest" filter, the tie scene on "pallas" and "mega", config1
+  with no BVH over 2), each against the single-device frame: bit for bit
+  on the pallas, "xla" and brute tiers, elsewhere differing only in
+  known-tie pixels; every kernel must
   launch in those frames; their times and host syncs beside the
   single-device frames'; the Renderer's refusal of more cards than the
   machine has, ``run_benchmark`` over a 4-slot mesh, and the frames over
@@ -111,7 +131,8 @@ per-kernel JSON line (launches counted during the frames of the path that
 runs the kernel: the default config4 frames, the default config3 frames
 for K8/K9, the config4 ``traversal="pallas"`` ones for K10a/K10b, or the
 config4 ``traversal="xla"`` ones for K11a/K11b, the "nearest" ones for
-``sky_nearest``; errors against the plain
+``sky_nearest``, the brute config1 and config3 frames for the brute
+kernels; errors against the plain
 versions, times on the sweeps' slice (K11a and K11b a sweep over both
 entries), bounds), and
 ``{"ok": true, "device": {...}}``.
@@ -157,6 +178,10 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                      "raytpu/ops/traverse_pallas.py:115"),
     "mesh_anyhit": ("raytpu_torch/csrc/traverse.cu",
                     "raytpu/ops/traverse_pallas.py:217"),
+    # no Pallas kernel: raytpu's brute tracers are XLA (a lax.scan over
+    # triangle blocks); the port's rule puts a kernel behind every CUDA call
+    "brute_closest": ("raytpu_torch/csrc/brute.cu", "raytpu/ops/intersect.py:163"),
+    "brute_anyhit": ("raytpu_torch/csrc/brute.cu", "raytpu/ops/intersect.py:226"),
 }
 CHAINED = ("closest_sweep", "anyhit_sweep")          # traversal="pallas"
 PER_LANE = ("block_stats", "perlane_closest_sweep", "perlane_anyhit_sweep")
@@ -164,6 +189,7 @@ CONSENSUS = ("mega_closest_sweep", "mega_anyhit_sweep")  # after K7 ("mega")
 MESH = ("mesh_closest", "mesh_anyhit")    # traversal="xla", the XLA body
 FUSED = ("shade_epilogue", "accumulate_epilogue")    # the fused loop only
 NEAREST = ("sky_nearest",)   # the "nearest" and "bilinear2x" filters only
+BRUTE = ("brute_closest", "brute_anyhit")  # a scene with no BVH only
 SWEEP_PACKETS = 256
 # sha256 of the teapot stand-in's tree (generate_highpoly(depth=4,
 # radius=3.0), leaf size 12): its aabb_min, aabb_max, tri_first, tri_count,
@@ -229,7 +255,8 @@ def import_port():
     from raytpu_torch.frontend import flythrough, headless, interactive  # noqa: F401
     from raytpu_torch.io import image, native  # noqa: F401
     from raytpu_torch.parallel import dist  # noqa: F401
-    from raytpu_torch.ops import consensus, epilogue, mega, perlane, raygen, sky, traverse, vec3  # noqa: F401
+    from raytpu_torch.accel import chunking  # noqa: F401
+    from raytpu_torch.ops import consensus, epilogue, intersect, mega, perlane, raygen, rebin, sky, traverse, vec3  # noqa: F401
     from raytpu_torch.utils import log, ssim, timing, validation  # noqa: F401
 
 
@@ -1332,9 +1359,13 @@ def render_frames(r, n_frames: int, t0: float, dt: float, label: str, gpu: str,
                 mrays_per_s=ray_med / med / 1e3, host_syncs=syncs)
 
 
-def check_launches(counts: dict, label: str, idle) -> dict:
+def check_launches(counts: dict, label: str, idle, brute: bool = False) -> dict:
     """The launches of one path's frames: every kernel but those of the
-    ``idle`` tier must have launched, those of ``idle`` never."""
+    ``idle`` tier must have launched, those of ``idle`` never; the brute
+    kernels count as idle unless ``brute`` (the frames include a scene
+    with no BVH)."""
+    if not brute:
+        idle = tuple(idle) + BRUTE
     print(f"launches during {label}: {counts}", flush=True)
     for name, n in counts.items():
         if name in idle:
@@ -2094,6 +2125,7 @@ SHARDED_FRAMES = (
     ("small_nearest", "small", None, "nearest", 2),
     ("tie_pallas", "tie", "pallas", None, 2),
     ("tie_mega", "tie", "mega", None, 2),
+    ("config1_brute", "config1_brute", None, None, 2),          # no BVH
 )
 SHARD_TIMED = 3   # timed frames of each, single-device and sharded
 
@@ -2148,7 +2180,7 @@ def sharding_phase(renderers: dict, gpu: str) -> dict:
         # the pixels of known ties: where this tier's frame and the pallas
         # tier's differ on one device
         tied = None
-        if tier not in ("pallas", "xla"):
+        if tier not in ("pallas", "xla", "brute"):
             pal = render_frame(dataclasses.replace(ts, traversal="pallas"), rs, cam)
             tied = (single != pal).any(dim=-1)
         cases.append(dict(label=label, ts=ts, rs=rs, cam=cam, mesh=mesh,
@@ -2162,7 +2194,8 @@ def sharding_phase(renderers: dict, gpu: str) -> dict:
         c["sharded"] = render_sharded(c["replicas"], c["rs"], c["cam"], c["mesh"],
                                       stats=c["stats"])
     torch.cuda.synchronize()
-    counts = check_launches(_build.launch_counts(), "sharded frames", idle=())
+    counts = check_launches(_build.launch_counts(), "sharded frames", idle=(),
+                            brute=True)
 
     rec = {"gpu": gpu, "frames": {}}
     for c in cases:
@@ -2308,6 +2341,623 @@ def native_loaders(mesh, gpu: str) -> dict:
            "decode_pil_s": pil_s, "jpeg_mean_abs_diff": float(d.mean())}
     print(f"native loaders: {rec} [{gpu}; host CPU]", flush=True)
     return rec
+
+
+
+# ---------------------------------------------------------------------------
+# the knobs phase: the brute tracers, the oracle, divergence, unroll, chunks
+# ---------------------------------------------------------------------------
+
+# the triangles config4's EXACT_TIES lanes keep: K10a's (build order) and
+# K1's (near child first), both hit at the same t (ROADMAP queue 3)
+EXACT_TIE_PRIMS = {(3983, 110): (22500, 27620)}
+CHUNK_TRIS = 11264   # raytpu.accel.chunking.CHUNK_TRIS: raytpu's config4 chunks
+# sha256 of the config4 stand-in's chunked trees at chunk_tris=11264 (leaf
+# size 12, the native builder): bvh_aabb_min, bvh_aabb_max, bvh_tri_first,
+# bvh_tri_count, bvh_miss and bvh_tri_prim of all entries, then the entry
+# rows as int32, as raytpu's attach_bvh builds them on the CPU
+CHUNK_DIGEST = "f3d28b7b7d8b3c9b775f8a876db4af1715d2cae9c6178b78af9f1730241f0985"
+ORACLE_CAP = 64     # differing lanes a sweep may have before the oracle fails
+KNOB_POSE = 0.05    # the pose of the knobs phase's comparison frames
+
+
+def chunk_digest(ts) -> str:
+    """:data:`CHUNK_DIGEST` of a scene's trees and entries."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for a in (ts.bvh_aabb_min, ts.bvh_aabb_max, ts.bvh_tri_first,
+              ts.bvh_tri_count, ts.bvh_miss, ts.bvh_tri_prim):
+        h.update(a.contiguous().cpu().numpy().tobytes())
+    h.update(np.asarray(ts.entry_rows, np.int32).tobytes())
+    return h.hexdigest()
+
+
+def pose(r, t: float) -> None:
+    """``r`` at the pose of time ``t`` from its initial pose (the spin
+    accumulates over ``set_transforms`` calls)."""
+    from raytpu_torch.scene import AnimationState
+
+    r.animation = AnimationState(r.scene.instances)
+    r.set_transforms(t)
+
+
+def hit_bits(ts, inst: int, prim: int, rays, p: int, k: int):
+    """(hit, t bits) of triangle ``prim`` (primitive order) for the world
+    ray of lane (p, k) in instance ``inst``'s object space, the transform
+    and test the sweeps and the loop make."""
+    import torch
+    from raytpu_torch.config import RAY_TMIN
+    from raytpu_torch.device_scene import prim_tris
+    from raytpu_torch.ops import traverse
+    from raytpu_torch.ops.intersect import moller_trumbore
+
+    _, o, d, _ = traverse._object_rays(
+        ts, inst, tuple(rays[c, p, k:k + 1] for c in range(3)),
+        tuple(rays[3 + c, p, k:k + 1] for c in range(3)))
+    tri = prim_tris(ts)[prim]
+    corner = [tuple(tri[4 * w + c:4 * w + c + 1] for c in range(3)) for w in range(3)]
+    t, _, _, hit = moller_trumbore(o, d, *corner, RAY_TMIN,
+                                   torch.full_like(o[0], float("inf")))
+    return bool(hit[0]), int(t.view(torch.int32)[0])
+
+
+def prove_tie(ts, rays, lane, a, b, what: str) -> None:
+    """Raise unless ``a`` and ``b`` ((inst, prim) each) are two different
+    triangles hit by lane ``lane``'s ray at exactly the same f32 t."""
+    ha, ta = hit_bits(ts, *a, rays, *lane)
+    hb, tb = hit_bits(ts, *b, rays, *lane)
+    check(a != b and ha and hb and ta == tb,
+          f"{what}: lane {lane} keeps {a}, the other {b}: not an exact tie "
+          f"(hits {ha} {hb}, t bits {ta} {tb})")
+
+
+def sweep_prim(ts, name: str, rays, win, state, p: int, k: int):
+    """(inst, prim) the closest sweep ``name`` ("K1", "K8", "K10a") kept on
+    lane (p, k): from its plain version over the lane's block, which must
+    reproduce ``state`` there."""
+    import torch
+    from raytpu_torch.config import RAY_TMIN
+    from raytpu_torch.ops import traverse
+
+    b0 = p - p % 8
+    r = rays[:, b0:b0 + 8].contiguous()
+    st = traverse.make_trace_state(win[b0:b0 + 8].contiguous())
+    slots = torch.full(st.shape[1:], -1, dtype=torch.long, device=st.device)
+    got = plain_closest(name)(ts, r, RAY_TMIN, st, slots=slots)
+    check(torch.equal(got.view(torch.int32)[:, p - b0, k],
+                      state.view(torch.int32)[:, p, k]),
+          f"{name}: the plain walk reproduces the kernel's state on lane {(p, k)}")
+    return (int(state.view(torch.int32)[3, p, k]),
+            int(ts.bvh_tri_prim[int(slots[p - b0, k])]))
+
+
+def oracle_check(ts, name: str, rays, win, got: dict, brute: dict, prim_of) -> dict:
+    """Hold one walk's closest hits ``got`` (valid, inst, t, u, v of (P, K))
+    to the brute loop's ``brute`` (the same and ``prim``): a lane agrees
+    where valid, inst and the t, u and v bits match; every other lane must
+    have a hit in both, and ``prim_of(p, k)`` gives the walk's (inst,
+    prim) there: the brute triangle with t within 4 ulps, or another one
+    hit at exactly the same t (a proven tie)."""
+    import torch
+
+    def bits(x):
+        return x.contiguous().view(torch.int32)
+
+    vg, vb = got["valid"], brute["valid"]
+    same = (vg == vb) & (~vb | ((got["inst"] == brute["inst"])
+                                & (bits(got["t"]) == bits(brute["t"]))
+                                & (bits(got["u"]) == bits(brute["u"]))
+                                & (bits(got["v"]) == bits(brute["v"]))))
+    lanes = (~same).nonzero().tolist()
+    check(len(lanes) <= ORACLE_CAP, f"{name}: {len(lanes)} lanes differ from the "
+          f"brute oracle (at most {ORACLE_CAP} may be looked at)")
+    ties, max_ulps = [], 0
+    for p, k in lanes:
+        check(bool(vg[p, k]) and bool(vb[p, k]),
+              f"{name}: lane {(p, k)} hits in one walk only")
+        a = prim_of(p, k)
+        b = (int(brute["inst"][p, k]), int(brute["prim"][p, k]))
+        if a == b:
+            n = int(ulps(got["t"][p, k:k + 1], brute["t"][p, k:k + 1])[0])
+            check(n <= 4, f"{name}: lane {(p, k)} the same triangle, t {n} ulps apart")
+            max_ulps = max(max_ulps, n)
+        else:
+            prove_tie(ts, rays, (p, k), a, b, name)
+            ties.append([p, k])
+    return {"lanes_differing": len(lanes), "ties": ties, "same_prim_max_ulps": max_ulps}
+
+
+def brute_oracle(r, label: str, gpu: str) -> dict:
+    """The brute loop (no tree, ``brute_closest_kernel``) as the oracle of
+    every closest sweep on ``r``'s primary wave: K1, K8 and K10a (their
+    states) and the per-(instance, mesh) loop on K11a (its triangles), each
+    lane the brute hit or a proven exact tie; then on the shadow rays of
+    K10a's hits, K2, K9, K10b and the loop on K11b against the brute
+    occlusion (``brute_anyhit_kernel``), flag for flag."""
+    import functools
+
+    import torch
+    from raytpu_torch.config import RAY_TMAX, RAY_TMIN
+    from raytpu_torch.device_scene import brute_scene
+    from raytpu_torch.ops import consensus, intersect, perlane, trace, traverse
+    from raytpu_torch.ops.intersect import BIG_T
+
+    ts = r.tscene
+    rays, act = primary_wave(r)
+    win = torch.where(act, RAY_TMAX, 0.0)
+    o, d = (rays[0], rays[1], rays[2]), (rays[3], rays[4], rays[5])
+    bts = brute_scene(ts)
+    walk_b = functools.partial(trace.brute_mesh_closest, closest=intersect.brute_closest)
+    prim_b = torch.full(win.shape, -1, dtype=torch.long, device=win.device)
+    hb = trace.closest_hit_loop(bts, o, d, RAY_TMIN, win, walk=walk_b, slots=prim_b)
+    brute_ms = cuda_ms(lambda: trace.closest_hit_loop(bts, o, d, RAY_TMIN, win,
+                                                      walk=walk_b), 0, 1)
+    brute = dict(valid=hb.valid, inst=hb.inst, t=hb.t, u=hb.u, v=hb.v, prim=prim_b)
+    live = int(act.sum())
+    check(int(hb.valid.sum()) > 0, f"{label}: the brute oracle finds hits")
+
+    st0 = traverse.make_trace_state(win)
+    states = {"K1": perlane.perlane_closest_sweep(ts, rays, RAY_TMIN, st0.clone()),
+              "K8": consensus.mega_closest_sweep(ts, rays, RAY_TMIN, st0.clone()),
+              "K10a": traverse.closest_sweep(ts, rays, RAY_TMIN, st0.clone())}
+    res = {"lanes": live, "hits": int(hb.valid.sum()), "brute_loop_ms": brute_ms}
+    for name, st in states.items():
+        t, valid, _, inst, _, u, v = traverse.unpack_state(st)
+        got = dict(valid=valid, inst=inst, t=torch.where(valid, t, BIG_T), u=u, v=v)
+        res[name] = oracle_check(ts, name, rays, win, got, brute, functools.partial(
+            sweep_prim, ts, name, rays, win, st))
+    slots_l = torch.full(win.shape, -1, dtype=torch.long, device=win.device)
+    hl = trace.closest_hit_loop(ts, o, d, RAY_TMIN, win, walk=traverse.mesh_closest,
+                                slots=slots_l)
+    prim_l = ts.bvh_tri_prim[slots_l.clamp_min(0)]
+    res["K11a loop"] = oracle_check(
+        ts, "K11a loop", rays, win,
+        dict(valid=hl.valid, inst=hl.inst, t=hl.t, u=hl.u, v=hl.v), brute,
+        lambda p, k: (int(hl.inst[p, k]), int(prim_l[p, k])))
+    check(bool(((slots_l >= 0) == hl.valid).all()), f"{label}: the loop's slots")
+
+    srays, swin = shadow_rays(ts, rays, states["K10a"])
+    so, sd = (srays[0], srays[1], srays[2]), (srays[3], srays[4], srays[5])
+    occ0 = torch.zeros(swin.shape, dtype=torch.int32, device=swin.device)
+    walk_ba = functools.partial(trace.brute_mesh_anyhit, anyhit=intersect.brute_anyhit)
+    occ_b = trace.any_hit_loop(bts, so, sd, RAY_TMIN, swin, walk=walk_ba)
+    flags = {
+        "K2": perlane.perlane_anyhit_sweep(ts, srays, RAY_TMIN, swin, occ0.clone()) != 0,
+        "K9": consensus.mega_anyhit_sweep(ts, srays, RAY_TMIN, swin, occ0.clone()) != 0,
+        "K10b": traverse.anyhit_sweep(ts, srays, RAY_TMIN, swin, occ0.clone()) != 0,
+        "K11b loop": trace.any_hit_loop(ts, so, sd, RAY_TMIN, swin,
+                                        walk=traverse.mesh_anyhit)}
+    for name, f in flags.items():
+        n = int((f != occ_b).sum())
+        check(n == 0, f"{label}: {name}'s occlusion flags equal the brute oracle's "
+              f"({n} differ)")
+    res["shadow"] = {"rays": int((swin > RAY_TMIN).sum()), "occluded": int(occ_b.sum()),
+                     "flags_differing": 0}
+    ties = {name: res[name]["ties"] for name in (*states, "K11a loop")}
+    print(f"brute oracle, {label} primary wave ({rays.shape[1]} packets, {live} "
+          f"live lanes, {res['hits']} hits; brute loop {brute_ms:.3f} ms): lanes "
+          f"differing {({n: res[n]['lanes_differing'] for n in ties})}, all proven "
+          f"exact ties {ties} or the brute triangle (t within "
+          f"{max(res[n]['same_prim_max_ulps'] for n in ties)} ulps); shadow flags of "
+          f"K2, K9, K10b and the K11b loop equal the brute occlusion on "
+          f"{res['shadow']['rays']} shadow rays ({res['shadow']['occluded']} occluded) "
+          f"[{gpu}]", flush=True)
+    res["tie_lanes"] = sorted({tuple(x) for v in ties.values() for x in v})
+    return res
+
+
+def brute_known_ties(r4, gpu: str) -> dict:
+    """On config4's full primary wave (:data:`EXACT_TIES`' pose), the brute
+    loop over each known tie lane's warp keeps one of the two tied
+    triangles (:data:`EXACT_TIE_PRIMS`), both hit at its t."""
+    import functools
+
+    import torch
+    from raytpu_torch.config import RAY_TMAX, RAY_TMIN
+    from raytpu_torch.device_scene import brute_scene
+    from raytpu_torch.ops import intersect, trace
+
+    pose(r4, 0.05)
+    rays, act = primary_wave(r4)
+    bts = brute_scene(r4.tscene)
+    out = {}
+    for (p, k), prims in EXACT_TIE_PRIMS.items():
+        k0 = k - k % 32
+        r = rays[:, p:p + 1, k0:k0 + 32].contiguous()
+        win = torch.where(act[p:p + 1, k0:k0 + 32], RAY_TMAX, 0.0)
+        slots = torch.full(win.shape, -1, dtype=torch.long, device=win.device)
+        hb = trace.closest_hit_loop(
+            bts, (r[0], r[1], r[2]), (r[3], r[4], r[5]), RAY_TMIN, win,
+            walk=functools.partial(trace.brute_mesh_closest,
+                                   closest=intersect.brute_closest), slots=slots)
+        prim, inst = int(slots[0, k - k0]), int(hb.inst[0, k - k0])
+        check(prim in prims, f"config4 lane {(p, k)}: the brute loop keeps one of the "
+              f"tied triangles {prims} ({prim})")
+        prove_tie(r4.tscene, rays, (p, k), (inst, prims[0]), (inst, prims[1]),
+                  f"config4 lane {(p, k)}")
+        out[f"{p},{k}"] = {"brute_prim": prim, "tied_prims": list(prims)}
+    print(f"config4's known exact ties on its full primary wave: the brute loop keeps "
+          f"{out} [{gpu}]", flush=True)
+    return out
+
+
+def brute_equal(name: str, got, want, what: str) -> None:
+    """Raise unless a brute kernel's outputs equal its plain version's bit
+    for bit."""
+    import torch
+
+    outs = got if isinstance(got, tuple) else (got,)
+    wants = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(outs, wants):
+        a = a.view(torch.int32) if a.dtype == torch.float32 else a
+        b = b.view(torch.int32) if b.dtype == torch.float32 else b
+        check(torch.equal(a, b), f"{name} equals its plain version bit for bit "
+              f"({what})")
+
+
+def brute_tests(name: str, x, tmax, tris) -> int:
+    """The Moller-Trumbore tests of a brute query, computed from its data:
+    every live lane (window above ``RAY_TMIN``) against every triangle for
+    ``brute_closest``; for ``brute_anyhit`` each live lane's tests up to and
+    including its first hit in index order (all of them on a miss), the
+    work of the kernel's scan, from one chunked (lanes x triangles) scan."""
+    import torch
+    from raytpu_torch.config import RAY_TMIN
+    from raytpu_torch.ops.intersect import moller_trumbore
+
+    tm = tmax.reshape(-1)
+    live = (tm > RAY_TMIN).nonzero().squeeze(1)
+    n_tris = tris.shape[0]
+    if name == "brute_closest":
+        return live.numel() * n_tris
+    r = x.reshape(6, -1)[:, live]
+    tm = tm[live]
+    corner = [tuple(tris[None, :, 4 * w + c] for c in range(3)) for w in range(3)]
+    step = max(1, (1 << 22) // n_tris)
+    tests = 0
+    for s0 in range(0, live.numel(), step):
+        sl = slice(s0, s0 + step)
+        o = tuple(r[c, sl, None] for c in range(3))
+        d = tuple(r[3 + c, sl, None] for c in range(3))
+        hit = moller_trumbore(o, d, *corner, RAY_TMIN, tm[sl, None])[3]
+        first = hit.int().argmax(dim=1) + 1
+        tests += int(torch.where(hit.any(dim=1), first, n_tris).sum())
+    return tests
+
+
+def compare_brute(r, gpu: str) -> dict:
+    """``brute_closest_kernel`` and ``brute_anyhit_kernel`` against their
+    plain versions, bit for bit, on a :data:`SWEEP_PACKETS` slice of
+    ``r``'s primary wave (config2's) in its first entry's object space,
+    and the any-hit on the shadow rays of the slice's K10a hits; times and
+    bounds (:func:`brute_tests` Moller-Trumbore tests at :data:`MT_OPS`
+    operations each). The brute frames' own shapes are checked by
+    :func:`compare_brute_waves`."""
+    import torch
+    from raytpu_torch.config import RAY_TMAX, RAY_TMIN
+    from raytpu_torch.device_scene import brute_scene
+    from raytpu_torch.ops import intersect, trace, traverse
+
+    ts, rs = r.tscene, r.render_static
+    rays, act = primary_wave(r)
+    idx = torch.tensor(sweep_slice(rs, SWEEP_PACKETS), device=r.device)
+    rays, act = rays[:, idx].contiguous(), act[idx]
+    win = torch.where(act, RAY_TMAX, 0.0)
+    bts = brute_scene(ts)
+    inst, _, _, count, start = bts.entry_rows[0]
+    tris = bts.tri_packed[start:start + count]
+    obj = trace.object_space(ts, inst, (rays[0], rays[1], rays[2]),
+                             (rays[3], rays[4], rays[5]))
+    st = traverse.closest_sweep(ts, rays, RAY_TMIN, traverse.make_trace_state(win))
+    srays, swin = shadow_rays(ts, rays, st)
+    sobj = trace.object_space(ts, inst, (srays[0], srays[1], srays[2]),
+                              (srays[3], srays[4], srays[5]))
+    res = {}
+    for name, wrap, ref, x, tmax in (
+            ("brute_closest", intersect.brute_closest, intersect.brute_closest_ref,
+             obj, win),
+            ("brute_anyhit", intersect.brute_anyhit, intersect.brute_anyhit_ref,
+             sobj, swin)):
+        got = wrap(x, tmax, tris, RAY_TMIN)
+        torch.cuda.synchronize()
+        start_t = time.perf_counter()
+        want = ref(x, tmax, tris, RAY_TMIN)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - start_t) * 1e3
+        brute_equal(name, got, want, "config2 slice")
+        hit = (got[1] >= 0) if name == "brute_closest" else got
+        check(bool(hit.any()) and not bool(hit.all()), f"{name}: the slice mixes "
+              "hits and misses")
+        tests = brute_tests(name, x, tmax, tris)
+        n = tmax.numel()
+        live = int((tmax > RAY_TMIN).sum())
+        out_bytes = 16 * n if name == "brute_closest" else 4 * n
+        res[name] = dict(
+            max_abs_err=0.0, ms=cuda_ms(lambda: wrap(x, tmax, tris, RAY_TMIN), 3, 10),
+            plain_ms=plain_ms, tests=tests, lanes=n, live=live, triangles=count,
+            bound=bound(24 * live + 4 * n + 48 * count + out_bytes, tests * MT_OPS))
+        print(f"{name} on a {SWEEP_PACKETS}-packet slice of the config2 stand-in's "
+              f"primary wave ({live} live lanes x {count} triangles, "
+              f"{tests} tests): bit for bit against the plain version; "
+              f"{res[name]['ms']:.4f} ms, plain {plain_ms:.2f} ms, bound "
+              f"{res[name]['bound'][0]:.4f} ms ({res[name]['bound'][1]}) [{gpu}]",
+              flush=True)
+    res["attributes"] = intersect.kernel_attributes()
+    print(f"brute kernels' registers, local bytes, CTAs an SM: {res['attributes']}",
+          flush=True)
+    return res
+
+
+def compare_brute_waves(r, label: str, gpu: str) -> dict:
+    """``brute_closest_kernel`` and ``brute_anyhit_kernel`` against their
+    plain versions, bit for bit, at the shapes ``r``'s brute frame gives
+    them: for every entry of ``brute_scene(r.tscene)``, the full primary
+    wave in the entry's object space against the entry's triangles, and
+    the shadow rays of K10a's hits on that wave (a brute frame's first
+    closest and any-hit waves)."""
+    import torch
+    from raytpu_torch.config import RAY_TMAX, RAY_TMIN
+    from raytpu_torch.device_scene import brute_scene
+    from raytpu_torch.ops import intersect, trace, traverse
+
+    ts = r.tscene
+    rays, act = primary_wave(r)
+    win = torch.where(act, RAY_TMAX, 0.0)
+    st = traverse.closest_sweep(ts, rays, RAY_TMIN, traverse.make_trace_state(win))
+    srays, swin = shadow_rays(ts, rays, st)
+    bts = brute_scene(ts)
+    out = []
+    for inst, _, _, count, start in bts.entry_rows:
+        tris = bts.tri_packed[start:start + count]
+        obj = trace.object_space(ts, inst, (rays[0], rays[1], rays[2]),
+                                 (rays[3], rays[4], rays[5]))
+        sobj = trace.object_space(ts, inst, (srays[0], srays[1], srays[2]),
+                                  (srays[3], srays[4], srays[5]))
+        what = f"{label}, instance {inst}, {count} triangles, {list(win.shape)} lanes"
+        got = intersect.brute_closest(obj, win, tris, RAY_TMIN)
+        brute_equal("brute_closest", got,
+                    intersect.brute_closest_ref(obj, win, tris, RAY_TMIN), what)
+        occ = intersect.brute_anyhit(sobj, swin, tris, RAY_TMIN)
+        brute_equal("brute_anyhit", occ,
+                    intersect.brute_anyhit_ref(sobj, swin, tris, RAY_TMIN), what)
+        hits, occluded = int((got[1] >= 0).sum()), int(occ.sum())
+        check(hits > 0, f"brute_closest finds hits ({what})")
+        out.append({"inst": inst, "triangles": count, "hits": hits,
+                    "occluded": occluded})
+    print(f"{label}: both brute kernels equal their plain versions bit for bit on "
+          f"the full primary wave {list(win.shape)} and its shadow rays, per entry "
+          f"{out} [{gpu}]", flush=True)
+    return {"lanes": list(win.shape), "entries": out}
+
+
+def lane_pixels(rs, lanes) -> set:
+    """The pixels (y, x) of folded primary-wave lanes (packet, lane)."""
+    spp, t = rs.samples_per_pixel, rs.tile
+    w_t = -(-rs.width // t)
+    out = set()
+    for p, k in lanes:
+        ty, tx = divmod(p // spp, w_t)
+        y, x = ty * t + k // t, tx * t + k % t
+        if y < rs.height and x < rs.width:
+            out.add((y, x))
+    return out
+
+
+def frame_diff(got, want, allowed: set, what: str) -> int:
+    """Pixels where two frames differ; raises unless each is in
+    ``allowed`` (the pixels of proven tie lanes)."""
+    diff = set(map(tuple, (got != want).any(dim=-1).nonzero().tolist()))
+    outside = diff - allowed
+    check(not outside, f"{what}: {len(outside)} of {len(diff)} differing pixels are "
+          f"not proven ties ({sorted(outside)[:8]})")
+    return len(diff)
+
+
+def timed_frames(r, label: str, gpu: str, tier: str, prof_dir: Path,
+                 n: int = 2) -> dict:
+    """:func:`render_frames` and :func:`profile_frame` of ``r`` as it is
+    set up."""
+    rec = render_frames(r, n, KNOB_POSE, KNOB_POSE, label, gpu, tier)
+    rec["profile"] = profile_frame(r, prof_dir / f"profile_{label}.txt", label, gpu)
+    return rec
+
+
+def knob_row(rec: dict, n_diff: int, against: str) -> dict:
+    return {"median_ms": rec["median_ms"], "frame_ms": rec["frame_ms"],
+            "host_syncs": rec["host_syncs"],
+            "idle_share": rec["profile"]["idle_share"],
+            "busy_ms": rec["profile"]["busy_ms"],
+            "pixels_differing": n_diff, "against": against}
+
+
+def knobs_phase(renderers: dict, scene4, gpu: str, prof_dir: Path):
+    """The RenderConfig values of the knobs slice on the card: the brute
+    kernels against their plain versions (:func:`compare_brute` on a
+    config2 slice, :func:`compare_brute_waves` at the brute frames' shapes
+    on config1 and config3), the brute oracle on the primary waves of
+    config1-3 and the 256x192 config4 frame (:func:`brute_oracle`),
+    config4's known ties
+    (:func:`brute_known_ties`), then frames: brute config1 (512x512) and
+    config3 (1280x720), config2 and config3 under each divergence value,
+    config2 unrolled, config4 chunked on the per-lane and pallas tiers.
+    Each against its reference frame at :data:`KNOB_POSE`, differing only
+    in pixels of proven tie lanes; frame ms, host syncs and idle share.
+    Returns ``(record, the brute kernels' records with their launches in
+    the brute frames, the brute config1 Renderer)``."""
+    import torch
+    from raytpu_torch import _build, scenes
+    from raytpu_torch.device_scene import brute_scene
+    from raytpu_torch.integrator import render_frame
+    from raytpu_torch.render import Renderer
+    from raytpu_torch.scene import load_scene
+
+    start = time.perf_counter()
+    rc1 = Renderer(scenes.config1_standin())
+    rb1 = Renderer(scenes.config1_standin(traversal="brute"))
+    rb3 = Renderer(scenes.config3_standin(traversal="brute"))
+    rc2, rc3 = renderers["config2_standin"], renderers["config3_standin"]
+    kern = compare_brute(rc2, gpu)
+    rec = {"gpu": gpu, "oracle": {}, "frames": {}, "plain_waves": {}}
+    for label, r in (("config1_standin", rc1), ("config2_standin", rc2),
+                     ("config3_standin", rc3), ("config4_256x192", renderers["small"])):
+        pose(r, KNOB_POSE)
+        rec["oracle"][label] = brute_oracle(r, label, gpu)
+    for label, r in (("config1_standin", rc1), ("config3_standin", rc3)):
+        rec["plain_waves"][label] = compare_brute_waves(r, label, gpu)
+    known = CONSENSUS_TIES["config3_standin"]
+    lanes3 = set(rec["oracle"]["config3_standin"]["tie_lanes"])
+    check({tuple(x) for x in known["K10a"] + known["K1"]} <= lanes3,
+          f"config3's known ties {known} are among the oracle's proven ties {lanes3}")
+    rec["config4_known_ties"] = brute_known_ties(renderers["config4_standin"], gpu)
+
+    def allowed(label, r):
+        return lane_pixels(r.render_static, rec["oracle"][label]["tie_lanes"])
+
+    # brute frames: the launches of the brute kernels
+    _build.reset_launch_counts()
+    brute_rec = {}
+    for label, rb in (("config1_standin", rb1), ("config3_standin", rb3)):
+        brute_rec[label] = timed_frames(rb, f"{label}_brute", gpu, "brute", prof_dir)
+    counts = check_launches(_build.launch_counts(), "brute frames",
+                            idle=CHAINED + PER_LANE + CONSENSUS + MESH + FUSED + NEAREST,
+                            brute=True)
+    for label, r, rb in (("config1_standin", rc1, rb1), ("config3_standin", rc3, rb3)):
+        pose(r, KNOB_POSE)
+        cam, rs = r.camera_tensor(), r.render_static
+        got = render_frame(brute_scene(r.tscene), rs, cam)
+        ok = allowed(label, r)
+        n_xla = frame_diff(got, render_frame(dataclasses.replace(
+            r.tscene, traversal="xla"), rs, cam), ok, f"{label} brute vs xla")
+        n_body = frame_diff(got, render_frame(r.tscene, dataclasses.replace(
+            rs, fused="off"), cam), ok, f"{label} brute vs the default tier's body")
+        fused = render_frame(r.tscene, rs, cam)
+        tie_mask = torch.zeros(got.shape[:2], dtype=torch.bool, device=got.device)
+        for y, x in ok:
+            tie_mask[y, x] = True
+        far = float(torch.where(tie_mask, 0.0, (got - fused).abs().max(dim=-1).values)
+                    .max())
+        check(far <= 1e-5, f"{label} brute vs the fused default frame within 1e-5 off "
+              f"the tie pixels ({far})")
+        rec["frames"][f"{label}_brute"] = dict(
+            knob_row(brute_rec[label], n_body, "default tier, XLA body"),
+            pixels_differing_xla=n_xla, max_abs_diff_fused=far,
+            tie_pixels=len(ok))
+        print(f"{label} brute frame at pose {KNOB_POSE}: {n_xla} pixels differ from "
+              f"the xla frame, {n_body} from the default tier's XLA body frame (proven "
+              f"tie pixels {len(ok)}), max abs diff to the fused default frame off "
+              f"them {far:.3g} [{gpu}]", flush=True)
+
+    # divergence scheduling on the consensus stand-ins
+    for label, r in (("config2_standin", rc2), ("config3_standin", rc3)):
+        rs = r.render_static
+        pose(r, KNOB_POSE)
+        cam = r.camera_tensor()
+        want = render_frame(r.tscene, dataclasses.replace(rs, fused="off"), cam)
+        for div in ("split", "split_all", "sort"):
+            rs_d = dataclasses.replace(rs, divergence=div)
+            n_diff = frame_diff(render_frame(r.tscene, rs_d, cam), want,
+                                allowed(label, r), f"{label} divergence={div}")
+            r.render_static = rs_d
+            row = knob_row(timed_frames(r, f"{label}_{div}", gpu, "mega", prof_dir),
+                           n_diff, "default tier, XLA body")
+            r.render_static = rs
+            rec["frames"][f"{label}_{div}"] = row
+            print(f"{label} divergence={div}: {n_diff} pixels differ from the "
+                  f"default XLA body frame [{gpu}]", flush=True)
+        pose(r, KNOB_POSE)
+
+    # the unrolled bounce loop
+    rs = rc2.render_static
+    full = dataclasses.replace(rs, fused="off", wavefront="full")
+    unrolled = dataclasses.replace(rs, bounce_unroll=True, wavefront="full")
+    pose(rc2, KNOB_POSE)
+    cam = rc2.camera_tensor()
+    st_u = {}
+    got = render_frame(rc2.tscene, unrolled, cam, stats=st_u)
+    n_diff = frame_diff(got, render_frame(rc2.tscene, full, cam), set(),
+                        "config2 unrolled vs the full-width body")
+    check(st_u.get("host_syncs", 0) == 0, f"the unrolled frame reads nothing back ({st_u})")
+    rc2.render_static = unrolled
+    row = knob_row(timed_frames(rc2, "config2_standin_unrolled", gpu, "mega",
+                                prof_dir), n_diff, "full-width XLA body")
+    rc2.render_static = rs
+    pose(rc2, KNOB_POSE)
+    rec["frames"]["config2_unrolled"] = row
+    print(f"config2 bounce_unroll=True, wavefront='full': {n_diff} pixels differ "
+          f"from the full-width XLA body frame; host syncs {row['host_syncs']} "
+          f"[{gpu}]", flush=True)
+
+    # chunked trees: config4 at raytpu's chunk size
+    r4 = renderers["config4_standin"]
+    t_build = time.perf_counter()
+    rk4 = Renderer(load_scene(scene4.config.replace(chunk_tris=CHUNK_TRIS),
+                              meshes=scene4.meshes, skybox=scene4.skybox))
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t_build
+    digest = chunk_digest(rk4.tscene)
+    n_entries = len(rk4.tscene.entry_rows)
+    print(f"config4 stand-in at chunk_tris={CHUNK_TRIS}: {n_entries} entries, "
+          f"{rk4.tscene.bvh_aabb_min.shape[0]} nodes, built in {t_build:.2f} s; trees "
+          f"sha256 {digest} (raytpu's {CHUNK_DIGEST}) [{gpu}]", flush=True)
+    check(digest == CHUNK_DIGEST, "the port's chunked config4 trees are raytpu's")
+    rec["chunked"] = {"entries": n_entries, "nodes": rk4.tscene.bvh_aabb_min.shape[0],
+                      "build_s": t_build, "digest": digest}
+    for trav in ("auto", "pallas"):
+        tier = r4.tscene.auto_tier if trav == "auto" else trav
+        name = {"perlane": "K1", "mega": "K8", "pallas": "K10a"}[tier]
+        pose(r4, KNOB_POSE)
+        pose(rk4, KNOB_POSE)
+        ts_a = dataclasses.replace(r4.tscene, traversal=trav)
+        ts_c = dataclasses.replace(rk4.tscene, traversal=trav)
+        ties = chunk_ties(r4, ts_a, ts_c, name)
+        cam = r4.camera_tensor()
+        n_diff = frame_diff(render_frame(ts_c, r4.render_static, cam),
+                            render_frame(ts_a, r4.render_static, cam),
+                            lane_pixels(r4.render_static, ties),
+                            f"config4 chunked vs unchunked, {trav}")
+        rk4.tscene = ts_c
+        row = knob_row(timed_frames(rk4, f"config4_standin_chunked_{tier}", gpu, tier,
+                                    prof_dir), n_diff, f"unchunked, {tier}")
+        row["primary_tie_lanes"] = ties
+        rec["frames"][f"config4_chunked_{tier}"] = row
+        print(f"config4 chunked ({n_entries} entries) on the {tier} tier: {n_diff} "
+              f"pixels differ from the unchunked frame; {name}'s primary wave differs "
+              f"from the unchunked one's on {len(ties)} lanes, each a proven exact tie "
+              f"[{gpu}]", flush=True)
+    del rk4
+    rec["seconds"] = time.perf_counter() - start
+    print(f"knobs phase: {rec['seconds']:.2f} s", flush=True)
+    for name in BRUTE:
+        kern[name]["launches"] = counts[name]
+    return rec, kern, rb1
+
+
+def chunk_ties(r4, ts_a, ts_c, name: str) -> list:
+    """On config4's full primary wave, the lanes where the closest sweep
+    ``name`` on the chunked scene ``ts_c`` and on the unchunked ``ts_a``
+    keep different hits, each a proven exact tie."""
+    import torch
+    from raytpu_torch.config import RAY_TMAX, RAY_TMIN
+    from raytpu_torch.ops import consensus, perlane, traverse
+
+    sweep = {"K1": perlane.perlane_closest_sweep, "K8": consensus.mega_closest_sweep,
+             "K10a": traverse.closest_sweep}[name]
+    rays, act = primary_wave(r4)
+    win = torch.where(act, RAY_TMAX, 0.0)
+    st0 = traverse.make_trace_state(win)
+    a, c = sweep(ts_a, rays, RAY_TMIN, st0.clone()), sweep(ts_c, rays, RAY_TMIN, st0.clone())
+    lanes = (a.view(torch.int32) != c.view(torch.int32)).any(dim=0).nonzero().tolist()
+    check(len(lanes) <= ORACLE_CAP, f"{name}: {len(lanes)} lanes differ chunked vs not")
+    for p, k in lanes:
+        check(bool(a.view(torch.int32)[1, p, k]) and bool(c.view(torch.int32)[1, p, k]),
+              f"{name}: lane {(p, k)} hits in one scene only")
+        prove_tie(ts_a, rays, (p, k), sweep_prim(ts_a, name, rays, win, a, p, k),
+                  sweep_prim(ts_c, name, rays, win, c, p, k),
+                  f"{name} chunked vs unchunked")
+    return lanes
 
 
 AB_FRAMES = (  # (stand-in, its tiers, the first its default, frames, t0 = dt)
@@ -2749,14 +3399,18 @@ def main() -> int:
     tie_r = Renderer(scenes.tie_scene())
     tie = tie_check(tie_r)
 
+    knobs, kern_brute, rb1 = knobs_phase({**renderers, "small": small}, scene4, gpu,
+                                         prof_dir)
+
     opts, kern_near = options_phase(r4, renderers["config2_standin"], t_bvh, gpu,
                                     prof_dir)
 
     start = time.perf_counter()
     entry = entry_points(renderers, gpu)
     print(f"entry-points phase: {time.perf_counter() - start:.2f} s", flush=True)
-    sharding = sharding_phase({**renderers, "small": small, "tie": tie_r}, gpu)
-    del renderers, small, tie_r
+    sharding = sharding_phase({**renderers, "small": small, "tie": tie_r,
+                               "config1_brute": rb1}, gpu)
+    del renderers, small, tie_r, rb1
     loaders = native_loaders(scene4.meshes[1], gpu)
 
     print(json.dumps({"gpu": gpu, "config4_standin": c4,
@@ -2772,7 +3426,7 @@ def main() -> int:
                                       "perlane_equals_pallas": True,
                                       "mega_equals_perlane": True,
                                       "body_compact_equals_full": True},
-                      "tie_check": tie, "render_options": opts,
+                      "tie_check": tie, "knobs": knobs, "render_options": opts,
                       "entry_points": entry, "sharding": sharding,
                       "native_loaders": loaders,
                       "full_wave_ties": kern["perlane_closest_sweep"]["full_wave_ties"],
@@ -2781,11 +3435,14 @@ def main() -> int:
                       "prepass": {k: {f: v[f] for f in v if "prepass" in f or "ops" in f}
                                   for k, v in kern.items() if "prepass_ms" in v}}))
     kern.update(cons_kern)
+    kern.update({name: kern_brute[name] for name in BRUTE})
     kern["sky_nearest"] = kern_near
 
     def launches(name):
         if name in NEAREST:
             return kern_near["launches"]
+        if name in BRUTE:
+            return kern_brute[name]["launches"]
         return (pal_counts if name in CHAINED else cons_counts if name in CONSENSUS
                 else mesh_counts if name in MESH else counts)[name]
 

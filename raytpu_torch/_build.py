@@ -87,11 +87,15 @@ _SIGNATURES = {
     "mesh_closest": [_P, _L, _P, _P, _L, _P, _L, _F, _I, _I, _I, _P, _P, _P,
                      _P, _L, _P],
     "mesh_anyhit": [_P, _L, _P, _P, _L, _F, _I, _I, _I, _P, _P, _P, _P],
+    # object-space rays, tmax, the packed triangles and T, n, tmin, (the
+    # t/u/v planes, their stride and prim | occ)
+    "brute_closest": [_P, _L, _P, _P, _I, _L, _F, _P, _L, _P, _P],
+    "brute_anyhit": [_P, _L, _P, _P, _I, _L, _F, _P, _P],
 }
 KERNELS = tuple(_SIGNATURES)
 # C entry points that read kernels' attributes: (which kernel, int out[4])
 _ATTRIBUTES = ("rt_perlane_attributes", "rt_consensus_attributes",
-               "rt_traverse_attributes")
+               "rt_traverse_attributes", "rt_brute_attributes")
 
 _launches = dict.fromkeys(KERNELS, 0)
 _lib = None

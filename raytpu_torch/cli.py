@@ -125,7 +125,7 @@ def _add_scene_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--max-bounce-count", type=int, dest="max_bounce_count")
     p.add_argument("--ray-chunk", type=int, dest="ray_chunk")
     p.add_argument("--chunk-tris", type=int, dest="chunk_tris",
-                   help="triangles per BLAS chunk (0 = SMEM-sized default)")
+                   help="triangles per BLAS chunk (0 = one tree a mesh)")
     p.add_argument("--traversal",
                    choices=("auto", "perlane", "mega", "xla", "pallas",
                             "brute"),

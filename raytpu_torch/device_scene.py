@@ -19,6 +19,14 @@ same node and triangle records with the wide links packed as the octant
 links are; the chained sweeps and the one-mesh walks read the same node
 and triangle records with ``bvh_miss``.
 
+Every scene keeps each mesh's primitive range (``mesh_prim_ranges``). A
+scene with no BVH (:func:`brute_scene`, ``traversal="brute"`` or
+``bvh_builder="brute"``, ``raytpu/render.py:32``) also keeps its triangles
+in primitive order, packed as the BVH's are (``tri_packed``), which the
+brute-force tracers read (``ops/intersect.brute_closest``), and has one
+entry per (instance, mesh) whose node columns name no nodes: node_base 0,
+node_count the mesh's triangle count, tri_base its first primitive.
+
 Layouts match the JAX package, so buffers compare by a reshape: nodes are
 concatenated over meshes with mesh-local ``bvh_miss`` and ``bvh_tri_first``
 (``raytpu/ops/traverse.py:64,114``), triangles are in BVH-slot order, and
@@ -96,6 +104,11 @@ class TorchScene:
     packed_wide: Optional[torch.Tensor] = None    # (8, M, 2) int32, pack_links
     packed_tris: Optional[torch.Tensor] = None    # (T, 12) f32, pack_tris
     traversal_list: Tuple[Tuple[int, int], ...] = ()
+    # the triangles in primitive order as (T, 12) f32 records (pack_tris),
+    # the brute tracers' table: a scene with no BVH only (prim_tris)
+    tri_packed: Optional[torch.Tensor] = None
+    # each mesh's (first primitive, count)
+    mesh_prim_ranges: Tuple[Tuple[int, int], ...] = ()
     # the rows of ``entries`` on the host: the per-(instance, mesh) loop
     # (ops/trace.closest_hit_loop) reads them without a device sync
     entry_rows: Tuple[Tuple[int, int, int, int, int], ...] = ()
@@ -104,6 +117,11 @@ class TorchScene:
     # "mega", accel.resolve_auto_tier)
     traversal: str = "auto"
     auto_tier: str = "mega"
+
+    @property
+    def has_bvh(self) -> bool:
+        """Whether a BVH is attached (else every sweep is brute force)."""
+        return self.bvh_aabb_min is not None
 
     def with_transforms(self, o2w: np.ndarray, w2o: np.ndarray) -> "TorchScene":
         """Per-frame instance transform update (the refit analog): a new
@@ -252,31 +270,84 @@ def with_packed(ts: TorchScene) -> TorchScene:
 def build_device_scene(scene: Scene, device) -> TorchScene:
     """Host :class:`raytpu_torch.scene.Scene` -> :class:`TorchScene` on ``device``
     (no BVH yet: :func:`raytpu_torch.accel.attach_bvh` adds it); the 2x sky
-    only where ``scene.config.skybox_filter`` is "bilinear2x"."""
+    only where ``scene.config.skybox_filter`` is "bilinear2x", and
+    ``tri_packed`` only where the config asks for no BVH ("brute")."""
     device = torch.device(device)
+    cfg = scene.config
     anim = scene.animation()
-    _, _, _, n_soa = corner_tables(scene)
+    v0, e1, e2, n_soa = corner_tables(scene)
     sky, sky_hw = pack_skybox(scene.skybox)
 
     def dev(a, dtype=None):
         return torch.as_tensor(np.ascontiguousarray(a, dtype), device=device)
+
+    prim_ranges = []
+    for mesh_id in range(scene.geometry.num_meshes):
+        _, ps = scene.geometry.mesh_slice(mesh_id)
+        prim_ranges.append((int(ps.start), int(ps.stop - ps.start)))
 
     return TorchScene(
         device=device,
         o2w=dev(anim.transforms_3x4(), np.float32),
         w2o=dev(anim.inverse_transforms_3x4(), np.float32),
         materials=dev(scene.material_types, np.int32),
-        light_pos=dev(scene.config.light_position, np.float32),
-        light_intensity=dev(scene.config.light_intensity, np.float32),
+        light_pos=dev(cfg.light_position, np.float32),
+        light_intensity=dev(cfg.light_intensity, np.float32),
         tri_n_soa=dev(n_soa),
         skybox_u32=dev(sky),
         sky_hw=(int(sky_hw[0]), int(sky_hw[1])),
         instance_mesh=tuple(inst.mesh_id for inst in scene.instances),
-        light=host_light(scene.config.light_position,
-                         scene.config.light_intensity),
+        light=host_light(cfg.light_position, cfg.light_intensity),
         skybox_u32_2x=(dev(pack_skybox_2x(scene.skybox))
-                       if scene.config.skybox_filter == "bilinear2x" else None),
+                       if cfg.skybox_filter == "bilinear2x" else None),
+        tri_packed=(pack_tris(*(dev(x, np.float32) for x in (v0, e1, e2)))
+                    if "brute" in (cfg.bvh_builder, cfg.traversal) else None),
+        mesh_prim_ranges=tuple(prim_ranges),
     )
+
+
+# the fields a BVH attaches (accel.attach_bvh), which brute_scene drops
+BVH_FIELDS = ("bvh_aabb_min", "bvh_aabb_max", "bvh_tri_first", "bvh_tri_count",
+              "bvh_miss", "bvh_tri_v0", "bvh_tri_e1", "bvh_tri_e2",
+              "bvh_tri_prim", "bvh_tri_n_soa", "oct_succ", "oct_skip",
+              "wide_succ", "wide_skip", "packed_nodes", "packed_links",
+              "packed_wide", "packed_tris")
+
+
+def prim_tris(ts: TorchScene) -> torch.Tensor:
+    """``ts``'s triangles in primitive order as (T, 12) records: its
+    ``tri_packed``, or else its BVH's triangle records put back in
+    primitive order through ``bvh_tri_prim`` (the same bits)."""
+    if ts.tri_packed is not None:
+        return ts.tri_packed
+    if not ts.has_bvh:
+        raise ValueError("the scene has neither tri_packed nor a BVH: build it "
+                         "from a config with traversal or bvh_builder 'brute'")
+    n = ts.tri_n_soa.shape[1]
+    out = torch.zeros((n, 12), dtype=torch.float32, device=ts.device)
+    out[ts.bvh_tri_prim.long()] = pack_tris(ts.bvh_tri_v0, ts.bvh_tri_e1,
+                                            ts.bvh_tri_e2)
+    return out
+
+
+def brute_scene(ts: TorchScene) -> TorchScene:
+    """``ts`` with no BVH, as raytpu's Renderer leaves a scene under
+    ``traversal="brute"`` or ``bvh_builder="brute"`` (``raytpu/render.py:32``):
+    every BVH table dropped, the triangles in primitive order
+    (:func:`prim_tris`), and the entries one per (instance, mesh) in
+    ``traversal_list`` order from ``mesh_prim_ranges``: node_base 0,
+    node_count the mesh's triangle count, tri_base its first primitive.
+    Every sweep of such a scene is the per-(instance, mesh) loop over the
+    brute tracers (``integrator._tier``)."""
+    traversal_list = tuple(enumerate(ts.instance_mesh))
+    ranges = ts.mesh_prim_ranges
+    entries = entry_table(traversal_list, ts.materials.cpu().numpy(),
+                          [(0, count) for _, count in ranges], ranges)
+    return dataclasses.replace(
+        ts, **dict.fromkeys(BVH_FIELDS), leaf_max=0, tri_packed=prim_tris(ts),
+        traversal_list=traversal_list,
+        entries=torch.as_tensor(entries, device=ts.device),
+        entry_rows=tuple(map(tuple, entries.tolist())))
 
 
 def entry_table(traversal_list, materials, node_ranges, tri_ranges) -> np.ndarray:
@@ -345,6 +416,8 @@ def from_raytpu(dev, static, device) -> TorchScene:
         wide_succ=t(wide[0]),
         wide_skip=t(wide[1]),
         traversal_list=tuple(static.traversal_list),
+        mesh_prim_ranges=tuple(tuple(int(x) for x in r)
+                               for r in static.mesh_prim_ranges),
         leaf_max=int(count.max()),
         traversal=static.traversal,
         auto_tier=static.auto_tier,

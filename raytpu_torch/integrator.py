@@ -3,8 +3,9 @@
 ``_trace_sample_fused`` (:379-572) with its sort-once compacted waves
 (``_wave_budget`` :239, ``_wave_rungs`` :258), the XLA bounce body of
 ``_trace_sample`` (:611-898, ``bounce_core`` :651) with its per-iteration
-resort (``body_compact`` :748) for ``fused="off"`` and for
-``traversal="xla"``, the deferred sky fetch (:575) with its three filters,
+resort (``body_compact`` :748) for ``fused="off"``, for
+``traversal="xla"`` and for a scene without a BVH, its peel rule (:830)
+and unrolled loop (:837), the deferred sky fetch (:575) with its three filters,
 the validation guards (:567-571, :857-862), ``render_packets`` (:901-970)
 with its interleaved spp fold and its unfolded loop of one wave per sample,
 ``render_pixels`` (:976) for a list of pixels, tile-major pixel packets
@@ -38,7 +39,17 @@ through the XLA body whatever ``fused`` says, and every sweep of it is the
 unpacked per-(instance, mesh) loop (``ops/trace.closest_hit_loop`` /
 ``any_hit_loop``) on the one-mesh walks K11a/K11b. The packed tiers
 reject packets other than ``PACKET_K`` lanes too (tiles other than 32x32),
-so such frames render so on every traversal value (``_tier``).
+so such frames render so on every traversal value (``_tier``). A scene
+with no BVH (``traversal="brute"`` or ``bvh_builder="brute"``) renders
+through the XLA body too, every sweep the same loop over the brute
+tracers (``brute_closest_kernel`` / ``brute_anyhit_kernel``).
+
+The JAX package's scheduling knobs take the XLA body as well (:224):
+``divergence`` permutes the lanes around the consensus sweeps
+(``ops/rebin.py``; the j=0 closest sweep is left alone under "sort" and
+"split" at a fold of 2 or 4 samples, :830-832, and scheduled under
+"split_all"), and ``bounce_unroll`` runs every bounce of a full-width loop
+of at most 8 bounces with no host read between them (:837-849).
 
 Host syncs per frame (each counted in ``stats["host_syncs"]``): the loop
 condition once per bounce iteration (``any(window > 0)`` at full width,
@@ -82,6 +93,12 @@ from raytpu_torch.ops.epilogue import (
     shade_epilogue,
     shade_epilogue_ref,
 )
+from raytpu_torch.ops.intersect import (
+    brute_anyhit,
+    brute_anyhit_ref,
+    brute_closest,
+    brute_closest_ref,
+)
 from raytpu_torch.ops.mega import BLOCK_PACKETS
 from raytpu_torch.ops.perlane import (
     perlane_anyhit_sweep,
@@ -90,6 +107,7 @@ from raytpu_torch.ops.perlane import (
     perlane_closest_sweep_ref,
 )
 from raytpu_torch.ops.raygen import primary_rays_soa, raygen_packed, raygen_packed_ref
+from raytpu_torch.ops.rebin import DIVERGENCE
 from raytpu_torch.ops.sky import (
     sample_cubemap_u32,
     sample_cubemap_u32_nearest,
@@ -99,6 +117,8 @@ from raytpu_torch.ops.sky import (
 from raytpu_torch.ops.trace import (
     any_hit_loop,
     any_hit_wave,
+    brute_mesh_anyhit,
+    brute_mesh_closest,
     closest_hit_loop,
     closest_hit_wave,
 )
@@ -127,8 +147,12 @@ PACKET_K = 1024
 
 # every traversal tier of the JAX package computes the same hits; the port
 # walks them with the per-lane, the consensus or the chained sweeps, or the
-# per-(instance, mesh) loop (_tier)
-_TRAVERSALS = ("auto", "pallas", "xla", "perlane", "mega", "hybrid")
+# per-(instance, mesh) loop on the one-mesh walks or the brute tracers
+# (_tier); "brute" leaves the scene without a BVH (render.Renderer)
+_TRAVERSALS = ("auto", "pallas", "xla", "perlane", "mega", "hybrid", "brute")
+# RenderConfig.sky_rebin's values: each renders the same frame in the port
+# (its sky kernel has no compacted fallback sub-wave to re-bin, :70-94)
+_SKY_REBIN = ("auto", "on", "off")
 
 # the frame's kernel wrappers, looked up at call time so that
 # plain_kernels() can swap in their plain versions
@@ -137,7 +161,8 @@ _KERNELS = {"raygen": raygen_packed, "closest": closest_sweep,
             "perlane_anyhit": perlane_anyhit_sweep,
             "mega_closest": mega_closest_sweep,
             "mega_anyhit": mega_anyhit_sweep, "mesh_closest": mesh_closest,
-            "mesh_anyhit": mesh_anyhit, "sky": sample_cubemap_u32,
+            "mesh_anyhit": mesh_anyhit, "brute_closest": brute_closest,
+            "brute_anyhit": brute_anyhit, "sky": sample_cubemap_u32,
             "sky_nearest": sample_cubemap_u32_nearest,
             "shade": shade_epilogue, "accumulate": accumulate_epilogue}
 _PLAIN = {"raygen": raygen_packed_ref, "closest": closest_sweep_ref,
@@ -147,6 +172,7 @@ _PLAIN = {"raygen": raygen_packed_ref, "closest": closest_sweep_ref,
           "mega_closest": mega_closest_sweep_ref,
           "mega_anyhit": mega_anyhit_sweep_ref,
           "mesh_closest": mesh_closest_ref, "mesh_anyhit": mesh_anyhit_ref,
+          "brute_closest": brute_closest_ref, "brute_anyhit": brute_anyhit_ref,
           "sky": sample_cubemap_u32_ref,
           "sky_nearest": sample_cubemap_u32_nearest_ref,
           "shade": shade_epilogue_ref, "accumulate": accumulate_epilogue_ref}
@@ -157,9 +183,9 @@ def kernels(**fns):
     """Within the block, frames call ``fns`` in place of the kernel
     wrappers of those names (``raygen``, ``closest``, ``anyhit``,
     ``perlane_closest``, ``perlane_anyhit``, ``mega_closest``,
-    ``mega_anyhit``, ``mesh_closest``, ``mesh_anyhit``, ``sky``,
-    ``sky_nearest``, ``shade``, ``accumulate``), with the wrappers'
-    arguments."""
+    ``mega_anyhit``, ``mesh_closest``, ``mesh_anyhit``, ``brute_closest``,
+    ``brute_anyhit``, ``sky``, ``sky_nearest``, ``shade``, ``accumulate``),
+    with the wrappers' arguments."""
     unknown = set(fns) - set(_KERNELS)
     if unknown:
         raise KeyError(f"no kernel wrapper named {sorted(unknown)}")
@@ -204,10 +230,19 @@ class RenderStatic:
     the non-finite guards at the end of both bounce loops
     (``utils/validation.guard``).
 
+    ``divergence``: the lane schedule around the consensus sweeps, "off",
+    "split", "split_all" or "sort" (``ops/rebin.py``); anything but "off"
+    renders through the XLA body. ``bounce_unroll``: with
+    ``wavefront="full"`` (no compaction budget) and at most 8 bounces, the
+    XLA body runs all ``max_bounce_count + 1`` iterations with no host read
+    between them (:837-849), the shadow sweep of every iteration included;
+    the frame equals the loop's.
+
     The JAX package's ``sample_group`` (:151-160) groups a tile's folded
     sample packets into one consensus group of its TPU megakernel; the
     port's consensus sweeps group lanes by warp (``ops/consensus.py``), so
-    nothing carries over."""
+    only the divergence schedule reads it: "split" regroups a fold of 2 or
+    4 samples."""
 
     width: int
     height: int
@@ -222,10 +257,19 @@ class RenderStatic:
     shadow_order: str = "light"
     ray_chunk: int = 0
     validation: bool = False
+    divergence: str = "off"
+    bounce_unroll: bool = False
 
     @property
     def packet_size(self) -> int:
         return self.tile * self.tile
+
+    @property
+    def sample_group(self) -> int:
+        """The spp samples a folded tile's adjacent packets hold (1 when
+        not folded, or spp not 1, 2, 4 or 8)."""
+        spp = self.samples_per_pixel
+        return spp if self.fold_spp and spp in (1, 2, 4, 8) else 1
 
     def __post_init__(self):
         for name, allowed in (("skybox_filter", ("bilinear", "nearest",
@@ -233,7 +277,8 @@ class RenderStatic:
                               ("wavefront", ("full", "compact")),
                               ("fused", ("on", "off")),
                               ("ladder", ("auto", "off")),
-                              ("shadow_order", ("light", "origin"))):
+                              ("shadow_order", ("light", "origin")),
+                              ("divergence", DIVERGENCE)):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"{name}={getattr(self, name)!r}: use one "
                                  f"of {allowed}")
@@ -243,35 +288,30 @@ class RenderStatic:
 
     @classmethod
     def from_config(cls, config: RenderConfig) -> "RenderStatic":
-        """The render parameters of a ``RenderConfig``. Raises on every
-        value the port does not implement, rather than ignoring it. All
+        """The render parameters of a ``RenderConfig``. Raises on a value
+        the JAX package does not know, rather than ignoring it. All
         ``sky_sampler`` values compute the same filter, so each maps to the
-        port's one sampler of it; every ``bvh_builder`` of the JAX package
-        is accepted (``accel.attach_bvh`` builds its tree). ``devices`` is
-        the Renderer's (``devices > 1`` shards the frame, ``parallel/``);
-        it must be at least 1."""
+        port's one sampler of it, and every ``sky_rebin`` value renders the
+        same frame; every ``bvh_builder`` of the JAX package is accepted
+        (``accel.attach_bvh`` builds its tree, "brute" none), and so is
+        ``chunk_tris`` >= 0 (the chunks ``attach_bvh`` cuts). ``dtype`` is
+        read nowhere, as in the JAX package (the frame is float32).
+        ``devices`` is the Renderer's (``devices > 1`` shards the frame,
+        ``parallel/``); it must be at least 1."""
         if config.devices < 1:
             raise ValueError(f"RenderConfig.devices={config.devices!r}: use 1 "
                              "device or more")
-        unsupported = {
-            "divergence": (config.divergence, "off"),
-            "bounce_unroll": (config.bounce_unroll, False),
-            "chunk_tris": (config.chunk_tris, 0),
-            "dtype": (config.dtype, "float32"),
-        }
-        for name, (got, want) in unsupported.items():
-            if got != want:
-                raise ValueError(
-                    f"RenderConfig.{name}={got!r} is not supported by the "
-                    f"PyTorch port (needs {want!r})")
-        if config.sky_rebin == "on":
-            raise ValueError("RenderConfig.sky_rebin='on' is a rejected TPU "
-                             "experiment and is not ported")
+        if config.chunk_tris < 0:
+            raise ValueError(f"RenderConfig.chunk_tris={config.chunk_tris!r}: "
+                             "use 0 (one tree a mesh) or a triangle count")
+        if config.sky_rebin not in _SKY_REBIN:
+            raise ValueError(f"RenderConfig.sky_rebin={config.sky_rebin!r}: "
+                             f"use one of {_SKY_REBIN}")
         _check_traversal(config.traversal)
-        if config.bvh_builder not in BVH_BUILDERS:
+        if config.bvh_builder not in BVH_BUILDERS + ("brute",):
             raise ValueError(
                 f"RenderConfig.bvh_builder={config.bvh_builder!r}: use one of "
-                f"{BVH_BUILDERS}")
+                f"{BVH_BUILDERS + ('brute',)}")
         return cls(
             width=config.width,
             height=config.height,
@@ -281,6 +321,8 @@ class RenderStatic:
             wavefront=config.wavefront,
             ray_chunk=config.ray_chunk,
             validation=config.validation,
+            divergence=config.divergence,
+            bounce_unroll=bool(config.bounce_unroll),
         )
 
 
@@ -293,9 +335,12 @@ def _check_traversal(traversal: str) -> None:
 def _tier(ts: TorchScene, p: int, primary: bool, k: int) -> str:
     """The sweeps a wave of ``p`` packets of ``k`` lanes takes
     (``raytpu/ops/trace.py:550`` ``_use_perlane``, :580 ``_use_mega`` and
-    :600 ``_all_pallas``, without their TPU test): "xla" (the
-    per-(instance, mesh) loop) under "xla", and on every traversal value
-    for packets other than ``PACKET_K`` lanes; "perlane" under "perlane",
+    :600 ``_all_pallas``, without their TPU test): "brute" (the
+    per-(instance, mesh) loop over the brute tracers) for a scene with no
+    BVH, whatever its traversal value, as every test there needs
+    ``has_bvh``; "xla" (the per-(instance, mesh) loop) under "xla" and
+    "brute" (a scene that has a BVH walks it, :290), and on every traversal
+    value for packets other than ``PACKET_K`` lanes; "perlane" under "perlane",
     under "auto" where the scene resolved to it, and under "hybrid" on the
     ``primary`` (first-bounce) sweeps; "mega" under "mega", under "auto"
     resolved to "mega" and under "hybrid" on the later ones; "pallas" (the
@@ -309,7 +354,9 @@ def _tier(ts: TorchScene, p: int, primary: bool, k: int) -> str:
     Both compute one mesh's closest hit and occlusion, which K11a/K11b
     compute in the port, so every value takes the loop on them."""
     _check_traversal(ts.traversal)
-    if ts.traversal == "xla" or k != PACKET_K:
+    if not ts.has_bvh:
+        return "brute"
+    if ts.traversal in ("xla", "brute") or k != PACKET_K:
         return "xla"
     if p % BLOCK_PACKETS:
         return "pallas"
@@ -324,9 +371,10 @@ def _tier(ts: TorchScene, p: int, primary: bool, k: int) -> str:
 
 def frame_tier(ts: TorchScene, p: int, k: int) -> str:
     """The sweeps a frame of ``p`` packets of ``k`` lanes takes:
-    "perlane", "mega", "pallas" (the chained sweeps) or "xla" (the
-    per-(instance, mesh) loop) on every bounce, or "hybrid" (per-lane on
-    the first bounce, consensus on the later ones)."""
+    "perlane", "mega", "pallas" (the chained sweeps), "xla" (the
+    per-(instance, mesh) loop) or "brute" (that loop over the brute
+    tracers) on every bounce, or "hybrid" (per-lane on the first bounce,
+    consensus on the later ones)."""
     first, later = _tier(ts, p, True, k), _tier(ts, p, False, k)
     return first if first == later else "hybrid"
 
@@ -343,27 +391,46 @@ def _sweeps(ts: TorchScene, rs, p: int, k: int, primary: bool):
                               order=rs.shadow_order))
 
 
-def _traces(ts: TorchScene, rs, p: int, k: int, primary: bool):
+def _traces(ts: TorchScene, rs, p: int, k: int, primary: bool,
+            sparse: str = "off"):
     """``(closest, occlusion)`` of a wave of ``p`` packets of ``k`` lanes
     for the XLA body, each with ``closest_hit_wave``'s / ``any_hit_wave``'s
-    arguments: the per-(instance, mesh) loop on K11a/K11b where the tier is
-    "xla" (:func:`_tier`), else the tier's packed sweeps
-    (:func:`_sweeps`)."""
-    if _tier(ts, p, primary, k) == "xla":
+    arguments: the per-(instance, mesh) loop over the brute tracers where
+    the tier is "brute" and on K11a/K11b where it is "xla"
+    (:func:`_tier`), else the tier's packed sweeps (:func:`_sweeps`). On
+    the consensus tier the closest sweep's lanes take the divergence
+    schedule ``sparse`` and the shadow sweep's ``rs.divergence``, as the
+    JAX body passes them (``raytpu/integrator.py:661``, :693)."""
+    tier = _tier(ts, p, primary, k)
+    if tier == "brute":
+        return (functools.partial(closest_hit_loop, walk=functools.partial(
+                    brute_mesh_closest, closest=_KERNELS["brute_closest"])),
+                functools.partial(any_hit_loop, walk=functools.partial(
+                    brute_mesh_anyhit, anyhit=_KERNELS["brute_anyhit"])))
+    if tier == "xla":
         return (functools.partial(closest_hit_loop,
                                   walk=_KERNELS["mesh_closest"]),
                 functools.partial(any_hit_loop, walk=_KERNELS["mesh_anyhit"]))
     closest, anyhit = _sweeps(ts, rs, p, k, primary)
-    return (functools.partial(closest_hit_wave, sweep=closest),
-            functools.partial(any_hit_wave, sweep=anyhit))
+    mega = tier == "mega"
+    return (functools.partial(closest_hit_wave, sweep=closest,
+                              sparse=sparse if mega else "off",
+                              group=rs.sample_group),
+            functools.partial(any_hit_wave, sweep=anyhit,
+                              sparse=rs.divergence if mega else "off",
+                              group=rs.sample_group))
 
 
 def _use_fused(ts: TorchScene, rs, p: int, k: int) -> bool:
     """Whether the fused loop renders a frame of ``p`` packets of ``k``
     lanes (``integrator._use_fused`` :204, without its TPU test):
-    ``fused="on"`` and a packed tier, which "xla" is not, nor any tier at
-    packets other than ``PACKET_K`` lanes (:234)."""
-    return rs.fused == "on" and _tier(ts, p, True, k) != "xla"
+    ``fused="on"``, the default scheduling (``divergence="off"``, no
+    ``bounce_unroll``, :224) and a packed tier, which "xla" and "brute"
+    are not, nor any tier at packets other than ``PACKET_K`` lanes
+    (:234)."""
+    return (rs.fused == "on" and rs.divergence == "off"
+            and not rs.bounce_unroll
+            and _tier(ts, p, True, k) not in ("xla", "brute"))
 
 
 def _count(stats, key, mask):
@@ -393,12 +460,15 @@ def _shadow_always(rs) -> bool:
     return rs.max_bounce_count <= 4 and rs.samples_per_pixel > 1
 
 
-def _bounce_core(ts, rs, o, d, tmp, active, miss_rec, decay, stats, traces):
+def _bounce_core(ts, rs, o, d, tmp, active, miss_rec, decay, stats, traces,
+                 shadow_always: bool = False):
     """One bounce at the width of its inputs (``integrator.py:651-736``)
     through the ``traces`` (:func:`_traces`): closest trace, miss record,
     shadow + Blinn-Phong, mirror/refract continuations. Per-lane results
     depend only on the lane, so it runs alike over the full wave or a
-    compacted wave of it."""
+    compacted wave of it. ``shadow_always`` sweeps the shadow rays without
+    the skip test's host read (a wave with no lit lane sweeps all-zero
+    windows, which occlude nothing)."""
     _count(stats, "closest_rays", active)
     lane_tmax = torch.where(active, torch.full_like(o[0], RAY_TMAX),
                             torch.zeros_like(o[0]))
@@ -420,7 +490,7 @@ def _bounce_core(ts, rs, o, d, tmp, active, miss_rec, decay, stats, traces):
     light_dist = v3.norm(to_light)
     l = v3.scale(1.0 / torch.clamp_min(light_dist, 1e-30), to_light)
 
-    if _shadow_always(rs) or _any(lit_candidate, stats):
+    if shadow_always or _shadow_always(rs) or _any(lit_candidate, stats):
         _count(stats, "shadow_rays", lit_candidate)
         occluded = traces[1](
             ts, shadow_o, l, RAY_TMIN,
@@ -487,7 +557,16 @@ def _trace_sample(ts: TorchScene, rs: RenderStatic, o, d,
     ray that hits two triangles at exactly the same t may keep the other
     one (as those tiers and the pallas tier may differ). The live packet
     count is the iteration's one host read; it is also the loop condition
-    (no live packet, no live lane)."""
+    (no live packet, no live lane).
+
+    The divergence schedule (``rs.divergence``) applies to every closest
+    sweep but the first where the JAX body peels j=0 (:830-832: a
+    compaction budget, "hybrid", "sort", or "split" at a fold of 2 or 4
+    samples) and to every shadow sweep. With ``rs.bounce_unroll``, no
+    budget and at most 8 bounces (:837-849), all ``max_bounce_count + 1``
+    iterations run with no host read: no loop condition, and the shadow
+    sweep without its skip test; lanes that are done sweep zero windows,
+    so the frame equals the loop's."""
     p, k = o[0].shape
     tmp = tuple(torch.full((p, k), c, dtype=torch.float32, device=o[0].device)
                 for c in shade.ambient_tuple())
@@ -495,20 +574,27 @@ def _trace_sample(ts: TorchScene, rs: RenderStatic, o, d,
     miss_rec = torch.zeros((p, k), dtype=torch.bool, device=o[0].device)
     active = active0
     budget = _wave_budget(p) if rs.wavefront == "compact" else 0
+    peel = bool(budget) or ts.traversal == "hybrid" or rs.divergence == "sort" \
+        or (rs.divergence == "split" and rs.sample_group in (2, 4))
+    first = _traces(ts, rs, p, k, primary=True,
+                    sparse="off" if peel else rs.divergence)
     j = 0
     if not budget:
-        # inclusive bounce cap (shader.rgen:84); exits once every lane is done
-        while j <= rs.max_bounce_count and _any(active, stats):
+        later = _traces(ts, rs, p, k, primary=False, sparse=rs.divergence)
+        unroll = rs.bounce_unroll and rs.max_bounce_count <= 8
+        # inclusive bounce cap (shader.rgen:84); exits once every lane is
+        # done, unless unrolled
+        while j <= rs.max_bounce_count and (unroll or _any(active, stats)):
             o, d, tmp, active, miss_rec = _bounce_core(
                 ts, rs, o, d, tmp, active, miss_rec, decay, stats,
-                _traces(ts, rs, p, k, primary=j == 0))
+                later if j else first, unroll)
             j += 1
     else:
         o, d, tmp, active, miss_rec = _bounce_core(      # the peeled j = 0
-            ts, rs, o, d, tmp, active, miss_rec, decay, stats,
-            _traces(ts, rs, p, k, primary=True))
+            ts, rs, o, d, tmp, active, miss_rec, decay, stats, first)
         j = 1
-        traces = _traces(ts, rs, budget, k, primary=False)
+        traces = _traces(ts, rs, budget, k, primary=False,
+                         sparse=rs.divergence)
         while j <= rs.max_bounce_count:
             live = active.any(dim=1)
             n_live = int(_read(live.sum(), stats))
@@ -682,6 +768,8 @@ def render_packets(ts: TorchScene, rs: RenderStatic, camera: torch.Tensor,
     ``tier`` of one wave (:func:`frame_tier`)."""
     p, k = px.shape
     spp = rs.samples_per_pixel
+    if stats is not None:
+        stats.setdefault("host_syncs", 0)
     if not rs.fold_spp and spp > 1:
         return _render_samples(ts, rs, camera, px, py, active0, rays6, stats)
     if stats is not None:

@@ -3,14 +3,36 @@ per-lane form the traversal walk uses: each lane carries its own triangle
 or node, so every operand is a same-shape tensor, and the operations follow
 ``raytpu/ops/traverse_pallas.py::_mt`` (:83-112) and ``::_slab`` (:70-80)
 in order. The CUDA helpers in ``csrc/common.cuh`` are the same functions.
+
+The brute-force tracers (``raytpu/ops/intersect.py:147-265``), which walk
+no tree: every ray against every triangle of a table. They are the JAX
+package's BVH-free path (``traversal="brute"`` or ``bvh_builder="brute"``)
+and its correctness oracle. ``brute_closest`` / ``brute_anyhit`` are the
+kernel wrappers: a CPU tensor takes the plain version beside them
+(``brute_closest_ref`` / ``brute_anyhit_ref``, a block scan over the
+triangles with :func:`moller_trumbore`, as raytpu's ``lax.scan`` over
+blocks), a CUDA tensor launches ``brute_closest_kernel`` /
+``brute_anyhit_kernel`` of ``csrc/brute.cu`` (or raises). The triangles
+are the packed (T, 12) f32 records ``{v0, 0}, {e1, 0}, {e2, 0}`` in
+primitive order (``TorchScene.tri_packed``). Among hits at equal t the
+lowest triangle index wins: raytpu's block ``argmin`` keeps the first of a
+block and its merge across blocks is strict, and the kernel scans in index
+order with a strict ``t < best_t``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from raytpu_torch import _build
+
 DET_EPS = 1e-9
 BIG_T = 3.0e38  # "no hit" distance
+# triangles a step of the plain brute scan tests against every ray
+# (raytpu's ``block``), and the (rays x triangles) elements one step's
+# temporaries may hold: the scan takes the rays in chunks under it
+BRUTE_BLOCK = 512
+BRUTE_ELEMS = 1 << 22
 
 
 def safe_inverse(d: torch.Tensor) -> torch.Tensor:
@@ -57,3 +79,155 @@ def slab(o, d_inv, bmin, bmax, tmin: float, tfar_cap: torch.Tensor) -> torch.Ten
     t_near = torch.maximum(torch.maximum(tns[0], tns[1]), torch.maximum(tns[2], tmin_t))
     t_far = torch.minimum(torch.minimum(tfs[0], tfs[1]), torch.minimum(tfs[2], tfar_cap))
     return t_near <= t_far
+
+
+# ---------------------------------------------------------------------------
+# brute-force tracers
+# ---------------------------------------------------------------------------
+
+def _brute_lanes(rays: torch.Tensor, tmax: torch.Tensor, tmin: float):
+    """The live lanes (window above ``tmin``) of a brute query: their
+    indices into the flattened lanes, rays and windows. A dead lane can hit
+    nothing (``tmin < t < tmax`` is empty), so it is not tested."""
+    rflat = rays.reshape(6, -1)
+    tflat = tmax.reshape(-1)
+    live = (tflat > tmin).nonzero().squeeze(1)
+    return live, rflat[:, live], tflat[live]
+
+
+def _tri_block(tris: torch.Tensor, b0: int, block: int):
+    """Triangles ``b0 .. b0 + block`` of the packed table as (1, B) Vec3s
+    ``(v0, e1, e2)``."""
+    tb = tris[b0:b0 + block]
+    return tuple(tuple(tb[None, :, 4 * w + c] for c in range(3))
+                 for w in range(3))
+
+
+def _ray_chunk(n_tris: int, block: int) -> int:
+    return max(1, BRUTE_ELEMS // max(1, min(block, n_tris)))
+
+
+def brute_closest_ref(rays: torch.Tensor, tmax: torch.Tensor,
+                      tris: torch.Tensor, tmin: float,
+                      block: int = BRUTE_BLOCK):
+    """Plain PyTorch :func:`brute_closest`: per block of ``block``
+    triangles, every (ray, triangle) test at once, the block's first
+    least-t hit by ``argmin``, merged where it improves (raytpu's
+    ``brute_closest`` :163, without its padding triangles, which no ray
+    hits). The rays go in chunks so that one step's (rays x triangles)
+    temporaries stay under :data:`BRUTE_ELEMS` elements."""
+    shape, dev = rays.shape[1:], rays.device
+    n = tmax.numel()
+    t_out = torch.full((n,), BIG_T, dtype=torch.float32, device=dev)
+    prim = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    u_out = torch.zeros((n,), dtype=torch.float32, device=dev)
+    v_out = torch.zeros((n,), dtype=torch.float32, device=dev)
+    live, r, tm = _brute_lanes(rays, tmax, tmin)
+    n_tris = tris.shape[0]
+    step = _ray_chunk(n_tris, block)
+    for s in range(0, live.numel(), step):
+        o = tuple(r[c, s:s + step, None] for c in range(3))
+        d = tuple(r[3 + c, s:s + step, None] for c in range(3))
+        best_t = tm[s:s + step].clone()
+        best_p = torch.full_like(best_t, -1, dtype=torch.int32)
+        best_u = torch.zeros_like(best_t)
+        best_v = torch.zeros_like(best_t)
+        for b0 in range(0, n_tris, block):
+            t, u, v, hit = moller_trumbore(o, d, *_tri_block(tris, b0, block),
+                                           tmin, best_t[:, None])
+            t = torch.where(hit, t, BIG_T)
+            arg = t.argmin(dim=1, keepdim=True)
+            better = hit.any(dim=1)
+            best_t = torch.where(better, t.gather(1, arg)[:, 0], best_t)
+            best_u = torch.where(better, u.gather(1, arg)[:, 0], best_u)
+            best_v = torch.where(better, v.gather(1, arg)[:, 0], best_v)
+            best_p = torch.where(better, (arg[:, 0] + b0).to(torch.int32),
+                                 best_p)
+        lanes = live[s:s + step]
+        t_out[lanes] = torch.where(best_p >= 0, best_t, BIG_T)
+        prim[lanes] = best_p
+        u_out[lanes] = best_u
+        v_out[lanes] = best_v
+    return (t_out.reshape(shape), prim.reshape(shape), u_out.reshape(shape),
+            v_out.reshape(shape))
+
+
+def brute_anyhit_ref(rays: torch.Tensor, tmax: torch.Tensor,
+                     tris: torch.Tensor, tmin: float,
+                     block: int = BRUTE_BLOCK) -> torch.Tensor:
+    """Plain PyTorch :func:`brute_anyhit`: per block, every pending lane's
+    tests at once, OR-merged (raytpu's ``brute_anyhit`` :226) -> bool of
+    the lanes' shape. A lane stops being tested once it is occluded."""
+    shape, dev = rays.shape[1:], rays.device
+    occ = torch.zeros(tmax.numel(), dtype=torch.bool, device=dev)
+    live, r, tm = _brute_lanes(rays, tmax, tmin)
+    n_tris = tris.shape[0]
+    step = _ray_chunk(n_tris, block)
+    for s in range(0, live.numel(), step):
+        idx = torch.arange(s, min(s + step, live.numel()), device=dev)
+        for b0 in range(0, n_tris, block):
+            if idx.numel() == 0:
+                break
+            o = tuple(r[c, idx, None] for c in range(3))
+            d = tuple(r[3 + c, idx, None] for c in range(3))
+            _, _, _, hit = moller_trumbore(o, d, *_tri_block(tris, b0, block),
+                                           tmin, tm[idx, None])
+            found = hit.any(dim=1)
+            occ[live[idx[found]]] = True
+            idx = idx[~found]
+    return occ.reshape(shape)
+
+
+def _brute_operands(kernel: str, rays: torch.Tensor, tmax: torch.Tensor,
+                    tris: torch.Tensor):
+    """Validated pointers of a brute launch: the ray planes and their
+    stride, the windows and the packed triangles (16-byte aligned)."""
+    shape = rays.shape[1:]
+    rp = _build.check_planes(kernel, "rays", rays, (6, *shape))
+    tp = _build.check_operand(kernel, "tmax", tmax, shape)
+    trp = _build.check_operand(kernel, "tris", tris, (tris.shape[0], 12))
+    if trp % 16:
+        raise ValueError(f"{kernel}: the triangle records are not 16-byte "
+                         "aligned")
+    return (*rp, tp, trp, tris.shape[0])
+
+
+def brute_closest(rays: torch.Tensor, tmax: torch.Tensor, tris: torch.Tensor,
+                  tmin: float):
+    """Closest hit of ``rays`` (6, ...) within ``(tmin, tmax)`` per lane
+    against every triangle of ``tris`` (T, 12) -> ``(t, prim, u, v)`` of
+    the lanes' shape: t ``BIG_T``, prim -1 and u, v 0 on a miss; prim
+    indexes ``tris``. CPU tensors take :func:`brute_closest_ref`; CUDA
+    tensors launch ``brute_closest_kernel``."""
+    if rays.device.type == "cpu":
+        return brute_closest_ref(rays, tmax, tris, tmin)
+    k = "brute_closest"
+    shape = rays.shape[1:]
+    out = torch.empty((3, *shape), dtype=torch.float32, device=rays.device)
+    prim = torch.empty(shape, dtype=torch.int32, device=rays.device)
+    _build.launch(k, *_brute_operands(k, rays, tmax, tris), tmax.numel(),
+                  float(tmin), out.data_ptr(), out.stride(0), prim.data_ptr())
+    return out[0], prim, out[1], out[2]
+
+
+def brute_anyhit(rays: torch.Tensor, tmax: torch.Tensor, tris: torch.Tensor,
+                 tmin: float) -> torch.Tensor:
+    """Occlusion of ``rays`` (6, ...) within ``(tmin, tmax)`` per lane by
+    any triangle of ``tris`` -> bool of the lanes' shape. CPU tensors take
+    :func:`brute_anyhit_ref`; CUDA tensors launch ``brute_anyhit_kernel``,
+    which stops a lane at its first hit and a block once all its lanes
+    have stopped."""
+    if rays.device.type == "cpu":
+        return brute_anyhit_ref(rays, tmax, tris, tmin)
+    k = "brute_anyhit"
+    occ = torch.empty(rays.shape[1:], dtype=torch.int32, device=rays.device)
+    _build.launch(k, *_brute_operands(k, rays, tmax, tris), tmax.numel(),
+                  float(tmin), occ.data_ptr())
+    return occ != 0
+
+
+def kernel_attributes() -> dict:
+    """The brute kernels' registers, local bytes, resident CTAs and SMs
+    (:func:`raytpu_torch._build.kernel_attributes`)."""
+    return _build.kernel_attributes("rt_brute_attributes",
+                                    ("brute_closest", "brute_anyhit"))

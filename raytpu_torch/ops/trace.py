@@ -2,13 +2,19 @@
 ``raytpu/ops/trace.py:127-459``).
 
 ``closest_hit_wave`` / ``any_hit_wave`` serve the packed-ABI tiers: pack the
-rays, sweep every (instance, mesh) entry in one call, unpack.
+rays, sweep every (instance, mesh) entry in one call, unpack. Around a
+consensus sweep they apply the divergence schedule (``sparse``,
+``ops/rebin.schedule``) as the JAX package's megakernel branch does
+(:188-225, :376-410).
 ``closest_hit_loop`` / ``any_hit_loop`` are the JAX package's unpacked
 per-(instance, mesh) loop (:256-322, :429-459), which ``traversal="xla"``
 takes: per entry in ``traversal_list`` order, the rays move to the
 instance's object space, one mesh's walk runs (K11a / K11b,
 ``ops/traverse.mesh_closest`` / ``mesh_anyhit``), and the results merge
-outside it.
+outside it. A scene with no BVH takes the same loop with the brute
+walks (:func:`brute_mesh_closest` / :func:`brute_mesh_anyhit`, the
+``brute_closest`` / ``brute_anyhit`` branch of :286 and :449), its
+normals by primitive (``_normals_by_prim`` :325).
 """
 
 from __future__ import annotations
@@ -18,8 +24,9 @@ from typing import NamedTuple
 import torch
 
 from raytpu_torch.device_scene import TorchScene
+from raytpu_torch.ops import rebin
 from raytpu_torch.ops import vec3 as v3
-from raytpu_torch.ops.intersect import BIG_T
+from raytpu_torch.ops.intersect import BIG_T, brute_anyhit, brute_closest
 from raytpu_torch.ops.traverse import (
     anyhit_sweep,
     closest_sweep,
@@ -44,13 +51,18 @@ class HitWave(NamedTuple):
 
 
 def closest_hit_wave(ts: TorchScene, o, d, tmin: float, tmax: torch.Tensor,
-                     sweep=closest_sweep) -> HitWave:
+                     sweep=closest_sweep, sparse: str = "off",
+                     group: int = 1) -> HitWave:
     """Closest hit of the wave ``(o, d)`` (Vec3 of (P, K)) within the
     per-lane window ``(tmin, tmax)``, through ``sweep`` (the kernel wrapper,
-    or its plain version)."""
-    state = make_trace_state(tmax.expand(o[0].shape).contiguous())
+    or its plain version), the lanes in the order of the divergence
+    schedule ``sparse`` for a wave folded ``group`` samples a tile
+    (``rebin.schedule``; "off" leaves them)."""
+    o, d, tmax, back = rebin.schedule(o, d, tmax.expand(o[0].shape), tmin,
+                                      sparse, group)
+    state = make_trace_state(tmax.contiguous())
     rays = pack_rays(o, d)
-    state = sweep(ts, rays, tmin, state)
+    state = back(sweep(ts, rays, tmin, state))
     t, valid, mat, inst, n, u, v = unpack_state(state)
     return HitWave(
         t=torch.where(valid, t, torch.full_like(t, BIG_T)),
@@ -59,12 +71,15 @@ def closest_hit_wave(ts: TorchScene, o, d, tmin: float, tmax: torch.Tensor,
 
 
 def any_hit_wave(ts: TorchScene, o, d, tmin: float, tmax: torch.Tensor,
-                 sweep=anyhit_sweep) -> torch.Tensor:
-    """Occlusion of the wave within ``(tmin, tmax)`` per lane -> bool (P, K)."""
+                 sweep=anyhit_sweep, sparse: str = "off",
+                 group: int = 1) -> torch.Tensor:
+    """Occlusion of the wave within ``(tmin, tmax)`` per lane -> bool (P, K),
+    the lanes scheduled as in :func:`closest_hit_wave`."""
+    o, d, tmax, back = rebin.schedule(o, d, tmax.expand(o[0].shape), tmin,
+                                      sparse, group)
     rays = pack_rays(o, d)
     occ = torch.zeros(o[0].shape, dtype=torch.int32, device=o[0].device)
-    tmax = tmax.expand(o[0].shape).contiguous()
-    occ = sweep(ts, rays, tmin, tmax, occ)
+    occ = back(sweep(ts, rays, tmin, tmax.contiguous(), occ))
     return occ != 0
 
 
@@ -125,3 +140,39 @@ def any_hit_loop(ts: TorchScene, o, d, tmin: float, tmax: torch.Tensor,
                                    object_space(ts, inst, o, d), tmin,
                                    lane_tmax)
     return occluded
+
+
+def _normals_by_prim(ts: TorchScene, prim: torch.Tensor, u, v):
+    """Object normals interpolated from the primitive-ordered corner
+    normals ``tri_n_soa`` at global prims ``prim`` (-1 reads prim 0) as
+    ``w*N0 + u*N1 + v*N2``, ``w = 1 - u - v`` (``raytpu/ops/trace.py:325``)."""
+    p = prim.clamp_min(0).long()
+    w = 1.0 - u - v
+    n_soa = ts.tri_n_soa
+    return tuple(w * n_soa[c][p] + u * n_soa[3 + c][p] + v * n_soa[6 + c][p]
+                 for c in range(3))
+
+
+def _brute_tris(ts: TorchScene, mesh) -> torch.Tensor:
+    """The packed triangles of the brute entry ``mesh = (0, count,
+    first_prim)`` (``device_scene.brute_scene``), a view of ``tri_packed``."""
+    _, count, start = (int(x) for x in mesh)
+    return ts.tri_packed[start:start + count]
+
+
+def brute_mesh_closest(ts: TorchScene, mesh, rays: torch.Tensor, tmin: float,
+                       tmax: torch.Tensor, closest=brute_closest):
+    """The walk of a brute entry ``mesh`` for :func:`closest_hit_loop`, with
+    ``mesh_closest``'s outputs: ``(t, slot, u, v, n)``, the slot the
+    mesh-local prim (-1 on a miss) and ``n`` the object normal by prim.
+    ``closest`` is the brute kernel's wrapper or its plain version."""
+    t, prim, u, v = closest(rays, tmax, _brute_tris(ts, mesh), tmin)
+    n = _normals_by_prim(ts, torch.where(prim >= 0, prim + int(mesh[2]), 0),
+                         u, v)
+    return t, prim, u, v, n
+
+
+def brute_mesh_anyhit(ts: TorchScene, mesh, rays: torch.Tensor, tmin: float,
+                      tmax: torch.Tensor, anyhit=brute_anyhit) -> torch.Tensor:
+    """The occlusion walk of a brute entry for :func:`any_hit_loop`."""
+    return anyhit(rays, tmax, _brute_tris(ts, mesh), tmin)

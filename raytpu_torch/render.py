@@ -6,6 +6,7 @@ frame is sharded by tile rows over a mesh of that many devices
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -14,7 +15,7 @@ import torch
 from raytpu_torch.camera import Camera
 from raytpu_torch.scene import AnimationState, Scene
 from raytpu_torch.accel import attach_bvh
-from raytpu_torch.device_scene import build_device_scene
+from raytpu_torch.device_scene import brute_scene, build_device_scene
 from raytpu_torch.integrator import RenderStatic, render_frame
 from raytpu_torch.parallel import make_mesh, render_sharded, replicate
 from raytpu_torch.utils import validation
@@ -28,7 +29,11 @@ class Renderer:
     (``make_mesh(devices, device)``, which raises when fewer devices of
     that type exist) and keeps one scene replica per slot (``replicas``),
     made from ``tscene`` at the first frame and again whenever ``tscene``
-    is replaced; ``set_transforms`` moves every replica."""
+    is replaced; ``set_transforms`` moves every replica.
+
+    Under ``traversal="brute"`` or ``bvh_builder="brute"`` it attaches no
+    BVH (``raytpu/render.py:32``): every sweep is then the brute tracers'
+    per-(instance, mesh) loop (``device_scene.brute_scene``)."""
 
     def __init__(self, scene: Scene, device="cuda",
                  camera: Optional[Camera] = None):
@@ -39,8 +44,13 @@ class Renderer:
         self.render_static = RenderStatic.from_config(scene.config)
         self.mesh = (make_mesh(scene.config.devices, self.device)
                      if scene.config.devices > 1 else None)
-        self.tscene = attach_bvh(build_device_scene(scene, self.device), scene,
-                                 leaf_size=scene.config.leaf_size)
+        cfg = scene.config
+        tscene = build_device_scene(scene, self.device)
+        if "brute" in (cfg.bvh_builder, cfg.traversal):
+            self.tscene = dataclasses.replace(brute_scene(tscene),
+                                              traversal=cfg.traversal)
+        else:
+            self.tscene = attach_bvh(tscene, scene, leaf_size=cfg.leaf_size)
         self._replicas = None          # (the tscene they came from, replicas)
         self.animation = AnimationState(scene.instances)
         self.time_param = 0.0

@@ -25,8 +25,8 @@ def check_scene(ts) -> None:
     """Structural checks on a built :class:`TorchScene` (:25): finite
     triangles, transforms and light, materials in 0..2, and per mesh skip
     links that point forward and at most one past the mesh's last node."""
-    for name in ("bvh_tri_v0", "bvh_tri_e1", "bvh_tri_e2", "o2w", "w2o",
-                 "light_pos"):
+    for name in ("bvh_tri_v0", "bvh_tri_e1", "bvh_tri_e2", "tri_packed", "o2w",
+                 "w2o", "light_pos"):
         arr = getattr(ts, name)
         if arr is not None and not bool(torch.isfinite(arr).all()):
             log.fail(f"scene array {name} contains non-finite values")

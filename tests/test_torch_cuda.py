@@ -16,7 +16,8 @@ from raytpu_torch import _build, scenes
 from raytpu_torch.config import MaterialType, ObjectConfig, RenderConfig
 from raytpu_torch.integrator import plain_kernels, render_frame
 from raytpu_torch.io.obj import Mesh, compute_smooth_normals
-from raytpu_torch.ops import consensus, epilogue, mega, perlane, raygen, sky, trace, traverse
+from raytpu_torch.device_scene import brute_scene
+from raytpu_torch.ops import consensus, epilogue, intersect, mega, perlane, raygen, sky, trace, traverse
 from raytpu_torch.render import Renderer
 from raytpu_torch.scene import load_scene
 
@@ -135,11 +136,16 @@ def test_frame_goes_through_kernels(rig):
                  r.camera_tensor())
     counts["nearest"] = _build.launch_counts()
     assert counts["nearest"]["sky_nearest"] > 0 and counts["nearest"]["sky"] == 0
+    _build.reset_launch_counts()     # no BVH: the brute tracers' loop
+    imgs["brute"] = render_frame(brute_scene(r.tscene), r.render_static,
+                                 r.camera_tensor())
+    counts["brute"] = _build.launch_counts()
     sweeps = {"auto": ("block_stats", "mega_closest_sweep", "mega_anyhit_sweep"),
               "pallas": ("closest_sweep", "anyhit_sweep"),
               "perlane": ("block_stats", "perlane_closest_sweep",
                           "perlane_anyhit_sweep"),
-              "xla": ("mesh_closest", "mesh_anyhit")}
+              "xla": ("mesh_closest", "mesh_anyhit"),
+              "brute": ("brute_closest", "brute_anyhit")}
     every = {k for names in sweeps.values() for k in names}
     for trav, names in sweeps.items():
         assert all(counts[trav][k] > 0 for k in names), counts
@@ -149,6 +155,7 @@ def test_frame_goes_through_kernels(rig):
     assert torch.equal(imgs["auto"], imgs["pallas"])
     assert torch.equal(imgs["perlane"], imgs["pallas"])
     assert (imgs["xla"] - imgs["pallas"]).abs().max() <= 1e-5
+    assert torch.equal(imgs["brute"], imgs["xla"])
     with plain_kernels():
         plain = render_frame(r.tscene, r.render_static, r.camera_tensor())
     assert torch.isfinite(imgs["auto"]).all()
@@ -493,3 +500,27 @@ def test_sharded_frame_on_repeated_slots_equals_single(rig):
     assert counts["closest_sweep"] > 0 and counts["anyhit_sweep"] > 0, counts
     assert got.device == torch.device("cuda", 0)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("strided", [False, True])
+def test_brute_kernels_bitwise(soup, strided):
+    """brute_closest_kernel and brute_anyhit_kernel against their plain
+    versions, bit for bit, on every triangle of the soup's mesh (more than
+    one shared-memory tile), with dead lanes, on a whole buffer and on a
+    strided wave."""
+    ts, rays = soup
+    tris = brute_scene(ts).tri_packed
+    assert tris.shape[0] > 256
+    p0, b = (4, 8) if strided else (0, rays.shape[1])
+    wave = rays[:, p0:p0 + b]
+    win = torch.full(wave.shape[1:], 1e4, device="cuda")
+    win.view(-1)[::5] = 0.0
+    got = intersect.brute_closest(wave, win, tris, 1e-3)
+    want = intersect.brute_closest_ref(wave, win, tris, 1e-3)
+    for a, w in zip(got, want):
+        assert torch.equal(a.view(torch.int32), w.view(torch.int32))
+    assert (got[1] >= 0).float().mean() > 0.05
+    tmax = win * 0.001
+    occ = intersect.brute_anyhit(wave, tmax, tris, 1e-3)
+    assert torch.equal(occ, intersect.brute_anyhit_ref(wave, tmax, tris, 1e-3))
+    assert occ.any() and not occ.all()

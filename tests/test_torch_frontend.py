@@ -14,7 +14,7 @@ import torch
 
 from raytpu.frontend.flythrough import Flythrough as JaxFlythrough
 from raytpu.frontend.flythrough import ScriptSegment as JaxSegment
-from raytpu_torch import bench, cli, scenes
+from raytpu_torch import bench, cli, render, scenes
 from raytpu_torch.frontend import flythrough, headless
 from raytpu_torch.frontend.flythrough import DEFAULT_SCRIPT, Flythrough, ScriptSegment
 from raytpu_torch.io.image import _to_uint8, read_png
@@ -169,15 +169,42 @@ def test_cli_interactive_raises(monkeypatch):
 
 @pytest.mark.parametrize("flags,match", [
     (["--ray-chunk", "-1"], "ray_chunk"),
-    (["--chunk-tris", "512"], "chunk_tris"),
-    (["--divergence", "split"], "divergence"),
+    (["--chunk-tris", "-1"], "chunk_tris"),
     (["--devices", "0"], "devices"),
-    (["--traversal", "brute"], "brute"),
-])
+], ids=("flags0-ray_chunk", "flags1-chunk_tris", "flags3-devices"))
 def test_cli_rejects_what_the_port_lacks(tmp_path, flags, match):
+    """Negative counts raise, naming the field (the ids are kept from when
+    the cases between them were values the port lacked)."""
     with pytest.raises(ValueError, match=match):
         cli.main(["render", "--preset", "config1_standin", "--width", "16",
                   "--height", "16", "--cpu", "-o", str(tmp_path / "x.png"), *flags])
+
+
+@pytest.mark.parametrize("preset,flags,entries", [
+    ("config1_standin", ["--traversal", "brute"], None),
+    ("config1_standin", ["--divergence", "sort"], 1),
+    ("config1_standin", ["--divergence", "split"], 1),
+    ("config2_standin", ["--chunk-tris", "2048"], 3),
+], ids=("brute", "sort", "split", "chunk_tris"))
+def test_cli_renders_the_knobs(tmp_path, monkeypatch, preset, flags, entries):
+    """``render --cpu`` writes the frame under the brute tracer (no tree
+    attached), a divergence schedule and chunked trees (config2's 5,120
+    triangles in chunks of at most 2,048: three trees, three entries)."""
+    built = []
+
+    def spy(*args, **kwargs):
+        ts = attach_bvh(*args, **kwargs)
+        built.append(len(ts.entry_rows))
+        return ts
+
+    attach_bvh = render.attach_bvh
+    monkeypatch.setattr(render, "attach_bvh", spy)
+    out = tmp_path / "x.png"
+    cli.main(["render", "--preset", preset, "--width", "16", "--height", "16",
+              "--cpu", "-o", str(out), *flags])
+    img = read_png(str(out))
+    assert img.shape == (16, 16, 3) and img.std() > 0.0
+    assert built == ([] if entries is None else [entries])
 
 
 def test_cli_render_devices_writes_the_same_png(tmp_path):

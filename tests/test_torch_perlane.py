@@ -23,7 +23,7 @@ import torch
 
 from raytpu.render import Renderer as JaxRenderer
 from raytpu_torch import scenes
-from raytpu_torch.device_scene import from_raytpu
+from raytpu_torch.device_scene import brute_scene, from_raytpu
 from raytpu_torch.integrator import PACKET_K, frame_tier, render_frame
 from raytpu_torch.ops import consensus, perlane, traverse
 from raytpu_torch.render import Renderer
@@ -167,8 +167,13 @@ def test_tier_dispatch():
         assert frame_tier(t, 64, PACKET_K) == tier, (trav, auto)
         # not whole blocks of 8: the chained sweeps, but "xla" keeps its loop
         assert frame_tier(t, 60, PACKET_K) == ("xla" if trav == "xla" else "pallas")
-    with pytest.raises(ValueError, match="brute"):
-        frame_tier(dataclasses.replace(ts, traversal="brute"), 64, PACKET_K)
+    # "brute" walks an attached BVH as "xla" does (raytpu/ops/trace.py:290);
+    # a scene without one takes the brute loop whatever its traversal
+    assert frame_tier(dataclasses.replace(ts, traversal="brute"), 64,
+                      PACKET_K) == "xla"
+    assert frame_tier(brute_scene(ts), 64, PACKET_K) == "brute"
+    with pytest.raises(ValueError, match="not ported"):
+        frame_tier(dataclasses.replace(ts, traversal="bvh"), 64, PACKET_K)
     # spp 1 with bounces, and the stand-ins' triangle counts, go per-lane
     assert Renderer(scenes.two_box_scene(32, 32, 1, 1), "cpu").tscene.auto_tier \
         == "perlane"

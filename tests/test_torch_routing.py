@@ -16,6 +16,12 @@ raytpu renders no frame for a forced ``"pallas"`` at that width: its
 one-mesh kernel asserts a packet of 1024 lanes (its register layout), so
 the port's ``"pallas"`` frame is held to raytpu's ``"xla"`` frame, which
 runs the same loop on the packet walk.
+
+A scene with no BVH (``traversal="brute"``) takes the loop over the brute
+tracers at every tile and on every traversal value, through the XLA body
+(raytpu's ``has_bvh`` gates every packed tier); the divergence schedule
+keeps the scene's tier and takes the XLA body (``raytpu/integrator.py:224``),
+and on the tie scene its frames equal that body's frame bit for bit.
 """
 
 import dataclasses
@@ -31,6 +37,7 @@ from raytpu import integrator as ji
 from raytpu.ops import trace as jt
 from raytpu.render import Renderer as JaxRenderer
 from raytpu_torch import scenes
+from raytpu_torch.device_scene import brute_scene
 from raytpu_torch.integrator import (
     PACKET_K,
     _use_fused,
@@ -125,3 +132,48 @@ def test_tile32_frame_keeps_its_tier(tie8, traversal):
     with one_thread():
         img = render_frame(ts, rs, r.camera_tensor(), stats=stats)
     assert stats["tier"] == want and img.std() > 0.05
+
+
+@pytest.mark.parametrize("fused", ["on", "off"])
+def test_brute_scene_takes_the_brute_loop(tie8, fused):
+    """The tie scene without its BVH: the brute loop at tile 8 from the same
+    rays, within 1e-5 of raytpu's frame, and at 32x32 tiles too, on every
+    traversal value."""
+    _, r, _, _, want, rays6 = tie8
+    ts = brute_scene(r.tscene)
+    rs = dataclasses.replace(r.render_static, tile=TILE, fused=fused)
+    (px, py), in_frame = tiled_pixels(rs, "cpu")
+    stats = {}
+    with one_thread():
+        got = detile(render_packets(ts, rs, r.camera_tensor(), px, py, in_frame,
+                                    rays6=rays6, stats=stats), rs).numpy()
+    assert stats["tier"] == "brute"
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    for trav in TRAVERSALS + ("brute",):
+        tsb = dataclasses.replace(ts, traversal=trav)
+        stats = {}
+        with one_thread():
+            img = render_frame(tsb, dataclasses.replace(r.render_static,
+                                                        fused=fused),
+                               r.camera_tensor(), stats=stats)
+        assert stats["tier"] == "brute" and img.std() > 0.05
+
+
+@pytest.mark.parametrize("divergence", ["sort", "split", "split_all"])
+@pytest.mark.parametrize("traversal", ["mega", "hybrid"])
+def test_divergence_keeps_the_tier_in_the_xla_body(divergence, traversal):
+    r = Renderer(scenes.tie_scene(64, 48, divergence=divergence), "cpu")
+    ts = dataclasses.replace(r.tscene, traversal=traversal)
+    rs = r.render_static
+    (px, _), _ = tiled_pixels(rs, "cpu")
+    assert not _use_fused(ts, rs, px.shape[0] * 2, PACKET_K)
+    assert _use_fused(ts, dataclasses.replace(rs, divergence="off"),
+                      px.shape[0] * 2, PACKET_K)
+    stats = {}
+    with one_thread():
+        got = render_frame(ts, rs, r.camera_tensor(), stats=stats)
+        want = render_frame(ts, dataclasses.replace(rs, divergence="off",
+                                                    fused="off"),
+                            r.camera_tensor())
+    assert stats["tier"] == traversal
+    assert torch.equal(got, want)
