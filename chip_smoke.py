@@ -6,12 +6,13 @@
                                          # (default build/profile/)
     python3 chip_smoke.py --ab PARENT [--this-first]
                                          # frames and K1/K2/K8/K9/K10a/K10b/
-                                         # K11a/K11b times of the port in
-                                         # PARENT and in this tree
+                                         # K11a/K11b and brute kernel times
+                                         # of the port in PARENT and in this
+                                         # tree
     python3 chip_smoke.py --sweeps DIR [DIR ...]
                                          # K1/K2/K8/K9/K10a/K10b/K11a/K11b
-                                         # times alone of the ports in DIRs,
-                                         # in that order
+                                         # and brute kernel times alone of
+                                         # the ports in DIRs, in that order
 
 Builds the sixteen hand-written CUDA kernels from ``raytpu_torch/csrc``
 and the BVHs (the teapot stand-in's tree checked against a digest of the
@@ -67,7 +68,8 @@ loop:
   pixel may differ;
 * the knobs phase (``knobs_phase``): ``brute_closest_kernel`` and
   ``brute_anyhit_kernel`` against their plain versions bit for bit on a
-  slice of config2's primary wave; the brute oracle (``brute_oracle``) on
+  slice of config2's primary wave (times and bounds; the any-hit's
+  order-free floor of tests and its launch grid); the brute oracle (``brute_oracle``) on
   the primary waves of config1-3 and the 256x192 config4 frame: K1, K8,
   K10a and the loop on K11a equal to the brute loop on every lane but
   proven exact ties (config3's must include ``CONSENSUS_TIES``), K2, K9,
@@ -142,6 +144,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import re
 import statistics
@@ -224,17 +227,21 @@ RAYGEN_DIR_TOL = 1e-5  # kernel vs plain raygen, same f32 ops on one card
 EPILOGUE_ULPS = 2      # shade/accumulate kernel vs plain version, f32 ulps
 
 # Bounds: the larger of the bytes a call must move (each input read once,
-# each output written once) over the H100's 3.35 TB/s and its operations
-# over 67 TFLOP/s of f32 outside the tensor cores (NVIDIA's H100 SXM data
-# sheet, at a 700 W power limit). Operations per lane are counted from the
-# sources, each arithmetic operation, comparison and libm call as one; the
-# sweeps' from the node visits and triangle tests the plain walk counts. A
-# sweep's bytes are what its lanes must read and write (closest_lane_bytes,
-# anyhit_lane_bytes), the small tables it reads whole, and the distinct node,
-# link and triangle rows its plain walk reads (traverse.rows_bytes), not the
-# whole trees.
+# each output written once) over the H100's 3.35 TB/s (NVIDIA's H100 SXM
+# data sheet, at a 700 W power limit) and its operations over the card's
+# peak rate of f32 operations outside the tensor cores, f32_ops_per_s():
+# SMs x 128 FP32 lanes x the maximum SM clock (nvidia-smi's clocks.max.sm),
+# 3.3e13 a second on an H100 SXM. Not the data sheet's 67 TFLOP/s, which
+# counts a fused multiply-add as two: the kernels are built with
+# --fmad=false, so no operation fuses and each is one instruction on one
+# lane. Operations per lane are counted from the sources, each arithmetic
+# operation, comparison and libm call as one; the sweeps' from the node
+# visits and triangle tests the plain walk counts. A sweep's bytes are what
+# its lanes must read and write (closest_lane_bytes, anyhit_lane_bytes), the
+# small tables it reads whole, and the distinct node, link and triangle rows
+# its plain walk reads (traverse.rows_bytes), not the whole trees.
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+F32_LANES_PER_SM = 128
 OPS_PER_LANE = {"raygen": 55, "sky": 80, "sky_nearest": 50, "shade_epilogue": 100,
                 "accumulate_epilogue": 18, "block_stats": 21}
 SLAB_OPS, MT_OPS = 23, 51  # one node's box test, one Moller-Trumbore test
@@ -265,6 +272,24 @@ def gpu_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+@functools.lru_cache(maxsize=None)
+def max_sm_mhz() -> float:
+    """The card's maximum SM clock in MHz (``nvidia-smi``'s ``clocks.max.sm``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def f32_ops_per_s() -> float:
+    """The card's peak rate of unfused f32 operations: SMs x
+    :data:`F32_LANES_PER_SM` x :func:`max_sm_mhz`."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * F32_LANES_PER_SM * max_sm_mhz() * 1e6
 
 
 def cuda_ms(fn, warmup: int, iters: int) -> float:
@@ -348,7 +373,7 @@ def bound(nbytes: float, ops: float):
     """(bound ms, what bounds it) for a call moving ``nbytes`` and doing
     ``ops`` f32 operations."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / F32_OPS_PER_S
+    t_ops = ops / f32_ops_per_s()
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1607,16 +1632,23 @@ def profile_frame(r, path: Path, label: str, gpu: str) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        r.render()
+    # a profiler session has once come back with no device event at all,
+    # mid-run, on a frame that profiled fine before: profile one more frame
+    for _ in range(2):
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - start) * 1e3
-    events = prof.key_averages()
-    device = [e for e in events
-              if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    busy = sum(e.self_device_time_total for e in device) / 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            r.render()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - start) * 1e3
+        events = prof.key_averages()
+        device = [e for e in events
+                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        busy = sum(e.self_device_time_total for e in device) / 1e3
+        if busy > 0:
+            break
+        print(f"{label}: the profiler saw no device time; profiling another frame",
+              flush=True)
     check(busy > 0, f"{label}: the profiler saw device time")
     per_kernel = {name: sum(e.self_device_time_total for e in device
                             if kernel_named(name, e.key)) / 1e3
@@ -2522,8 +2554,7 @@ def brute_oracle(r, label: str, gpu: str) -> dict:
     srays, swin = shadow_rays(ts, rays, states["K10a"])
     so, sd = (srays[0], srays[1], srays[2]), (srays[3], srays[4], srays[5])
     occ0 = torch.zeros(swin.shape, dtype=torch.int32, device=swin.device)
-    walk_ba = functools.partial(trace.brute_mesh_anyhit, anyhit=intersect.brute_anyhit)
-    occ_b = trace.any_hit_loop(bts, so, sd, RAY_TMIN, swin, walk=walk_ba)
+    occ_b, shadow_ms = brute_shadow_loop(bts, srays, swin)
     flags = {
         "K2": perlane.perlane_anyhit_sweep(ts, srays, RAY_TMIN, swin, occ0.clone()) != 0,
         "K9": consensus.mega_anyhit_sweep(ts, srays, RAY_TMIN, swin, occ0.clone()) != 0,
@@ -2535,7 +2566,7 @@ def brute_oracle(r, label: str, gpu: str) -> dict:
         check(n == 0, f"{label}: {name}'s occlusion flags equal the brute oracle's "
               f"({n} differ)")
     res["shadow"] = {"rays": int((swin > RAY_TMIN).sum()), "occluded": int(occ_b.sum()),
-                     "flags_differing": 0}
+                     "flags_differing": 0, "brute_loop_ms": shadow_ms}
     ties = {name: res[name]["ties"] for name in (*states, "K11a loop")}
     print(f"brute oracle, {label} primary wave ({rays.shape[1]} packets, {live} "
           f"live lanes, {res['hits']} hits; brute loop {brute_ms:.3f} ms): lanes "
@@ -2543,10 +2574,52 @@ def brute_oracle(r, label: str, gpu: str) -> dict:
           f"exact ties {ties} or the brute triangle (t within "
           f"{max(res[n]['same_prim_max_ulps'] for n in ties)} ulps); shadow flags of "
           f"K2, K9, K10b and the K11b loop equal the brute occlusion on "
-          f"{res['shadow']['rays']} shadow rays ({res['shadow']['occluded']} occluded) "
-          f"[{gpu}]", flush=True)
+          f"{res['shadow']['rays']} shadow rays ({res['shadow']['occluded']} occluded; "
+          f"brute loop {shadow_ms:.3f} ms) [{gpu}]", flush=True)
     res["tie_lanes"] = sorted({tuple(x) for v in ties.values() for x in v})
     return res
+
+
+def brute_shadow_loop(bts, srays, swin):
+    """The brute loop's occlusion of shadow rays ``srays`` (6, P, K) with
+    windows ``swin`` over the entries of the brute scene ``bts`` (the
+    oracle of the shadow sweeps), and the ms of one more such loop."""
+    from raytpu_torch.config import RAY_TMIN
+    from raytpu_torch.ops import intersect, trace
+
+    so, sd = (srays[0], srays[1], srays[2]), (srays[3], srays[4], srays[5])
+    walk = functools.partial(trace.brute_mesh_anyhit, anyhit=intersect.brute_anyhit)
+
+    def loop():
+        return trace.any_hit_loop(bts, so, sd, RAY_TMIN, swin, walk=walk)
+
+    return loop(), cuda_ms(loop, 0, 1)
+
+
+def check_wave_times(scene4) -> dict:
+    """The brute oracle's shadow loop (:func:`brute_shadow_loop`) on the
+    256x192 config4 check wave at :data:`KNOB_POSE`, as
+    :func:`brute_oracle` runs it: the shadow rays of K10a's hits on the
+    primary wave against both entries' 332,800 triangles; ms of one loop
+    (the median of three)."""
+    import torch
+    from raytpu_torch.config import RAY_TMAX, RAY_TMIN
+    from raytpu_torch.device_scene import brute_scene
+    from raytpu_torch.ops import traverse
+    from raytpu_torch.render import Renderer
+    from raytpu_torch.scene import load_scene
+
+    small = Renderer(load_scene(scene4.config.replace(width=256, height=192),
+                                meshes=scene4.meshes, skybox=scene4.skybox))
+    pose(small, KNOB_POSE)
+    rays, act = primary_wave(small)
+    win = torch.where(act, RAY_TMAX, 0.0)
+    st = traverse.closest_sweep(small.tscene, rays, RAY_TMIN,
+                                traverse.make_trace_state(win))
+    srays, swin = shadow_rays(small.tscene, rays, st)
+    bts = brute_scene(small.tscene)
+    ms = [brute_shadow_loop(bts, srays, swin)[1] for _ in range(3)]
+    return {"brute_anyhit_config4_check_loop_ms": statistics.median(ms)}
 
 
 def brute_known_ties(r4, gpu: str) -> dict:
@@ -2628,18 +2701,15 @@ def brute_tests(name: str, x, tmax, tris) -> int:
     return tests
 
 
-def compare_brute(r, gpu: str) -> dict:
-    """``brute_closest_kernel`` and ``brute_anyhit_kernel`` against their
-    plain versions, bit for bit, on a :data:`SWEEP_PACKETS` slice of
-    ``r``'s primary wave (config2's) in its first entry's object space,
-    and the any-hit on the shadow rays of the slice's K10a hits; times and
-    bounds (:func:`brute_tests` Moller-Trumbore tests at :data:`MT_OPS`
-    operations each). The brute frames' own shapes are checked by
-    :func:`compare_brute_waves`."""
+def brute_slice(r):
+    """The brute kernels' inputs on a :data:`SWEEP_PACKETS` slice of
+    ``r``'s primary wave (config2's) in its first entry's object space:
+    ``(tris, rays, windows, shadow rays, shadow windows)``, the entry's
+    packed triangles, and the shadow rays of the slice's K10a hits."""
     import torch
     from raytpu_torch.config import RAY_TMAX, RAY_TMIN
     from raytpu_torch.device_scene import brute_scene
-    from raytpu_torch.ops import intersect, trace, traverse
+    from raytpu_torch.ops import trace, traverse
 
     ts, rs = r.tscene, r.render_static
     rays, act = primary_wave(r)
@@ -2655,6 +2725,50 @@ def compare_brute(r, gpu: str) -> dict:
     srays, swin = shadow_rays(ts, rays, st)
     sobj = trace.object_space(ts, inst, (srays[0], srays[1], srays[2]),
                               (srays[3], srays[4], srays[5]))
+    return tris, obj, win, sobj, swin
+
+
+BRUTE_RINGS = (46, 128, 384, 1024)  # triangles of the any-hit's shorter rings
+
+
+def brute_times(r) -> dict:
+    """Both brute kernels alone on :func:`brute_slice` of the config2
+    stand-in ``r``, ms a launch; and the any-hit's device ms a launch
+    (:func:`device_ms`: these launches are short enough for CUDA events to
+    time the host) on the same rays against the entry's first
+    :data:`BRUTE_RINGS` triangles (keys ``brute_anyhit_slice_T{n}_dev_ms``:
+    shorter rings, as the brute frames' meshes give it)."""
+    from raytpu_torch.config import RAY_TMIN
+    from raytpu_torch.ops import intersect
+
+    tris, obj, win, sobj, swin = brute_slice(r)
+    out = {"brute_closest_slice_ms": cuda_ms(
+               lambda: intersect.brute_closest(obj, win, tris, RAY_TMIN), 3, 10),
+           "brute_anyhit_slice_ms": cuda_ms(
+               lambda: intersect.brute_anyhit(sobj, swin, tris, RAY_TMIN), 3, 10)}
+    for n in BRUTE_RINGS:
+        part = tris[:n].contiguous()
+        out[f"brute_anyhit_slice_T{n}_dev_ms"] = device_ms(
+            lambda: intersect.brute_anyhit(sobj, swin, part, RAY_TMIN))
+    return out
+
+
+def compare_brute(r, gpu: str) -> dict:
+    """``brute_closest_kernel`` and ``brute_anyhit_kernel`` against their
+    plain versions, bit for bit, on :func:`brute_slice` of ``r`` (the
+    config2 stand-in); times and bounds (:func:`brute_tests`
+    Moller-Trumbore tests at :data:`MT_OPS` operations each; for the
+    any-hit the tests to each lane's first hit in index order, and beside
+    them the order-free floor: an unoccluded live lane's tests of every
+    triangle and one test an occluded lane); the kernels' registers, local
+    bytes and resident CTAs, and the any-hit's launch grid. The brute
+    frames' own shapes are checked by :func:`compare_brute_waves`."""
+    import torch
+    from raytpu_torch.config import RAY_TMIN
+    from raytpu_torch.ops import intersect
+
+    tris, obj, win, sobj, swin = brute_slice(r)
+    count = tris.shape[0]
     res = {}
     for name, wrap, ref, x, tmax in (
             ("brute_closest", intersect.brute_closest, intersect.brute_closest_ref,
@@ -2679,15 +2793,23 @@ def compare_brute(r, gpu: str) -> dict:
             max_abs_err=0.0, ms=cuda_ms(lambda: wrap(x, tmax, tris, RAY_TMIN), 3, 10),
             plain_ms=plain_ms, tests=tests, lanes=n, live=live, triangles=count,
             bound=bound(24 * live + 4 * n + 48 * count + out_bytes, tests * MT_OPS))
+        work = f"{tests} tests"
+        if name == "brute_anyhit":
+            occluded = int(got.sum())
+            floor = (live - occluded) * count + occluded
+            res[name].update(occluded=occluded, order_free_tests=floor,
+                             grid=intersect.anyhit_grid(n, count, x.device))
+            work = (f"{tests} tests to each lane's first hit in index order, "
+                    f"order-free floor {floor} ({occluded} occluded); launch grid "
+                    f"{res[name]['grid']} CTAs of {intersect.ANYHIT_THREADS} threads")
         print(f"{name} on a {SWEEP_PACKETS}-packet slice of the config2 stand-in's "
-              f"primary wave ({live} live lanes x {count} triangles, "
-              f"{tests} tests): bit for bit against the plain version; "
-              f"{res[name]['ms']:.4f} ms, plain {plain_ms:.2f} ms, bound "
-              f"{res[name]['bound'][0]:.4f} ms ({res[name]['bound'][1]}) [{gpu}]",
-              flush=True)
+              f"primary wave ({live} live lanes x {count} triangles, {work}): bit for "
+              f"bit against the plain version; {res[name]['ms']:.4f} ms, plain "
+              f"{plain_ms:.2f} ms, bound {res[name]['bound'][0]:.4f} ms "
+              f"({res[name]['bound'][1]}) [{gpu}]", flush=True)
     res["attributes"] = intersect.kernel_attributes()
-    print(f"brute kernels' registers, local bytes, CTAs an SM: {res['attributes']}",
-          flush=True)
+    print(f"brute kernels' registers, local bytes, resident CTAs an SM: "
+          f"{res['attributes']}", flush=True)
     return res
 
 
@@ -3088,10 +3210,13 @@ def frames_of(root: Path, sweeps_only: bool = False) -> dict:
     ``root``, a checkout of any commit since the consensus tier: its
     kernels built there, then per stand-in and tier the median frame ms of
     :func:`render_frames` (none if ``sweeps_only``); the times of its K1,
-    K2, K8, K9, K10a, K10b, K11a and K11b on config4 (:func:`sweep_times`)
-    and of its K8 and K9 on the consensus tier's stand-ins
-    (:func:`standin_sweep_times`); and its kernels' resources
-    (:func:`kernel_resources`, under ``"resources"``)."""
+    K2, K8, K9, K10a, K10b, K11a and K11b on config4 (:func:`sweep_times`),
+    of its K8 and K9 on the consensus tier's stand-ins
+    (:func:`standin_sweep_times`), of its brute kernels on the config2
+    slice (:func:`brute_times`) and of the brute oracle's shadow loop on
+    the 256x192 config4 check wave (:func:`check_wave_times`); and its
+    kernels' resources (:func:`kernel_resources`, under
+    ``"resources"``)."""
     import torch
 
     sys.path.insert(0, str(root))
@@ -3111,8 +3236,11 @@ def frames_of(root: Path, sweeps_only: bool = False) -> dict:
         r = Renderer(getattr(scenes, label)())
         if label == "config4_standin":
             out.update(sweep_times(r))
+            out.update(check_wave_times(r.scene))
         elif tiers[0] == "mega":
             out.update(standin_sweep_times(r, label))
+        if label == "config2_standin":
+            out.update(brute_times(r))
         base = r.tscene
         for tier in () if sweeps_only else tiers:
             r.tscene = dataclasses.replace(
@@ -3151,7 +3279,7 @@ def compare_trees(roots, labels, sweeps_only: bool) -> int:
         res = run["resources"].get(name, {})
         return "/".join(str(res.get(k, "-")) for k in ("REG", "LOCAL", "STACK"))
 
-    for name in CHAINED + PER_LANE[1:] + CONSENSUS + MESH:
+    for name in CHAINED + PER_LANE[1:] + CONSENSUS + MESH + BRUTE:
         print(f"{name + ' REG/LOCAL/STACK':38s} "
               + " ".join(f"{regs(run, name):>14s}" for run in runs))
     print(json.dumps({"gpu": gpu, "order": labels, "runs": runs}))
@@ -3159,8 +3287,8 @@ def compare_trees(roots, labels, sweeps_only: bool) -> int:
 
 
 def ab(parent: Path, this_first: bool = False) -> int:
-    """The frames of :data:`AB_FRAMES`, the sweep times of
-    :func:`sweep_times` and the kernels' resources with the port in
+    """The frames of :data:`AB_FRAMES`, the sweep and brute kernel times of
+    :func:`frames_of` and the kernels' resources with the port in
     ``parent`` and with this one, alternately in four child processes on
     the one card (parent, this, this, parent; or this, parent, parent, this
     if ``this_first``)."""
@@ -3184,8 +3312,9 @@ def main() -> int:
                     "parent, this)")
     ap.add_argument("--sweeps", metavar="DIR", nargs="+",
                     help="instead of the smoke run, time K1, K2, K8, K9, K10a, K10b, "
-                    "K11a and K11b alone with the port of each DIR (a checkout, or a "
-                    "variant tree), in child processes in the order given")
+                    "K11a, K11b and the brute kernels alone with the port of each DIR "
+                    "(a checkout, or a variant tree), in child processes in the order "
+                    "given")
     ap.add_argument("--frames-of", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--sweeps-only", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -3216,6 +3345,9 @@ def main() -> int:
 
     gpu = gpu_line()
     print(gpu)
+    print(f"{gpu}, max SM clock {max_sm_mhz():.0f} MHz: bounds at "
+          f"{f32_ops_per_s():.4g} unfused f32 operations/s and "
+          f"{HBM_BYTES_PER_S:.4g} B/s", flush=True)
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "

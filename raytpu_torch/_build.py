@@ -88,9 +88,10 @@ _SIGNATURES = {
                      _P, _L, _P],
     "mesh_anyhit": [_P, _L, _P, _P, _L, _F, _I, _I, _I, _P, _P, _P, _P],
     # object-space rays, tmax, the packed triangles and T, n, tmin, (the
-    # t/u/v planes, their stride and prim | occ)
+    # t/u/v planes, their stride and prim | occ, the ray counter and the
+    # grid)
     "brute_closest": [_P, _L, _P, _P, _I, _L, _F, _P, _L, _P, _P],
-    "brute_anyhit": [_P, _L, _P, _P, _I, _L, _F, _P, _P],
+    "brute_anyhit": [_P, _L, _P, _P, _I, _L, _F, _P, _P, _I, _P],
 }
 KERNELS = tuple(_SIGNATURES)
 # C entry points that read kernels' attributes: (which kernel, int out[4])

@@ -16,8 +16,10 @@ blocks), a CUDA tensor launches ``brute_closest_kernel`` /
 are the packed (T, 12) f32 records ``{v0, 0}, {e1, 0}, {e2, 0}`` in
 primitive order (``TorchScene.tri_packed``). Among hits at equal t the
 lowest triangle index wins: raytpu's block ``argmin`` keeps the first of a
-block and its merge across blocks is strict, and the kernel scans in index
-order with a strict ``t < best_t``.
+block and its merge across blocks is strict, and the closest kernel scans
+in index order with a strict ``t < best_t``. Occlusion has no order: a
+lane is occluded iff some triangle passes its test, so the any-hit kernel
+scans each ray's triangles as a ring from wherever its warp stands.
 """
 
 from __future__ import annotations
@@ -33,6 +35,13 @@ BIG_T = 3.0e38  # "no hit" distance
 # temporaries may hold: the scan takes the rays in chunks under it
 BRUTE_BLOCK = 512
 BRUTE_ELEMS = 1 << 22
+# brute_anyhit_kernel's grid (csrc/brute.cu): a ray ring of at least
+# ANYHIT_RING_TILES tiles of 32 triangles takes a persistent grid of
+# ANYHIT_CTAS_PER_SM CTAs an SM, fewer than fit; a shorter one a thread a
+# ray. CTAs are ANYHIT_THREADS threads (rt::BLOCK).
+ANYHIT_RING_TILES = 12
+ANYHIT_CTAS_PER_SM = 1
+ANYHIT_THREADS = 256
 
 
 def safe_inverse(d: torch.Tensor) -> torch.Tensor:
@@ -210,19 +219,37 @@ def brute_closest(rays: torch.Tensor, tmax: torch.Tensor, tris: torch.Tensor,
     return out[0], prim, out[1], out[2]
 
 
+def anyhit_grid(n: int, n_tris: int, device) -> int:
+    """The CTAs of ``brute_anyhit_kernel``'s launch for ``n`` rays against
+    ``n_tris`` triangles on ``device``: one thread a ray, and no more than
+    :data:`ANYHIT_CTAS_PER_SM` a multiprocessor once a ray's ring has
+    :data:`ANYHIT_RING_TILES` tiles or more (on the H100 the persistent
+    grid wins from 384 triangles up, the flat one below)."""
+    grid = max(1, -(-n // ANYHIT_THREADS))
+    if -(-n_tris // 32) < ANYHIT_RING_TILES:
+        return grid
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return min(grid, sms * ANYHIT_CTAS_PER_SM)
+
+
 def brute_anyhit(rays: torch.Tensor, tmax: torch.Tensor, tris: torch.Tensor,
                  tmin: float) -> torch.Tensor:
     """Occlusion of ``rays`` (6, ...) within ``(tmin, tmax)`` per lane by
     any triangle of ``tris`` -> bool of the lanes' shape. CPU tensors take
-    :func:`brute_anyhit_ref`; CUDA tensors launch ``brute_anyhit_kernel``,
-    which stops a lane at its first hit and a block once all its lanes
-    have stopped."""
+    :func:`brute_anyhit_ref`; CUDA tensors launch ``brute_anyhit_kernel``:
+    warps (:func:`anyhit_grid`) whose lanes each own a ray, walk the
+    triangles as a ring of 32-triangle tiles from the tile their warp is
+    on, and take the next ray from a counter (zeroed here) once theirs is
+    occluded or has met every triangle."""
     if rays.device.type == "cpu":
         return brute_anyhit_ref(rays, tmax, tris, tmin)
     k = "brute_anyhit"
     occ = torch.empty(rays.shape[1:], dtype=torch.int32, device=rays.device)
-    _build.launch(k, *_brute_operands(k, rays, tmax, tris), tmax.numel(),
-                  float(tmin), occ.data_ptr())
+    counter = torch.zeros(1, dtype=torch.int32, device=rays.device)
+    n = tmax.numel()
+    _build.launch(k, *_brute_operands(k, rays, tmax, tris), n, float(tmin),
+                  occ.data_ptr(), counter.data_ptr(),
+                  anyhit_grid(n, tris.shape[0], rays.device))
     return occ != 0
 
 

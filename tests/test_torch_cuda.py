@@ -16,7 +16,7 @@ from raytpu_torch import _build, scenes
 from raytpu_torch.config import MaterialType, ObjectConfig, RenderConfig
 from raytpu_torch.integrator import plain_kernels, render_frame
 from raytpu_torch.io.obj import Mesh, compute_smooth_normals
-from raytpu_torch.device_scene import brute_scene
+from raytpu_torch.device_scene import brute_scene, pack_tris
 from raytpu_torch.ops import consensus, epilogue, intersect, mega, perlane, raygen, sky, trace, traverse
 from raytpu_torch.render import Renderer
 from raytpu_torch.scene import load_scene
@@ -524,3 +524,89 @@ def test_brute_kernels_bitwise(soup, strided):
     occ = intersect.brute_anyhit(wave, tmax, tris, 1e-3)
     assert torch.equal(occ, intersect.brute_anyhit_ref(wave, tmax, tris, 1e-3))
     assert occ.any() and not occ.all()
+
+
+# the any-hit kernel's edge shapes: (lanes, triangles, what the rays are)
+ANYHIT_EDGES = {
+    "tris_under_a_tile": (16384, 20, "soup"),
+    "tris_a_tile_past_32k": (16384, 32 * 9 + 1, "soup"),
+    "rays_under_a_warp": (20, 300, "soup"),
+    "rays_far_above_resident": (1 << 21, 32 * 12 + 1, "soup"),
+    "every_lane_dead": (16384, 300, "dead"),
+    "only_the_last_triangle": (16384, 32 * 12 + 5, "last"),
+    "strided_planes": (16384, 300, "strided"),
+}
+
+
+def _anyhit_case(n: int, n_tris: int, kind: str):
+    """Seeded rays (6, n) and triangles (n_tris, 12) on the card for
+    :data:`ANYHIT_EDGES`: a soup around the origin with every fifth lane
+    dead; every lane dead; rays along +z that only the last triangle can
+    occlude (the others lie beside them); or the soup's rays as the
+    planes of a wider buffer."""
+    rng = np.random.default_rng(n_tris + n % 1000)
+    scale = 0.8 * max(1.0, (300 / n_tris) ** 0.5)
+    v0 = rng.uniform(-3, 3, (n_tris, 3))
+    e1 = rng.normal(scale=scale, size=(n_tris, 3))
+    e2 = rng.normal(scale=scale, size=(n_tris, 3))
+    if kind == "last":
+        v0[:, 0] += 20.0
+        v0[-1], e1[-1], e2[-1] = (-4, -4, 0), (12, 0, 0), (0, 12, 0)
+        o = np.concatenate([rng.uniform(-1, 1, (n, 2)), np.full((n, 1), -5.0)], 1)
+        d = np.tile([0.0, 0.0, 1.0], (n, 1))
+    else:
+        u = rng.normal(size=(n, 3))
+        o = u / np.linalg.norm(u, axis=1, keepdims=True) * 8.0
+        d = rng.uniform(-2, 2, (n, 3)) - o
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = rng.uniform(6.0 if kind == "last" else 4.0, 14.0, n).astype(np.float32)
+    if kind == "dead":
+        tmax[:] = 0.0
+    elif kind != "last":
+        tmax[::5] = 0.0
+    planes = np.concatenate([o.T, d.T]).astype(np.float32)
+    if kind == "strided":
+        wide = np.zeros((6, 3, n), np.float32)
+        wide[:, 1] = planes
+        rays = torch.from_numpy(wide).cuda()[:, 1]
+    else:
+        rays = torch.from_numpy(np.ascontiguousarray(planes)).cuda()
+    tris = pack_tris(*(torch.from_numpy(x.astype(np.float32)).cuda()
+                       for x in (v0, e1, e2)))
+    return rays, torch.from_numpy(tmax).cuda(), tris
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+@pytest.mark.parametrize("case", list(ANYHIT_EDGES))
+def test_brute_anyhit_edges(card, case):
+    """brute_anyhit_kernel flag for flag against brute_anyhit_ref on the
+    shapes that stress its schedule: fewer triangles than a tile and a
+    partial last tile, fewer rays than a warp and many more than the
+    persistent grid's lanes (every lane refills), every lane dead, every
+    lane occluded by the last triangle only (each warp's ring wraps to
+    it), and planes of a wider buffer; the last two and the refills on
+    rings long enough for the persistent grid, the others on the flat
+    one."""
+    n, n_tris, kind = ANYHIT_EDGES[case]
+    rays, tmax, tris = _anyhit_case(n, n_tris, kind)
+    if kind == "strided":
+        assert rays.stride(0) == 3 * n
+    _build.reset_launch_counts()
+    occ = intersect.brute_anyhit(rays, tmax, tris, 1e-3)
+    assert _build.launch_counts()["brute_anyhit"] == 1
+    assert torch.equal(occ, intersect.brute_anyhit_ref(rays, tmax, tris, 1e-3))
+    if kind == "dead":
+        assert not occ.any()
+    elif kind == "last":
+        assert occ.all()
+        assert not intersect.brute_anyhit_ref(rays, tmax, tris[:-1], 1e-3).any()
+    else:
+        assert occ.any() and not occ.all()
+    if case == "rays_far_above_resident":
+        grid = intersect.anyhit_grid(n, tris.shape[0], rays.device)
+        assert n > 8 * grid * intersect.ANYHIT_THREADS
