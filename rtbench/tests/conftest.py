@@ -1,0 +1,74 @@
+"""Tiny cells for the benchmark's CPU tests: a temporary copy of the
+benchmark folder whose configurations, paths and limits are cut to a
+size the CPU renders in seconds."""
+
+from __future__ import annotations
+
+import json
+import shutil
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+TINY = {"width": 32, "height": 18}
+
+
+def make_tiny_bench(dest: Path, loop: int = 4) -> Path:
+    """A copy of ``rtbench/`` and ``BENCHMARK.json`` under ``dest`` with
+    every configuration at 32x18, the meshes at depth 1 and 2, an 8x8
+    sky, loops of ``loop`` frames (12 for the wander) and 200 pixels
+    compared a frame; returns the copy's benchmark folder."""
+    bench = dest / "rtbench"
+    shutil.copytree(ROOT / "rtbench", bench,
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    shutil.copy(ROOT / "BENCHMARK.json", dest / "BENCHMARK.json")
+    for f in (bench / "configs").glob("*.json"):
+        cfg = json.loads(f.read_text())
+        cfg.update(TINY)
+        cfg["objects"][0]["mesh"]["depth"] = 1
+        cfg["objects"][1]["mesh"]["depth"] = 2
+        cfg["skybox"]["size"] = 8
+        f.write_text(json.dumps(cfg))
+    for f in (bench / "traffic").glob("*.json"):
+        tr = json.loads(f.read_text())
+        if tr["kind"] == "wander":
+            tr["segment_frames"] = 1
+            tr["loop_frames"] = 2 * len(tr["segments"])
+        else:
+            tr["loop_frames"] = loop
+        f.write_text(json.dumps(tr))
+    for f in (bench / "limits").glob("*.json"):
+        lim = json.loads(f.read_text())
+        lim["pixels"] = 200
+        f.write_text(json.dumps(lim))
+    return bench
+
+
+@pytest.fixture(scope="session")
+def tiny_bench(tmp_path_factory):
+    return make_tiny_bench(tmp_path_factory.mktemp("tiny"))
+
+
+@pytest.fixture(scope="session")
+def tiny_cell(tiny_bench):
+    from rtbench import manifest
+
+    def cell(workload: str):
+        return manifest.Cell(manifest.load(tiny_bench.parent / "BENCHMARK.json"),
+                             workload, tiny_bench)
+    return cell
+
+
+@pytest.fixture(autouse=True)
+def few_threads():
+    import torch
+
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
