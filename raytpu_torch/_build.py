@@ -23,6 +23,16 @@ frame launch from several host threads), and nothing else touches it. A run
 shows that the main path went through the kernels by resetting the
 counters, rendering, and reading them.
 
+K1 and K2 (the per-lane sweeps) also carry work counters
+(:func:`work_counts`): their node visits and triangle tests, counted while
+a frame is rendered with ``stats`` (:func:`counting`, which
+``integrator.render_packets`` turns on then). Their wrappers then pass a
+slot of a per-device buffer that this module owns, and the C entry point
+launches the kernels' counting instantiation, which adds each warp's sums
+with one 64-bit ``atomicAdd`` each; otherwise it passes none and the entry
+point launches the one that counts nothing. Their plain versions add the
+plain walk's counts of the same two numbers (:func:`counted`).
+
 :func:`gxx_library` builds the host libraries of ``native/`` (the BVH
 builder, the OBJ parser and the JPEG decoder) with g++ into the same
 directory, by the same rule: a hash of the sources and flags names the
@@ -31,6 +41,7 @@ library, and a changed source builds anew.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -68,12 +79,13 @@ _SIGNATURES = {
     "block_stats": [_P, _L, _P, _L, _L, _F, _P, _P],
     # rays, (state | tmax, occ), n, tmin, the schedule (block lanes, bits,
     # words, octs), the packed links, nodes M, the entries and w2o, the
-    # packed nodes and triangles, (normals, T,) the work counters and their
-    # number
+    # packed nodes and triangles, (normals, T,) the CTAs' work counters and
+    # their number, and the node-visit and triangle-test counters or null
     "perlane_closest_sweep": [_P, _L, _P, _L, _L, _F, _L, _P, _I, _P, _P,
-                              _L, _P, _I, _P, _P, _P, _P, _L, _P, _I, _P],
+                              _L, _P, _I, _P, _P, _P, _P, _L, _P, _I, _P,
+                              _P],
     "perlane_anyhit_sweep": [_P, _L, _P, _P, _L, _F, _L, _P, _I, _P, _P, _L,
-                             _P, _I, _P, _P, _P, _P, _I, _P],
+                             _P, _I, _P, _P, _P, _P, _I, _P, _P],
     # rays, (state | tmax, occ), n, tmin, the schedule (block lanes, bits,
     # words, octs), the packed wide links, nodes M, the entries and w2o, the
     # packed nodes and triangles, (normals, T)
@@ -101,6 +113,12 @@ _ATTRIBUTES = ("rt_perlane_attributes", "rt_consensus_attributes",
 _launches = dict.fromkeys(KERNELS, 0)
 _lib = None
 _lock = threading.Lock()
+
+# the kernels with work counters: node visits and triangle tests
+WORK_KERNELS = ("perlane_closest_sweep", "perlane_anyhit_sweep")
+_work_plain = {k: {"nodes": 0, "tests": 0} for k in WORK_KERNELS}
+_work_device = {}    # device -> (len(WORK_KERNELS), 2) int64 counters
+_count = threading.local()   # .on: this thread's frame counts its work
 
 # g++ flags of the host libraries of native/ (gxx_library)
 CXX_FLAGS = ("-O3", "-mfma", "-std=c++17", "-fPIC", "-shared")
@@ -252,6 +270,74 @@ def reset_launch_counts() -> None:
     with _lock:
         for k in _launches:
             _launches[k] = 0
+
+
+@contextlib.contextmanager
+def counting(on: bool = True):
+    """Within the block, this thread's K1 and K2 launches and their plain
+    versions count their work (``on``), or do not."""
+    saved = getattr(_count, "on", False)
+    _count.on = on
+    try:
+        yield
+    finally:
+        _count.on = saved
+
+
+def counting_on() -> bool:
+    """Whether this thread's sweeps count their work now."""
+    return getattr(_count, "on", False)
+
+
+def work_pointer(kernel: str, device: torch.device) -> Pointer:
+    """``kernel``'s two int64 counters (node visits, triangle tests) in
+    ``device``'s work buffer, made zeroed at first use."""
+    with _lock:
+        buf = _work_device.get(device)
+        if buf is None:
+            buf = _work_device[device] = torch.zeros(
+                (len(WORK_KERNELS), 2), dtype=torch.int64, device=device)
+    return Pointer(buf[WORK_KERNELS.index(kernel)])
+
+
+@contextlib.contextmanager
+def counted(kernel: str, counts=None):
+    """The ``counts`` dict for a plain version of ``kernel`` to fill: while
+    this thread counts (:func:`counting`), ``counts`` or a new dict, whose
+    added ``nodes`` and ``tests`` go to ``kernel``'s work counts when the
+    block ends; otherwise ``counts`` as given."""
+    if not counting_on():
+        yield counts
+        return
+    c = {} if counts is None else counts
+    before = {key: c.get(key, 0) for key in ("nodes", "tests")}
+    yield c
+    with _lock:
+        for key, n in before.items():
+            _work_plain[kernel][key] += c.get(key, 0) - n
+
+
+def work_counts() -> dict:
+    """Node visits and triangle tests per kernel of :data:`WORK_KERNELS`
+    since the last reset: ``{kernel: {"nodes": n, "tests": n}}``, summed
+    over the plain versions and every device's counters (read after the
+    device's queued work)."""
+    with _lock:
+        out = {k: dict(v) for k, v in _work_plain.items()}
+        bufs = list(_work_device.values())
+    for buf in bufs:
+        for k, (nodes, tests) in zip(WORK_KERNELS, buf.cpu().tolist()):
+            out[k]["nodes"] += nodes
+            out[k]["tests"] += tests
+    return out
+
+
+def reset_work_counts() -> None:
+    with _lock:
+        for v in _work_plain.values():
+            v.update(nodes=0, tests=0)
+        for buf in _work_device.values():
+            buf.zero_()
 
 
 def _check_layout(kernel: str, name: str, t: torch.Tensor, shape,

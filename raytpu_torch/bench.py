@@ -12,8 +12,9 @@ diffuse front-face hits. The port reads that count from one frame's
 ``stats`` (:func:`count_rays_frame`), so no count is cached on disk.
 
 Frame times are the host clock around frames that end with the device
-drained (``raytpu_torch.utils.timing``): what a viewer waits. Stage times
-(:func:`profile_stages`) are CUDA events around each stage run alone.
+drained (``raytpu_torch.utils.timing``): what a viewer waits. Where a
+frame's time goes, phase by phase, a profiler around it shows, by the
+``rt.*`` spans of ``raytpu_torch.utils.spans``.
 
 The line has no ``vs_baseline``: the JAX package's 500 Mrays/s was a
 target set for the TPU, and no speed target carries over to the card.
@@ -32,22 +33,13 @@ from typing import Dict, Optional
 import torch
 
 from raytpu_torch import _build, scenes
-from raytpu_torch.config import RAY_TMAX, RAY_TMIN
-from raytpu_torch.integrator import (
-    _KERNELS,
-    _sweeps,
-    _tier,
-    render_frame,
-    tiled_pixels,
-)
-from raytpu_torch.ops import perlane
-from raytpu_torch.ops.traverse import make_trace_state
+from raytpu_torch.integrator import render_frame
 from raytpu_torch.parallel import Mesh, make_mesh, render_sharded, replicate
 from raytpu_torch.presets import STANDINS, load_preset_scene
 from raytpu_torch.render import Renderer
 from raytpu_torch.scene import Scene
 from raytpu_torch.utils import log
-from raytpu_torch.utils.timing import block_until_ready, measure_frame
+from raytpu_torch.utils.timing import measure_frame
 
 
 def count_rays_frame(ts, rs, camera, stats: Optional[dict] = None) -> int:
@@ -62,104 +54,6 @@ def count_rays_frame(ts, rs, camera, stats: Optional[dict] = None) -> int:
     render_frame(ts, rs, camera, stats=stats)
     return sum(int(stats[k]) for k in ("closest_rays", "shadow_rays")
                if k in stats)
-
-
-class _StageDeadline(Exception):
-    """Raised inside profile_stages when the measurement deadline passes;
-    profiling returns the stages measured so far."""
-
-
-def profile_stages(renderer: Renderer, rs, frames: int = 25,
-                   deadline: Optional[float] = None) -> Dict[str, float]:
-    """Per-stage times (ms) of one frame's hot pieces, each run alone
-    ``frames`` times after one untimed run, between CUDA events on the
-    card (the host clock with nothing queued on the CPU): ``prepass``
-    (the culled tiers' schedule, K7 and its PyTorch ops), ``closest_sweep``
-    and ``shadow_anyhit`` on the primary wave, ``bounce_sweep`` and
-    ``bounce_shadow`` on the first bounce's continuations and their shadow
-    rays, and ``sky`` (K6) on the primary directions. The sweeps are the
-    frame's own tier's; a frame on the per-(instance, mesh) loop ("xla")
-    has only ``sky``. The inputs of the later stages come from the fused
-    shade pass (K3) on the earlier stage's hits, so they have the frame's
-    sparse lanes.
-
-    ``deadline``: absolute ``time.perf_counter()`` cutoff: stages still
-    unmeasured when it passes are skipped, the dict keeps what was
-    measured and ``_deadline_hit``."""
-    times: Dict[str, float] = {}
-    try:
-        _profile_stages_body(renderer, rs, frames, deadline, times)
-    except _StageDeadline:
-        times["_deadline_hit"] = 1.0
-    return times
-
-
-def _stage_ms(fn, frames: int, device: torch.device) -> float:
-    """Mean ms of ``fn()`` over ``frames`` runs after one untimed run."""
-    block_until_ready(fn())
-    if device.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(frames):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / frames
-    t0 = time.perf_counter()
-    for _ in range(frames):
-        fn()
-    return (time.perf_counter() - t0) / frames * 1e3
-
-
-def _profile_stages_body(renderer: Renderer, rs, frames: int,
-                         deadline: Optional[float],
-                         times: Dict[str, float]) -> None:
-    ts = renderer.tscene
-    dev = renderer.device
-    spp = rs.samples_per_pixel
-    (px, py), in_frame = tiled_pixels(rs, dev)
-    s_row = torch.arange(spp, dtype=torch.float32, device=dev).repeat(px.shape[0])
-    rays = _KERNELS["raygen"](renderer.camera_tensor(), s_row,
-                              px.repeat_interleave(spp, dim=0),
-                              py.repeat_interleave(spp, dim=0), spp,
-                              rs.width, rs.height)
-    p, k = rays.shape[1:]
-    win = torch.where(in_frame.repeat_interleave(spp, dim=0), RAY_TMAX, 0.0)
-
-    def timed(name, fn):
-        if deadline is not None and time.perf_counter() > deadline:
-            raise _StageDeadline()
-        times[name] = _stage_ms(fn, frames, dev)
-        return fn()
-
-    tier = _tier(ts, p, True, k)
-    if tier != "xla":
-        if tier in ("perlane", "mega"):
-            timed("prepass", lambda: perlane.prepass(ts, rays, win, RAY_TMIN,
-                                                     "origin")[0])
-        light = ts.light
-
-        def sweeps(names, primary, rays_b, win_b):
-            """Time the tier's closest sweep on ``rays_b`` and its shadow
-            sweep on the shadow rays of those hits; return the
-            continuation rays and their windows (K3 on a copy)."""
-            closest, anyhit = _sweeps(ts, rs, p, k, primary)
-            st = timed(names[0], lambda: closest(ts, rays_b, RAY_TMIN,
-                                                 make_trace_state(win_b)))
-            miss = torch.zeros((p, k), dtype=torch.int32, device=dev)
-            srays, swin, _, _, nrays, nwin, _ = _KERNELS["shade"](
-                rays_b.clone(), st, miss, light[:3], light[3])
-            timed(names[1], lambda: anyhit(
-                ts, srays, RAY_TMIN, swin,
-                torch.zeros((p, k), dtype=torch.int32, device=dev)))
-            return nrays, nwin
-
-        nrays, nwin = sweeps(("closest_sweep", "shadow_anyhit"), True, rays, win)
-        sweeps(("bounce_sweep", "bounce_shadow"), False, nrays, nwin)
-    h, w = ts.sky_hw
-    timed("sky", lambda: _KERNELS["sky"](ts.skybox_u32, h, w,
-                                         (rays[3], rays[4], -rays[5]))[0])
 
 
 def tie_scene_config(width: int = 128, height: int = 96) -> Scene:
@@ -248,7 +142,7 @@ def build_preset_renderer(preset, highpoly_depth: int = 7,
                           device="cuda") -> Renderer:
     """Build a preset's Renderer (scene, BVH, device upload) once, at the
     pose ``set_transforms(0.0)``, so a bench can reuse it across the
-    matrix, headline and stage phases."""
+    matrix and headline phases."""
     scene = load_preset_scene(preset, highpoly_depth=highpoly_depth)
     renderer = Renderer(scene, device)
     renderer.set_transforms(0.0)
@@ -416,8 +310,8 @@ def main(argv=None) -> int:
                     help="headline preset (a stand-in, or a preset whose "
                     "assets exist)")
     ap.add_argument("--frames", type=int, default=24,
-                    help="timed frames of the headline and runs of each stage "
-                    "(the matrix times half as many frames, at least 2)")
+                    help="timed frames of the headline (the matrix times half "
+                    "as many frames, at least 2)")
     ap.add_argument("--highpoly-depth", type=int, default=7,
                     help="subdivision depth of the armadillo stand-in")
     ap.add_argument("--no-matrix", action="store_true",
@@ -475,19 +369,6 @@ def main(argv=None) -> int:
     else:
         out["bit_identity_error"] = (f"skipped: {elapsed:.0f} s of the "
                                      f"{budget:.0f} s budget spent")
-    elapsed = time.perf_counter() - t0
-    if elapsed < budget * 0.9:
-        rr = renderers[preset]
-        try:
-            out["stage_ms"] = {
-                k: round(v, 4) for k, v in profile_stages(
-                    rr, rr.render_static, frames=args.frames,
-                    deadline=t0 + budget * 0.98).items()}
-        except Exception as e:  # stages are diagnostics: the line says why
-            out["stage_error"] = repr(e)
-    else:
-        out["stage_error"] = (f"skipped: {elapsed:.0f} s of the {budget:.0f} s "
-                              "budget spent")
     out["device"] = device_info(device)
     out["cache"] = {"dir": str(_build.BUILD_DIR), "entries_before": entries_before,
                     "entries_after": _cache_entries()}

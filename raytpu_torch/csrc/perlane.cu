@@ -55,6 +55,13 @@
 // the same order, the same float operations), so K1 and K2 still equal
 // their plain versions bit for bit.
 //
+// Work counters: each kernel is a template on kCount. The entry points
+// launch the counting instantiation when the wrapper passes a `work` buffer
+// (two u64: node visits, triangle tests; raytpu_torch/_build.py
+// work_counts), and the one without, which counts nothing, otherwise. A
+// counting warp keeps its lanes' counts in registers over all its chunks
+// and adds their sums once, after its last chunk (rt::add_work).
+//
 // Rays and state are (planes, n) with `*_s` elements between planes, as in
 // traverse.cu, so a wave x[:, s:s+b] goes in without a copy. The plain
 // versions are raytpu_torch/ops/perlane.py::perlane_*_sweep_ref.
@@ -89,11 +96,12 @@ __device__ __forceinline__ long long next_chunk(unsigned* taken,
   return base < n ? base : -1;  // the CTA's tickets only go further on
 }
 
+template <bool kCount>
 __device__ __forceinline__ void closest_lane(
     long long i, const float* __restrict__ rays, long long rays_s,
     float* __restrict__ state, long long st_s, float tmin,
     const rt::Schedule& sc, const rt::Tables& tab, const rt::Packed& pk,
-    const float* __restrict__ n_soa, long long n_tris) {
+    const float* __restrict__ n_soa, long long n_tris, rt::Work* work) {
   float bt = state[rt::ST_T * st_s + i];
   if (!(bt > tmin)) return;  // dead lane (window 0): never walks
 
@@ -112,8 +120,8 @@ __device__ __forceinline__ void closest_lane(
     float o[3], d[3], d_inv[3];
     rt::object_ray(tab, en, ow, dw, o, d, d_inv);
     float bu = 0.f, bv = 0.f;
-    const int bs = rt::closest_in_entry<false>(f, en, o, d, d_inv, tmin, &bt,
-                                               &bu, &bv);
+    const int bs = rt::closest_in_entry<false, kCount>(
+        f, en, o, d, d_inv, tmin, &bt, &bu, &bv, work);
     if (bs >= 0) {
       win_e = e;
       win_s = bs;
@@ -129,10 +137,12 @@ __device__ __forceinline__ void closest_lane(
   rt::write_hit(state, st_s, i, bt, hit);
 }
 
+template <bool kCount>
 __device__ __forceinline__ void anyhit_lane(
     long long i, const float* __restrict__ rays, long long rays_s,
     const float* __restrict__ tmax, int* __restrict__ occ, float tmin,
-    const rt::Schedule& sc, const rt::Tables& tab, const rt::Packed& pk) {
+    const rt::Schedule& sc, const rt::Tables& tab, const rt::Packed& pk,
+    rt::Work* work) {
   if (occ[i] != 0) return;  // OR-merge: already occluded
   const float tm = tmax[i];
   if (!(tm > tmin)) return;
@@ -146,40 +156,51 @@ __device__ __forceinline__ void anyhit_lane(
     const rt::Entry en = rt::load_entry(tab, e);
     float o[3], d[3], d_inv[3];
     rt::object_ray(tab, en, ow, dw, o, d, d_inv);
-    if (rt::occluded_in_entry<false>(f, en, o, d, d_inv, tmin, tm, false)) {
+    if (rt::occluded_in_entry<false, kCount>(f, en, o, d, d_inv, tmin, tm,
+                                             false, work)) {
       occ[i] = 1;  // first hit ends the lane's whole sweep
       return;
     }
   }
 }
 
-// Persistent warps: each takes 32 lanes at a time until the wave is done.
+// Persistent warps: each takes 32 lanes at a time until the wave is done
+// (the chunk loop is warp-uniform, so a warp leaves it converged).
+template <bool kCount>
 __global__ void __launch_bounds__(rt::BLOCK, kMinCtas)
     perlane_closest_sweep_kernel(const float* __restrict__ rays,
                                  long long rays_s, float* __restrict__ state,
                                  long long st_s, long long n, float tmin,
                                  rt::Schedule sc, rt::Tables tab, rt::Packed pk,
                                  const float* __restrict__ n_soa,
-                                 long long n_tris, unsigned* taken) {
+                                 long long n_tris, unsigned* taken,
+                                 unsigned long long* work) {
+  rt::Work w;
   for (long long base; (base = next_chunk(taken, n)) >= 0;) {
     const long long i = base + (threadIdx.x & 31);
     if (i < n)
-      closest_lane(i, rays, rays_s, state, st_s, tmin, sc, tab, pk, n_soa,
-                   n_tris);
+      closest_lane<kCount>(i, rays, rays_s, state, st_s, tmin, sc, tab, pk,
+                           n_soa, n_tris, &w);
   }
+  if constexpr (kCount) rt::add_work(work, w);
 }
 
+template <bool kCount>
 __global__ void __launch_bounds__(rt::BLOCK, kMinCtas)
     perlane_anyhit_sweep_kernel(const float* __restrict__ rays,
                                 long long rays_s,
                                 const float* __restrict__ tmax,
                                 int* __restrict__ occ, long long n,
                                 float tmin, rt::Schedule sc, rt::Tables tab,
-                                rt::Packed pk, unsigned* taken) {
+                                rt::Packed pk, unsigned* taken,
+                                unsigned long long* work) {
+  rt::Work w;
   for (long long base; (base = next_chunk(taken, n)) >= 0;) {
     const long long i = base + (threadIdx.x & 31);
-    if (i < n) anyhit_lane(i, rays, rays_s, tmax, occ, tmin, sc, tab, pk);
+    if (i < n)
+      anyhit_lane<kCount>(i, rays, rays_s, tmax, occ, tmin, sc, tab, pk, &w);
   }
+  if constexpr (kCount) rt::add_work(work, w);
 }
 
 // How many CTAs of `kernel` fit on the card at once.
@@ -194,13 +215,15 @@ struct Residency {
   }
 };
 
+template <bool kCount>
 const Residency& closest_residency() {
-  static const Residency r((const void*)perlane_closest_sweep_kernel);
+  static const Residency r((const void*)perlane_closest_sweep_kernel<kCount>);
   return r;
 }
 
+template <bool kCount>
 const Residency& anyhit_residency() {
-  static const Residency r((const void*)perlane_anyhit_sweep_kernel);
+  static const Residency r((const void*)perlane_anyhit_sweep_kernel<kCount>);
   return r;
 }
 
@@ -234,53 +257,60 @@ extern "C" {
 // (8, M, 2) int32; the entries in walk order and w2o; the packed nodes
 // (M, 8) and triangles (T, 12) f32, 16-byte aligned; the slot-ordered
 // normals (9, T); taken: `slots` u32 of scratch, the CTAs' work
-// counters.
+// counters; work: null, or two u64 that the counting kernel adds its node
+// visits and triangle tests to.
 int rt_perlane_closest_sweep(
     const void* rays, long long rays_s, void* state, long long st_s,
     long long n, float tmin, long long block_lanes, const void* bits,
     int n_words, const void* octs, const void* links, long long n_nodes,
     const void* entries, int n_entries, const void* w2o, const void* nodes,
     const void* tris, const void* n_soa, long long n_tris, void* taken,
-    int slots, void* stream) {
+    int slots, void* work, void* stream) {
   if (n >= kMaxLanes) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const Launch ln(closest_residency(), n, taken, slots, stream);
+    const Launch ln(
+        work ? closest_residency<true>() : closest_residency<false>(), n,
+        taken, slots, stream);
     if (ln.err != cudaSuccess) return (int)ln.err;
     rt::Schedule sc = rt::make_schedule(block_lanes, bits, n_words, octs,
                                         n_nodes);
     const rt::Tables tab = rt::make_tables(entries, n_entries, w2o);
     const rt::Packed pk{(const float4*)nodes, (const int2*)links,
                         (const float4*)tris};
-    perlane_closest_sweep_kernel<<<ln.grid, rt::BLOCK, 0,
-                                   (cudaStream_t)stream>>>(
+    const auto kernel = work ? perlane_closest_sweep_kernel<true>
+                             : perlane_closest_sweep_kernel<false>;
+    kernel<<<ln.grid, rt::BLOCK, 0, (cudaStream_t)stream>>>(
         (const float*)rays, rays_s, (float*)state, st_s, n, tmin, sc, tab, pk,
-        (const float*)n_soa, n_tris, (unsigned*)taken);
+        (const float*)n_soa, n_tris, (unsigned*)taken,
+        (unsigned long long*)work);
   }
   return (int)cudaGetLastError();
 }
 
 // rays (6, n) f32 with a plane stride; tmax (n,) f32; occ (n,) int32
-// OR-merged in place; the schedule, links and tables as for
+// OR-merged in place; the schedule, links, tables, taken and work as for
 // rt_perlane_closest_sweep.
 int rt_perlane_anyhit_sweep(
     const void* rays, long long rays_s, const void* tmax, void* occ,
     long long n, float tmin, long long block_lanes, const void* bits,
     int n_words, const void* octs, const void* links, long long n_nodes,
     const void* entries, int n_entries, const void* w2o, const void* nodes,
-    const void* tris, void* taken, int slots, void* stream) {
+    const void* tris, void* taken, int slots, void* work, void* stream) {
   if (n >= kMaxLanes) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const Launch ln(anyhit_residency(), n, taken, slots, stream);
+    const Launch ln(work ? anyhit_residency<true>() : anyhit_residency<false>(),
+                    n, taken, slots, stream);
     if (ln.err != cudaSuccess) return (int)ln.err;
     rt::Schedule sc = rt::make_schedule(block_lanes, bits, n_words, octs,
                                         n_nodes);
     const rt::Tables tab = rt::make_tables(entries, n_entries, w2o);
     const rt::Packed pk{(const float4*)nodes, (const int2*)links,
                         (const float4*)tris};
-    perlane_anyhit_sweep_kernel<<<ln.grid, rt::BLOCK, 0,
-                                  (cudaStream_t)stream>>>(
+    const auto kernel = work ? perlane_anyhit_sweep_kernel<true>
+                             : perlane_anyhit_sweep_kernel<false>;
+    kernel<<<ln.grid, rt::BLOCK, 0, (cudaStream_t)stream>>>(
         (const float*)rays, rays_s, (const float*)tmax, (int*)occ, n, tmin,
-        sc, tab, pk, (unsigned*)taken);
+        sc, tab, pk, (unsigned*)taken, (unsigned long long*)work);
   }
   return (int)cudaGetLastError();
 }
@@ -289,8 +319,9 @@ int rt_perlane_anyhit_sweep(
 // and local arrays), and the CTAs of rt::BLOCK threads resident per SM and
 // the SMs, into out[0..3].
 int rt_perlane_attributes(int anyhit, int* out) {
-  const void* kernel = anyhit ? (const void*)perlane_anyhit_sweep_kernel
-                              : (const void*)perlane_closest_sweep_kernel;
+  const void* kernel =
+      anyhit ? (const void*)perlane_anyhit_sweep_kernel<false>
+             : (const void*)perlane_closest_sweep_kernel<false>;
   return rt::kernel_attributes(kernel, out);
 }
 

@@ -38,6 +38,13 @@
 // The plain versions (raytpu_torch/ops/traverse.py::_walk, closest_ref,
 // anyhit_ref, with `consensus` for kWarp) make the same tests in the same
 // order.
+//
+// What a walk counts, the template argument kCount (default false, which
+// counts nothing and compiles to the walk without it): one node visit per
+// node the walk reads (the loop's step, a leaf included) and one triangle
+// test per rt::moller_trumbore call, into the lane's rt::Work, which
+// add_work sums over the warp into the launch's counters. The plain walk's
+// `counts` (traverse.py::_walk) counts the same two numbers.
 #pragma once
 
 #include "common.cuh"
@@ -76,6 +83,25 @@ __device__ __forceinline__ void object_ray(const Tables& tab, const Entry& en,
 }
 
 constexpr unsigned kFullWarp = 0xffffffffu;
+
+// A lane's node visits and triangle tests (kCount walks).
+struct Work {
+  unsigned long long nodes = 0, tests = 0;
+};
+
+// Sum the warp's Work and add it to out[0] (nodes) and out[1] (tests),
+// one 64-bit atomicAdd each from lane 0. Every lane of the warp calls it.
+__device__ __forceinline__ void add_work(unsigned long long* out, Work w) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    w.nodes += __shfl_down_sync(kFullWarp, w.nodes, off);
+    w.tests += __shfl_down_sync(kFullWarp, w.tests, off);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(out, w.nodes);
+    atomicAdd(out + 1, w.tests);
+  }
+}
 
 // How a walk reads the tree: a fetch policy gives, for the node of row g,
 // a record (F::Node) with its first slot (-1 for an inner node), its
@@ -213,14 +239,17 @@ __device__ __forceinline__ bool descend(const Node& nd, bool leaf,
 
 // Closest hit in one entry: lowers *bt on each strict improvement and
 // returns the winning BVH slot (-1 if none), with its u, v. A lane whose *bt
-// is not above tmin can take no hit, and does not vote.
-template <bool kWarp, class F>
+// is not above tmin can take no hit, and does not vote. With kCount the
+// walk's visits and tests go into *work.
+template <bool kWarp, bool kCount = false, class F>
 __device__ __forceinline__ int closest_in_entry(
     const F& f, const Entry& en, const float* o, const float* d,
-    const float* d_inv, float tmin, float* bt, float* bu, float* bv) {
+    const float* d_inv, float tmin, float* bt, float* bu, float* bv,
+    Work* work = nullptr) {
   int bs = -1;
   int node = 0;
   while (node != en.nc) {
+    if constexpr (kCount) ++work->nodes;
     const auto nd = f.node(en.nb + node);
     const bool leaf = nd.first >= 0;
     const bool go = descend<kWarp>(nd, leaf, *bt > tmin, o, d_inv, tmin, *bt);
@@ -229,6 +258,7 @@ __device__ __forceinline__ int closest_in_entry(
       for (int k = 0; k < cnt; ++k) {
         const long long s = (long long)en.tb + nd.first + k;
         float t, u, v;
+        if constexpr (kCount) ++work->tests;
         if (f.test(s, o, d, tmin, *bt, &t, &u, &v)) {
           *bt = t;
           bs = (int)s;
@@ -245,13 +275,15 @@ __device__ __forceinline__ int closest_in_entry(
 // Any hit in one entry within (tmin, tm): whether the lane is `done` after
 // it (occluded, or done on entry: then it tests nothing and does not vote).
 // Alone, a lane returns at its first hit; a warp returns once every lane is
-// done.
-template <bool kWarp, class F>
+// done. With kCount the walk's visits and tests go into *work.
+template <bool kWarp, bool kCount = false, class F>
 __device__ __forceinline__ bool occluded_in_entry(
     const F& f, const Entry& en, const float* o, const float* d,
-    const float* d_inv, float tmin, float tm, bool done) {
+    const float* d_inv, float tmin, float tm, bool done,
+    Work* work = nullptr) {
   int node = 0;
   while (node != en.nc) {
+    if constexpr (kCount) ++work->nodes;
     const auto nd = f.node(en.nb + node);
     const bool leaf = nd.first >= 0;
     const bool go = descend<kWarp>(nd, leaf, !done, o, d_inv, tmin, tm);
@@ -261,6 +293,7 @@ __device__ __forceinline__ bool occluded_in_entry(
         for (int k = 0; k < cnt && !done; ++k) {
           const long long s = (long long)en.tb + nd.first + k;
           float t, u, v;
+          if constexpr (kCount) ++work->tests;
           done = f.test(s, o, d, tmin, tm, &t, &u, &v);
         }
       }

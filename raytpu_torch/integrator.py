@@ -58,6 +58,11 @@ packet count ``n_live`` in the body's compacted iterations), and the
 shadow-skip test ``any(lit)`` once per wave where the skip rule applies
 (``max_bounce_count > 4`` or spp 1). They are the loop's semantics, as
 ``lax.while_loop``/``lax.cond`` are in the JAX loop.
+
+Under a profiler the phases are ``rt.*`` spans (``utils/spans.py``): per
+wave ``rt.raygen``, ``rt.loop`` (the bounce loop, with ``rt.bounce``,
+``rt.sweep.*``, ``rt.shade``, ``rt.accumulate``, ``rt.sort`` and each
+``rt.sync``) and ``rt.sky``, then ``rt.detile``.
 """
 
 from __future__ import annotations
@@ -69,6 +74,7 @@ from typing import Optional
 
 import torch
 
+from raytpu_torch import _build
 from raytpu_torch.accel import BVH_BUILDERS
 from raytpu_torch.config import (
     HIT_EPSILON,
@@ -134,6 +140,7 @@ from raytpu_torch.ops.traverse import (
     mesh_closest_ref,
 )
 from raytpu_torch.utils import validation
+from raytpu_torch.utils.spans import span, spanned
 
 __all__ = [
     "RenderStatic", "primary_rays_soa", "render_packets", "render_pixels",
@@ -440,6 +447,7 @@ def _count(stats, key, mask):
         stats[key] = n if key not in stats else stats[key] + n
 
 
+@spanned("rt.sync")
 def _read(x: torch.Tensor, stats):
     """The value of the one-element ``x`` on the host: one device sync,
     counted in ``stats["host_syncs"]``."""
@@ -460,6 +468,7 @@ def _shadow_always(rs) -> bool:
     return rs.max_bounce_count <= 4 and rs.samples_per_pixel > 1
 
 
+@spanned("rt.bounce")
 def _bounce_core(ts, rs, o, d, tmp, active, miss_rec, decay, stats, traces,
                  shadow_always: bool = False):
     """One bounce at the width of its inputs (``integrator.py:651-736``)
@@ -472,7 +481,8 @@ def _bounce_core(ts, rs, o, d, tmp, active, miss_rec, decay, stats, traces,
     _count(stats, "closest_rays", active)
     lane_tmax = torch.where(active, torch.full_like(o[0], RAY_TMAX),
                             torch.zeros_like(o[0]))
-    hit = traces[0](ts, o, d, RAY_TMIN, lane_tmax)
+    with span("rt.sweep.closest"):
+        hit = traces[0](ts, o, d, RAY_TMIN, lane_tmax)
     hit_mask = active & hit.valid
     miss_rec = miss_rec | (active & ~hit.valid)
 
@@ -492,9 +502,10 @@ def _bounce_core(ts, rs, o, d, tmp, active, miss_rec, decay, stats, traces,
 
     if shadow_always or _shadow_always(rs) or _any(lit_candidate, stats):
         _count(stats, "shadow_rays", lit_candidate)
-        occluded = traces[1](
-            ts, shadow_o, l, RAY_TMIN,
-            torch.where(lit_candidate, light_dist, torch.zeros_like(light_dist)))
+        with span("rt.sweep.shadow"):
+            occluded = traces[1](
+                ts, shadow_o, l, RAY_TMIN,
+                torch.where(lit_candidate, light_dist, torch.zeros_like(light_dist)))
     else:
         occluded = torch.zeros_like(lit_candidate)
     phong = shade.blinn_phong_soa(n, l, v3.neg(d), ts.light_intensity)
@@ -512,6 +523,7 @@ def _bounce_core(ts, rs, o, d, tmp, active, miss_rec, decay, stats, traces,
     return o, d, tmp, cont, miss_rec
 
 
+@spanned("rt.sky")
 def _deferred_sky(ts, rs, missed, d, tmp, stats):
     """Once-per-wave sky fetch for the miss lanes (``integrator.py:575-607``):
     z-flipped lookup, non-miss lanes pointed at (0, 0, 1) and masked, by
@@ -542,8 +554,8 @@ def _deferred_sky(ts, rs, missed, d, tmp, stats):
 def _trace_sample(ts: TorchScene, rs: RenderStatic, o, d,
                   sample_idx: torch.Tensor, active0: torch.Tensor,
                   stats: Optional[dict] = None):
-    """One sample wave through the XLA body's bounce loop -> Vec3 color of
-    (P, K).
+    """One sample wave through the XLA body's bounce loop -> ``(missed, d,
+    radiance)`` of (P, K) for the sky (:func:`_deferred_sky`).
 
     With ``wavefront="compact"`` and a budget (P >= 128), ``body_compact``
     (``integrator.py:748-836``): j=0 is peeled and runs full width; every
@@ -600,10 +612,11 @@ def _trace_sample(ts: TorchScene, rs: RenderStatic, o, d,
             n_live = int(_read(live.sum(), stats))
             if not n_live:
                 break
-            order = torch.argsort((~live).to(torch.int32), stable=True)
-            inv = torch.argsort(order, stable=True)
-            planes = [x.index_select(0, order)
-                      for x in (*o, *d, *tmp, active, miss_rec, decay)]
+            with span("rt.sort"):
+                order = torch.argsort((~live).to(torch.int32), stable=True)
+                inv = torch.argsort(order, stable=True)
+                planes = [x.index_select(0, order)
+                          for x in (*o, *d, *tmp, active, miss_rec, decay)]
             for s in range(0, n_live, budget):
                 w = [x[s:s + budget] for x in planes]
                 out = _bounce_core(ts, rs, tuple(w[0:3]), tuple(w[3:6]),
@@ -612,12 +625,14 @@ def _trace_sample(ts: TorchScene, rs: RenderStatic, o, d,
                 for x, y in zip(planes, (*out[0], *out[1], *out[2], out[3],
                                          out[4])):
                     x[s:s + budget] = y
-            o, d, tmp = (tuple(planes[i + c].index_select(0, inv)
-                               for c in range(3)) for i in (0, 3, 6))
-            active, miss_rec = (planes[i].index_select(0, inv) for i in (9, 10))
+            with span("rt.sort"):
+                o, d, tmp = (tuple(planes[i + c].index_select(0, inv)
+                                   for c in range(3)) for i in (0, 3, 6))
+                active, miss_rec = (planes[i].index_select(0, inv)
+                                    for i in (9, 10))
             j += 1
     # at loop exit d is each miss lane's miss direction (no carry needed)
-    return _deferred_sky(ts, rs, miss_rec, d, tmp, stats)
+    return miss_rec, d, tmp
 
 
 def _seg_divisor(p: int, cap: int) -> int:
@@ -651,6 +666,7 @@ def _wave_rungs(p: int, budget: int, max_rungs: int = 3) -> list:
     return rungs
 
 
+@spanned("rt.bounce")
 def _fused_step(ts, rs, rays, win, tmp, miss, decay_p, stats, primary):
     """One fused bounce over a wave (``_trace_sample_fused.step`` :448):
     closest sweep, shade pass, shadow sweep (or its skip), accumulate pass,
@@ -659,15 +675,19 @@ def _fused_step(ts, rs, rays, win, tmp, miss, decay_p, stats, primary):
     arguments may be waves ``x[:, s:s+b]`` of the loop's buffers."""
     closest, anyhit = _sweeps(ts, rs, rays.shape[1], rays.shape[2], primary)
     _count(stats, "closest_rays", win > 0.0)
-    st = closest(ts, rays, RAY_TMIN, make_trace_state(win))
-    srays, swin, ab, lit, _, nwin, _ = _KERNELS["shade"](
-        rays, st, miss, ts.light[:3], ts.light[3])
+    with span("rt.sweep.closest"):
+        st = closest(ts, rays, RAY_TMIN, make_trace_state(win))
+    with span("rt.shade"):
+        srays, swin, ab, lit, _, nwin, _ = _KERNELS["shade"](
+            rays, st, miss, ts.light[:3], ts.light[3])
     occ = torch.zeros_like(lit)
     if _shadow_always(rs) or _any(lit != 0, stats):   # (:463-472)
         _count(stats, "shadow_rays", lit != 0)
-        anyhit(ts, srays, RAY_TMIN, swin, occ)
-    _KERNELS["accumulate"](occ, ab, lit, tmp, decay_p, ts.light[:3],
-                           ts.light[3])
+        with span("rt.sweep.shadow"):
+            anyhit(ts, srays, RAY_TMIN, swin, occ)
+    with span("rt.accumulate"):
+        _KERNELS["accumulate"](occ, ab, lit, tmp, decay_p, ts.light[:3],
+                               ts.light[3])
     win.copy_(nwin)
 
 
@@ -677,7 +697,8 @@ def _trace_sample_fused(ts: TorchScene, rs: RenderStatic, rays: torch.Tensor,
     """The bounce loop on the packed ABI with the fused shade and
     accumulate passes (``integrator._trace_sample_fused`` :379-572) over
     ``rays`` (6, P, K), updated in place, and the per-packet sample index
-    ``s_row`` (P,) -> Vec3 color of (P, K).
+    ``s_row`` (P,) -> ``(missed, d, radiance)`` of (P, K) for the sky
+    (:func:`_deferred_sky`).
 
     With ``wavefront="compact"`` and a budget (P >= 128): the peeled j=0
     runs full width, then ONE stable live-first sort of the packets; later
@@ -709,14 +730,15 @@ def _trace_sample_fused(ts: TorchScene, rs: RenderStatic, rays: torch.Tensor,
     else:
         _fused_step(ts, rs, rays, win, tmp, miss, decay_p, stats, True)  # j = 0
         j = 1
-        plive = (win > 0.0).any(dim=1)
-        order = torch.argsort((~plive).to(torch.int32), stable=True)
-        inv = torch.argsort(order, stable=True)
-        rays = rays.index_select(1, order)
-        win = win.index_select(0, order)
-        tmp = tmp.index_select(1, order)
-        miss = miss.index_select(0, order)
-        decay_s = decay_p.index_select(0, order)
+        with span("rt.sort"):
+            plive = (win > 0.0).any(dim=1)
+            order = torch.argsort((~plive).to(torch.int32), stable=True)
+            inv = torch.argsort(order, stable=True)
+            rays = rays.index_select(1, order)
+            win = win.index_select(0, order)
+            tmp = tmp.index_select(1, order)
+            miss = miss.index_select(0, order)
+            decay_s = decay_p.index_select(0, order)
         rows1 = torch.arange(1, p + 1, device=dev)
 
         def n_eff() -> int:
@@ -739,13 +761,13 @@ def _trace_sample_fused(ts: TorchScene, rs: RenderStatic, rays: torch.Tensor,
                                 decay_s[s:s + b], stats, False)
                 j += 1
                 ne = None
-        rays = rays.index_select(1, inv)
-        tmp = tmp.index_select(1, inv)
-        miss = miss.index_select(0, inv)
+        with span("rt.sort"):
+            rays = rays.index_select(1, inv)
+            tmp = tmp.index_select(1, inv)
+            miss = miss.index_select(0, inv)
 
     # at loop exit d is each miss lane's miss direction (no carry needed)
-    return _deferred_sky(ts, rs, miss != 0, (rays[3], rays[4], rays[5]),
-                         (tmp[0], tmp[1], tmp[2]), stats)
+    return miss != 0, (rays[3], rays[4], rays[5]), (tmp[0], tmp[1], tmp[2])
 
 
 def render_packets(ts: TorchScene, rs: RenderStatic, camera: torch.Tensor,
@@ -765,21 +787,23 @@ def render_packets(ts: TorchScene, rs: RenderStatic, camera: torch.Tensor,
     packets ``rays6[:, i::spp]``). ``stats``, if a dict, receives device
     counters of the rays traced (``closest_rays``, ``shadow_rays``), the
     host count ``host_syncs``, all summed over the waves, and the sweeps'
-    ``tier`` of one wave (:func:`frame_tier`)."""
+    ``tier`` of one wave (:func:`frame_tier`); the per-lane sweeps then
+    count their work too (``_build.work_counts``)."""
     p, k = px.shape
     spp = rs.samples_per_pixel
     if stats is not None:
         stats.setdefault("host_syncs", 0)
-    if not rs.fold_spp and spp > 1:
-        return _render_samples(ts, rs, camera, px, py, active0, rays6, stats)
-    if stats is not None:
-        stats["tier"] = frame_tier(ts, p * spp, k)
-    pxs = px.repeat_interleave(spp, dim=0)
-    pys = py.repeat_interleave(spp, dim=0)
-    act = active0.repeat_interleave(spp, dim=0)
-    s_row = torch.arange(spp, dtype=torch.float32, device=px.device).repeat(p)
-    colors = _trace_wave(ts, rs, camera, pxs, pys, act, s_row, rays6, stats)
-    return tuple(c.reshape(p, spp, k).mean(dim=1) for c in colors)
+    with _build.counting(stats is not None):
+        if not rs.fold_spp and spp > 1:
+            return _render_samples(ts, rs, camera, px, py, active0, rays6, stats)
+        if stats is not None:
+            stats["tier"] = frame_tier(ts, p * spp, k)
+        pxs = px.repeat_interleave(spp, dim=0)
+        pys = py.repeat_interleave(spp, dim=0)
+        act = active0.repeat_interleave(spp, dim=0)
+        s_row = torch.arange(spp, dtype=torch.float32, device=px.device).repeat(p)
+        colors = _trace_wave(ts, rs, camera, pxs, pys, act, s_row, rays6, stats)
+        return tuple(c.reshape(p, spp, k).mean(dim=1) for c in colors)
 
 
 def _render_samples(ts, rs, camera, px, py, active0, rays6, stats):
@@ -803,20 +827,25 @@ def _render_samples(ts, rs, camera, px, py, active0, rays6, stats):
 def _trace_wave(ts, rs, camera, px, py, act, s_row, rays6, stats):
     """One wave of packets ``px``/``py`` (P, K) with per-packet sample index
     ``s_row`` (P,): the raygen (unless ``rays6`` gives its rays, which are
-    left unchanged), then the fused loop or the XLA body -> Vec3 color."""
+    left unchanged), then the fused loop or the XLA body, then the sky ->
+    Vec3 color."""
     p, k = px.shape
     spp = rs.samples_per_pixel
     fused = _use_fused(ts, rs, p, k)
     if rays6 is None:
-        rays6 = _KERNELS["raygen"](camera, s_row, px, py, spp, rs.width,
-                                   rs.height)
+        with span("rt.raygen"):
+            rays6 = _KERNELS["raygen"](camera, s_row, px, py, spp, rs.width,
+                                       rs.height)
     elif fused:
         rays6 = rays6.clone()  # the fused loop bounces the rays in place
-    if fused:
-        return _trace_sample_fused(ts, rs, rays6, s_row, act, stats)
-    o = (rays6[0], rays6[1], rays6[2])
-    d = (rays6[3], rays6[4], rays6[5])
-    return _trace_sample(ts, rs, o, d, s_row[:, None], act, stats)
+    with span("rt.loop"):
+        if fused:
+            missed, d, tmp = _trace_sample_fused(ts, rs, rays6, s_row, act, stats)
+        else:
+            missed, d, tmp = _trace_sample(
+                ts, rs, (rays6[0], rays6[1], rays6[2]),
+                (rays6[3], rays6[4], rays6[5]), s_row[:, None], act, stats)
+    return _deferred_sky(ts, rs, missed, d, tmp, stats)
 
 
 def render_pixels(ts: TorchScene, rs: RenderStatic, camera: torch.Tensor,
@@ -864,6 +893,7 @@ def tiled_pixels(rs: RenderStatic, device):
     return (px, py), in_frame
 
 
+@spanned("rt.detile")
 def detile(colors, rs: RenderStatic) -> torch.Tensor:
     """Packets -> (H, W, 3) image by reshape/permute (padding dropped)."""
     t = rs.tile

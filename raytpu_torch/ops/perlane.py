@@ -27,6 +27,11 @@ launch the kernel for a CUDA tensor (or raise), and raise unless the wave
 is whole blocks of ``BLOCK_PACKETS``.
 The prepass's tensors stay on the device; only the plain versions read them
 back.
+
+While this thread counts work (``_build.counting``: a frame rendered with
+``stats``), the kernels count their node visits and triangle tests on the
+card and the plain versions count the plain walk's, into the same
+``_build.work_counts``.
 """
 
 from __future__ import annotations
@@ -44,8 +49,10 @@ from raytpu_torch.ops.mega import (
     entry_perm,
 )
 from raytpu_torch.ops.traverse import ST_T, anyhit_ref, closest_ref, packed_operands
+from raytpu_torch.utils.spans import spanned
 
 
+@spanned("rt.prepass")
 def prepass(ts: TorchScene, rays: torch.Tensor, window: torch.Tensor,
             tmin: float, order: str, stats_fn=block_stats):
     """The per-call schedule of a sweep: ``(bits, octs, entries)``, the
@@ -106,6 +113,13 @@ def _work_counters(device) -> torch.Tensor:
     return torch.empty(WORK_SLOTS, dtype=torch.int32, device=device)
 
 
+def _visit_counters(k: str, device):
+    """Where launch ``k`` adds its node visits and triangle tests: the
+    kernel's slot of ``_build``'s buffer while this thread counts, else
+    None (the kernel that counts nothing)."""
+    return _build.work_pointer(k, device) if _build.counting_on() else None
+
+
 def perlane_closest_sweep(ts: TorchScene, rays: torch.Tensor, tmin: float,
                           state: torch.Tensor) -> torch.Tensor:
     """Closest hit of ``rays`` (6, P, K) over the entries in depth order,
@@ -133,7 +147,7 @@ def launch_closest(ts: TorchScene, rays: torch.Tensor, tmin: float,
         *_build.check_planes(k, "state", state, (9, *rays.shape[1:])),
         rays[0].numel(), float(tmin), *tables,
         _build.check_operand(k, "bvh_tri_n_soa", ts.bvh_tri_n_soa, (9, t)),
-        t, taken.data_ptr(), WORK_SLOTS,
+        t, taken.data_ptr(), WORK_SLOTS, _visit_counters(k, rays.device),
     )
     return state
 
@@ -166,6 +180,7 @@ def launch_anyhit(ts: TorchScene, rays: torch.Tensor, tmin: float,
         _build.check_operand(k, "tmax", tmax, rays.shape[1:]),
         _build.check_operand(k, "occ", occ, rays.shape[1:], torch.int32),
         rays[0].numel(), float(tmin), *tables, taken.data_ptr(), WORK_SLOTS,
+        _visit_counters(k, rays.device),
     )
     return occ
 
@@ -206,7 +221,8 @@ def perlane_closest_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
     (``ops/traverse.closest_ref``) with the per-lane schedule. ``slots``
     and ``counts`` as for ``traverse.closest_sweep_ref``."""
     rows, walks, links = plain_schedule(ts, rays, state[ST_T], tmin, "origin")
-    return closest_ref(ts, rays, tmin, state, rows, walks, links, slots, counts)
+    with _build.counted("perlane_closest_sweep", counts) as c:
+        return closest_ref(ts, rays, tmin, state, rows, walks, links, slots, c)
 
 
 def perlane_anyhit_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
@@ -215,4 +231,5 @@ def perlane_anyhit_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
                              counts=None) -> torch.Tensor:
     """Plain PyTorch :func:`perlane_anyhit_sweep`."""
     rows, walks, links = plain_schedule(ts, rays, tmax, tmin, order)
-    return anyhit_ref(ts, rays, tmin, tmax, occ, rows, walks, links, counts)
+    with _build.counted("perlane_anyhit_sweep", counts) as c:
+        return anyhit_ref(ts, rays, tmin, tmax, occ, rows, walks, links, c)

@@ -279,8 +279,9 @@ def _walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
     (component tuples of (L,) tensors). ``window`` (L,) is the open upper
     bound, updated in place by ``on_hit(lanes, slot, t, u, v, hit)``, which
     also decides whether a lane keeps walking (it returns the lanes that
-    stop). A lane's visits and tests happen in the order the CUDA thread
-    makes them, so ``counts``, if a dict, receives the kernel's work too:
+    stop; a lane that stops tests no more triangles of its leaf). A lane's
+    visits and tests happen in the order the CUDA thread makes them, so
+    ``counts``, if a dict, receives the kernel's work too:
     node visits (``nodes``) and Moller-Trumbore tests (``tests``). If it
     holds a dict ``rows``, that receives, per table, a bool mask of the rows
     the kernel reads (:data:`ROW_BYTES`; :func:`rows_bytes` sums them).
@@ -358,7 +359,7 @@ def _walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
             lf = test.nonzero().squeeze(1)
             ll, f, cnt = lanes[lf], first[lf], ts.bvh_tri_count[g[lf]].long()
             for k in range(ts.leaf_max):
-                sel = k < cnt
+                sel = (k < cnt) & ~stop[lf]
                 if not bool(sel.any()):
                     break
                 kl, s = ll[sel], tb + f[sel] + k

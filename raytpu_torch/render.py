@@ -19,6 +19,7 @@ from raytpu_torch.device_scene import brute_scene, build_device_scene
 from raytpu_torch.integrator import RenderStatic, render_frame
 from raytpu_torch.parallel import make_mesh, render_sharded, replicate
 from raytpu_torch.utils import validation
+from raytpu_torch.utils.spans import span
 
 
 class Renderer:
@@ -60,14 +61,15 @@ class Renderer:
     def set_transforms(self, time_param: float) -> None:
         """Advance instance animation to ``time_param`` (the refit analog,
         ``src/main.cpp:2836-2861``)."""
-        self.time_param = time_param
-        self.animation.step(time_param)
-        o2w = self.animation.transforms_3x4()
-        w2o = self.animation.inverse_transforms_3x4()
-        self.tscene = self.tscene.with_transforms(o2w, w2o)
-        if self._replicas is not None:
-            self._replicas = (self.tscene, [ts.with_transforms(o2w, w2o)
-                                            for ts in self._replicas[1]])
+        with span("rt.set_transforms"):
+            self.time_param = time_param
+            self.animation.step(time_param)
+            o2w = self.animation.transforms_3x4()
+            w2o = self.animation.inverse_transforms_3x4()
+            self.tscene = self.tscene.with_transforms(o2w, w2o)
+            if self._replicas is not None:
+                self._replicas = (self.tscene, [ts.with_transforms(o2w, w2o)
+                                                for ts in self._replicas[1]])
 
     @property
     def replicas(self) -> list:
@@ -88,15 +90,16 @@ class Renderer:
         """One frame -> (H, W, 3) f32 tensor on the device, sharded over the
         mesh onto its first slot's device where there is one (checked by
         ``validation.check_frame`` when the config asks for validation)."""
-        if self.mesh is not None:
-            img = render_sharded(self.replicas, self.render_static,
-                                 self.camera_tensor(), self.mesh, stats=stats)
-        else:
-            img = render_frame(self.tscene, self.render_static,
-                               self.camera_tensor(), stats=stats)
-        if self.scene.config.validation:
-            validation.check_frame(img)
-        return img
+        with span("rt.render"):
+            if self.mesh is not None:
+                img = render_sharded(self.replicas, self.render_static,
+                                     self.camera_tensor(), self.mesh, stats=stats)
+            else:
+                img = render_frame(self.tscene, self.render_static,
+                                   self.camera_tensor(), stats=stats)
+            if self.scene.config.validation:
+                validation.check_frame(img)
+            return img
 
     def render_u8(self) -> torch.Tensor:
         """Render and quantize to uint8 on the device."""
@@ -104,8 +107,11 @@ class Renderer:
         return torch.clamp(img * 255.0 + 0.5, 0, 255).to(torch.uint8)
 
     def render_np(self) -> np.ndarray:
-        return self.render().cpu().numpy()
+        img = self.render()
+        with span("rt.readback"):
+            return img.cpu().numpy()
 
     def step(self, time_param: float) -> np.ndarray:
-        self.set_transforms(time_param)
-        return self.render_np()
+        with span("rt.step"):
+            self.set_transforms(time_param)
+            return self.render_np()

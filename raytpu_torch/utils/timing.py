@@ -13,8 +13,8 @@ tensor, whose eager ops are done when they return), and for a sharded
 frame in :func:`synchronize` of every card it used (``Renderer.devices``). That is wall time
 with the device drained: what a viewer waits for a frame, host issue and
 the frame's own host syncs included, not the device's busy time (which
-only a profiler reads). Kernel times come from CUDA events
-(``raytpu_torch.bench.profile_stages``).
+only a profiler reads). Kernel times come from a profiler around the
+frames, whose trace holds the ``rt.*`` spans of :mod:`raytpu_torch.utils.spans`.
 """
 
 from __future__ import annotations

@@ -610,3 +610,88 @@ def test_brute_anyhit_edges(card, case):
     if case == "rays_far_above_resident":
         grid = intersect.anyhit_grid(n, tris.shape[0], rays.device)
         assert n > 8 * grid * intersect.ANYHIT_THREADS
+
+
+@pytest.fixture(scope="module")
+def config4_slice():
+    """The config4 stand-in (327,680-triangle armadillo, per-lane tier) at
+    pose 0.1, and the primary rays and windows of chip_smoke's 256-packet
+    slice around the frame's centre, with the shadow rays of their hits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+    from raytpu_torch.config import RAY_TMAX, RAY_TMIN
+
+    r = Renderer(scenes.config4_standin(), "cuda")
+    r.set_transforms(0.1)
+    rays, act = chip_smoke.primary_wave(r)
+    idx = torch.tensor(chip_smoke.sweep_slice(r.render_static, chip_smoke.SWEEP_PACKETS),
+                       device="cuda")
+    rays = rays[:, idx].contiguous()
+    win = torch.where(act[idx], RAY_TMAX, 0.0).float().contiguous()
+    st0 = traverse.make_trace_state(win)
+    hits = perlane.perlane_closest_sweep(r.tscene, rays, RAY_TMIN, st0.clone())
+    srays, tmax = chip_smoke.shadow_rays(r.tscene, rays, hits)
+    return r, rays, st0, srays, tmax
+
+
+def test_perlane_work_counts_equal_the_plain_walks(config4_slice):
+    """K1's and K2's counting launches count exactly the node visits and
+    triangle tests of their plain walks on the config4 slice."""
+    from raytpu_torch.config import RAY_TMIN
+
+    r, rays, st0, srays, tmax = config4_slice
+    ts = r.tscene
+    occ0 = torch.zeros(tmax.shape, dtype=torch.int32, device="cuda")
+    want = {"perlane_closest_sweep": {}, "perlane_anyhit_sweep": {}}
+    perlane.perlane_closest_sweep_ref(ts, rays, RAY_TMIN, st0.clone(),
+                                      counts=want["perlane_closest_sweep"])
+    occ = perlane.perlane_anyhit_sweep_ref(ts, srays, RAY_TMIN, tmax, occ0.clone(),
+                                           counts=want["perlane_anyhit_sweep"])
+    assert occ.any() and not occ.all()
+    _build.reset_work_counts()
+    with _build.counting():
+        perlane.perlane_closest_sweep(ts, rays, RAY_TMIN, st0.clone())
+        perlane.perlane_anyhit_sweep(ts, srays, RAY_TMIN, tmax, occ0.clone())
+    got = _build.work_counts()
+    _build.reset_work_counts()
+    for k in _build.WORK_KERNELS:
+        assert want[k]["nodes"] > 0 and want[k]["tests"] > 0, want
+        assert got[k] == {"nodes": want[k]["nodes"], "tests": want[k]["tests"]}, (k, got)
+
+
+def test_perlane_counting_launches_change_nothing(config4_slice, monkeypatch):
+    """The counting and the non-counting launches of K1 and K2 give the same
+    state and occlusion flags bit for bit; the viewer's frame
+    (``Renderer.step``) passes no counters to any launch, a frame rendered
+    with ``stats`` passes them to every K1 and K2 launch."""
+    from raytpu_torch.config import RAY_TMIN
+
+    r, rays, st0, srays, tmax = config4_slice
+    ts = r.tscene
+    occ0 = torch.zeros(tmax.shape, dtype=torch.int32, device="cuda")
+    plain = (perlane.perlane_closest_sweep(ts, rays, RAY_TMIN, st0.clone()),
+             perlane.perlane_anyhit_sweep(ts, srays, RAY_TMIN, tmax, occ0.clone()))
+    with _build.counting():
+        counted = (perlane.perlane_closest_sweep(ts, rays, RAY_TMIN, st0.clone()),
+                   perlane.perlane_anyhit_sweep(ts, srays, RAY_TMIN, tmax, occ0.clone()))
+    _build.reset_work_counts()
+    assert torch.equal(plain[0].view(torch.int32), counted[0].view(torch.int32))
+    assert torch.equal(plain[1], counted[1])
+
+    passed = []
+    launch = _build.launch
+
+    def spy(kernel, *args):
+        if kernel in _build.WORK_KERNELS:
+            passed.append(args[-1])
+        return launch(kernel, *args)
+
+    monkeypatch.setattr(_build, "launch", spy)
+    r.step(0.2)
+    assert passed and all(p is None for p in passed)
+    passed.clear()
+    r.render(stats={})
+    assert passed and all(p is not None for p in passed)
+    assert sum(_build.work_counts()["perlane_closest_sweep"].values()) > 0
+    _build.reset_work_counts()
