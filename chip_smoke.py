@@ -724,7 +724,6 @@ def compare_kernels(r, gpu: str) -> dict:
     full_st = traverse.make_trace_state(full_win)
     res["closest_sweep"]["full_wave_ms"] = cuda_ms_fresh(
         lambda st: traverse.closest_sweep(ts, rk, RAY_TMIN, st), full_st.clone, 1, 3)
-    compare_block_stats(rk, full_win, res)
     sched = perlane.prepass(ts, rk, full_win, RAY_TMIN, "origin")
     k1 = perlane.launch_closest(ts, rk, RAY_TMIN, full_st.clone(), sched)
     k10 = traverse.closest_sweep(ts, rk, RAY_TMIN, full_st.clone())
@@ -742,6 +741,7 @@ def compare_kernels(r, gpu: str) -> dict:
     # the shadow kernels alone on the shadow rays of K10a's hits there
     srays_f, tmax_f = shadow_rays(ts, rk, k10)
     del k1, k10
+    compare_block_stats(ts, rk, full_win, srays_f, tmax_f, res)
     occ_f = torch.zeros(tmax_f.shape, dtype=torch.int32, device=dev)
     ssched = perlane.prepass(ts, srays_f, tmax_f, RAY_TMIN, "light")
     k2 = perlane.launch_anyhit(ts, srays_f, RAY_TMIN, tmax_f, occ_f.clone(), ssched)
@@ -792,7 +792,7 @@ def compare_kernels(r, gpu: str) -> dict:
           f"alone over both entries: {v['full_wave_kernel_ms']:.4f} ms [{gpu}]",
           flush=True)
     for name in PER_LANE[1:]:
-        print(f"time {name} prepass (K7 and the PyTorch schedule ops) on the "
+        print(f"time {name} prepass (one K7 launch with the schedule) on the "
               f"slice: {res[name]['prepass_ms']:.4f} ms [{gpu}]", flush=True)
     print(f"time perlane_closest_sweep prepass on the full primary wave: "
           f"{res['perlane_closest_sweep']['full_wave_prepass_ms']:.4f} ms [{gpu}]",
@@ -800,52 +800,111 @@ def compare_kernels(r, gpu: str) -> dict:
     return res
 
 
-def compare_block_stats(rk, win, res) -> None:
-    """K7 against its plain version on the full primary wave: all 17
-    columns exact."""
+def compare_block_stats(ts, rk, win, srays, tmax, res) -> None:
+    """K7, the prepass's one launch (``mega.block_schedule``), on the full
+    primary wave in both entry orders and on the shadow rays of its hits in
+    both, against the plain prepass of the same rays on the CPU
+    (``chunk_block_hits`` and ``entry_perm``): bits, octants, entry rows
+    and all 17 stats columns bit for bit, the "origin" keys (mean entry
+    depths) within 1e-6 relative and the "light" keys exact. K7's time is
+    the "origin" launch on the primary wave (its device time, from the
+    profiler), its bound that launch's bytes."""
     import torch
     from raytpu_torch.config import RAY_TMIN
-    from raytpu_torch.ops import mega
+    from raytpu_torch.ops import mega, perlane
 
-    got = mega.block_stats(rk, win, RAY_TMIN)
-    want = mega.block_stats_ref(rk, win, RAY_TMIN)
-    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
-          "block_stats: all 17 columns equal the plain version's bit for bit")
-    n_live = int(got[:, 16].sum().item())
-    check(n_live == int((win > RAY_TMIN).sum().item()), "block_stats counts the live lanes")
+    cpu = ts.to("cpu")
+    lo, hi = mega.world_root_boxes(cpu)
+    lp = cpu.light_pos
+    light_keys = (torch.minimum(torch.maximum(lp, lo), hi) - lp).square().sum(dim=1)
+    for what, x, w in (("primary wave", rk, win), ("its shadow rays", srays, tmax)):
+        xc, wc = x.cpu(), w.cpu()
+        stats = mega.block_stats_ref(xc, wc, RAY_TMIN)
+        _, _, depth = mega.chunk_block_hits(cpu, xc, wc, RAY_TMIN)
+        for order in mega.ORDERS:
+            got = mega.block_schedule(ts, x, w, RAY_TMIN, order)
+            want = perlane.plain_prepass(cpu, xc, wc, RAY_TMIN, order)
+            for name, g, v in zip(("bits", "octs", "entries"), got, want):
+                check(torch.equal(g.cpu(), v), f"block_schedule {name} ({order}, "
+                      f"{what}) equal the plain prepass's")
+            check(torch.equal(got.stats.cpu().view(torch.int32), stats.view(torch.int32)),
+                  f"block_schedule ({order}, {what}): all 17 stats columns equal "
+                  f"the plain version's bit for bit")
+            if order == "origin":
+                check(bool(torch.allclose(got.keys.cpu(), depth, rtol=1e-6, atol=0)),
+                      f"block_schedule ({what}): mean entry depths within 1e-6")
+            else:
+                check(torch.equal(got.keys.cpu(), light_keys),
+                      f"block_schedule ({what}): light keys exact")
+        n_live = int(stats[:, 16].sum().item())
+        check(n_live == int((w > RAY_TMIN).sum().item()),
+              f"block_schedule counts the live lanes of the {what}")
+        print(f"block_schedule {list(x.shape)}, {what}: bits, octants, entry rows and "
+              f"stats rows equal the plain prepass's in both orders, {n_live} live "
+              f"lanes", flush=True)
+
+    got = mega.block_schedule(ts, rk, win, RAY_TMIN, "origin")
+    e, pb = got.bits.shape[0], got.octs.shape[0]
     n = rk[0].numel()
+    warm_card()
     res["block_stats"] = dict(
-        max_abs_err=(got - want).abs().max().item(),
-        ms=cuda_ms(lambda: mega.block_stats(rk, win, RAY_TMIN), 3, 10),
-        plain_ms=cuda_ms(lambda: mega.block_stats_ref(rk, win, RAY_TMIN), 1, 3),
+        max_abs_err=0.0,
+        ms=device_ms(lambda: mega.block_schedule(ts, rk, win, RAY_TMIN, "origin"), 10),
+        light_ms=device_ms(lambda: mega.block_schedule(ts, rk, win, RAY_TMIN, "light"),
+                           10),
+        shadow_ms=device_ms(lambda: mega.block_schedule(ts, srays, tmax, RAY_TMIN,
+                                                        "light"), 10),
+        plain_ms=cuda_ms(lambda: perlane.plain_prepass(ts, rk, win, RAY_TMIN, "origin"),
+                         1, 3),
         shape=list(rk.shape),
-        # rays 24 B and the window 4 B a lane in, the rows out
-        bound=bound(nbytes(rk, win, got), OPS_PER_LANE["block_stats"] * n))
-    print(f"block_stats {list(rk.shape)} -> {list(got.shape)}: all 17 columns exact, "
-          f"{n_live} live lanes", flush=True)
+        # rays 24 B and the window 4 B a lane in; the stats rows, octants,
+        # bit words and entry rows out; enter (E, PB) f32 written once and
+        # read twice ("origin": the mean depth, then the bits)
+        bound=bound(nbytes(rk, win, *got[:4]) + 3 * 4 * e * pb,
+                    OPS_PER_LANE["block_stats"] * n))
+    print(f"block_schedule device ms: origin {res['block_stats']['ms']:.4f}, light "
+          f"{res['block_stats']['light_ms']:.4f} on the primary wave, light "
+          f"{res['block_stats']['shadow_ms']:.4f} on its shadow rays ({e} entries, "
+          f"{pb} blocks)", flush=True)
 
 
-def prepass_ops(fn, label: str, warm: bool = True) -> dict:
-    """What one call of ``fn`` (a prepass, after a first call that fills
-    the scene's per-frame properties unless not ``warm``) dispatches, from
-    torch.profiler: the PyTorch ops the host dispatches (top-level
-    ``aten::`` calls, views included) and the kernels the device runs."""
+def prepass_ops(fn, label: str) -> dict:
+    """What one call of ``fn`` (a prepass, after a first call) dispatches:
+    the hand-written kernels it launches (``_build``'s launch counts), and
+    from torch.profiler the PyTorch ops the host dispatches (top-level
+    ``aten::`` calls, views included) and the kernels and memsets the
+    device runs (the spans' annotations left out). The profiler records a
+    warm-up call before the one it keeps: a profile of a single call has
+    been seen to hold no device row for a K7 that ran."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from raytpu_torch import _build
 
-    if warm:
-        fn()
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    launches = {k: n // 2 for k, n in _build.launch_counts().items() if n}
+    _build.reset_launch_counts()
     events = prof.events()
-    ops = sum(1 for e in events if e.name.startswith("aten::") and e.cpu_parent is None)
-    kernels = sum(1 for e in events if e.device_type == DeviceType.CUDA)
-    print(f"prepass ({label}): {ops} PyTorch ops dispatched, {kernels} device "
-          f"kernels and copies", flush=True)
-    return {"torch_ops": ops, "device_kernels": kernels}
+    ops = sum(1 for e in events if e.name.startswith("aten::") and (
+        e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::")))
+    device = [e.name for e in events if e.device_type == DeviceType.CUDA
+              and not e.name.startswith("rt.")]
+    kernels = [n for n in device if "memset" not in n.lower()]
+    print(f"prepass ({label}): launches {launches}, {ops} PyTorch ops dispatched "
+          f"(allocation and views), {len(device)} device kernels and memsets "
+          f"{device}", flush=True)
+    check(launches == {"block_stats": 1}
+          and all("block_stats_kernel" in n for n in kernels),
+          f"the {label} prepass is one K7 launch and no PyTorch kernel")
+    return {"launches": launches, "torch_ops": ops, "device_kernels": len(device)}
 
 
 def compare_perlane(ts, rays, win, st0, k10a, srays, tmax, occ0, k10b,
@@ -911,9 +970,6 @@ def compare_perlane(ts, rays, win, st0, k10a, srays, tmax, occ0, k10b,
         work=walk_work(work, live))
     res["perlane_anyhit_sweep"]["prepass_ops"] = prepass_ops(
         lambda: perlane.prepass(ts, srays, tmax, RAY_TMIN, "light"), "shadow")
-    fresh = dataclasses.replace(ts)      # no per-frame properties cached yet
-    res["perlane_anyhit_sweep"]["frame_ops"] = prepass_ops(
-        lambda: (fresh.root_boxes, fresh.light_order), "once per frame", warm=False)
     print(f"perlane_anyhit {list(srays.shape)}: occ equal to its plain version and to "
           f"anyhit_sweep; plain walk per live ray: {work['nodes'] / live:.1f} node "
           f"visits, {work['tests'] / live:.1f} triangle tests", flush=True)

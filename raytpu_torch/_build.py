@@ -76,7 +76,12 @@ _SIGNATURES = {
     "shade_epilogue": [_P, _L, _P, _L, _P, _P, _L, _P, _P, _L, _P, _P, _L,
                        _P, _P, _L, _F, _F, _F, _P],
     "accumulate_epilogue": [_P, _P, _L, _P, _P, _L, _P, _L, _I, _F, _P],
-    "block_stats": [_P, _L, _P, _L, _L, _F, _P, _P],
+    # rays, window, blocks, block lanes, tmin, the stats rows; the
+    # schedule: entries E, words, order, the light, the entry rows, o2w,
+    # the node boxes, bits, octs, rows, keys, ranks, enter, the arrival
+    # counter
+    "block_stats": [_P, _L, _P, _L, _L, _F, _P, _L, _I, _I, _F, _F, _F, _P,
+                    _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # rays, (state | tmax, occ), n, tmin, the schedule (block lanes, bits,
     # words, octs), the packed links, nodes M, the entries and w2o, the
     # packed nodes and triangles, (normals, T,) the CTAs' work counters and

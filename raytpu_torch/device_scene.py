@@ -37,18 +37,12 @@ full uint32 arithmetic).
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from raytpu_torch.ops.mega import (
-    entry_perm,
-    mesh_octant_links,
-    mesh_wide_links,
-    world_root_boxes,
-)
+from raytpu_torch.ops.mega import mesh_octant_links, mesh_wide_links
 from raytpu_torch.scene import Scene
 
 ENTRY_COLS = ("inst", "mat", "node_base", "node_count", "tri_base")
@@ -125,7 +119,7 @@ class TorchScene:
 
     def with_transforms(self, o2w: np.ndarray, w2o: np.ndarray) -> "TorchScene":
         """Per-frame instance transform update (the refit analog): a new
-        scene, so the cached properties below are computed anew."""
+        scene."""
         return dataclasses.replace(
             self,
             o2w=torch.as_tensor(np.asarray(o2w, np.float32), device=self.device),
@@ -136,9 +130,8 @@ class TorchScene:
         """This scene on ``device``: every tensor field (the ``bvh_*`` and
         packed tables, the skies, the entries, octant and wide links, the
         transforms) copied there, the host fields kept. On the scene's own
-        device, a copy that shares the tensors. Either way a new object,
-        so the cached properties below are its own: one replica per slot
-        of a sharded frame, and no two host threads fill one cache."""
+        device, a copy that shares the tensors. Either way a new object:
+        one replica per slot of a sharded frame."""
         device = torch.device(device)
         if device == self.o2w.device:
             return dataclasses.replace(self)
@@ -146,22 +139,6 @@ class TorchScene:
                  for f in dataclasses.fields(self)
                  if isinstance(getattr(self, f.name), torch.Tensor)}
         return dataclasses.replace(self, device=device, **moved)
-
-    # What the per-lane prepass needs from the transforms alone, computed
-    # at the frame's first per-lane sweep and kept for its others (device
-    # tensors, no sync).
-    @functools.cached_property
-    def root_boxes(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Each entry's world root box ``(lo, hi)``, (E, 3) each
-        (``ops/mega.world_root_boxes``)."""
-        return world_root_boxes(self)
-
-    @functools.cached_property
-    def light_order(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The shadow sweep's "light" entry order (``ops/mega.entry_perm``):
-        the permutation (E,) int64 and the entry rows in that order."""
-        perm = entry_perm(self, None, "light")
-        return perm, self.entries.index_select(0, perm)
 
 
 def corner_tables(scene: Scene):

@@ -2,29 +2,32 @@
 tables (counterpart of ``raytpu/ops/mega.py:125-317`` and ``:347-554``).
 
 Per sweep, the rays of a wave are grouped into blocks of ``BLOCK_PACKETS``
-packets, relative to the wave's first packet. :func:`block_stats` (K7, the
-kernel in ``csrc/mega.cu``) reduces each block to one row of ``STATS_W``
-values; :func:`chunk_block_hits` turns the rows into a conservative
-(entry, block) hit bitmask, each block's majority direction octant and each
-entry's mean entry depth; :func:`entry_perm` orders the entries. The
-per-lane sweeps (``ops/perlane.py``) skip the entries a lane's block misses
-and walk each entry near child first with the block's octant, along the
-links :func:`octant_links` threads per octant; the consensus sweeps
+packets, relative to the wave's first packet. Each block is reduced to one
+row of ``STATS_W`` values (:func:`block_stats_ref`); :func:`chunk_block_hits`
+turns the rows into a conservative (entry, block) hit bitmask, each block's
+majority direction octant and each entry's mean entry depth;
+:func:`entry_perm` orders the entries. The per-lane sweeps
+(``ops/perlane.py``) skip the entries a lane's block misses and walk each
+entry near child first with the block's octant, along the links
+:func:`octant_links` threads per octant; the consensus sweeps
 (``ops/consensus.py``) walk the same schedule along the wide links
-:func:`mesh_wide_links` makes of them (:func:`widen_octant_links`, with
-the treelet roots of :func:`treelet_partition` kept).
+:func:`mesh_wide_links` makes of them (:func:`widen_octant_links`, with the
+treelet roots of :func:`treelet_partition` kept).
 
-Everything after the stats row is plain PyTorch on the device, a few tens
-of small ops per sweep with no host sync, as it is plain XLA in the JAX
-package; their dispatch on the host, not the device, sets the tier's frame
-time. What depends on the transforms alone (the entries' world root boxes,
-the "light" order) the scene computes once per transform update
-(``TorchScene.root_boxes``, ``light_order``). The bitmask is int32 bit
-patterns of the JAX package's u32 words (PyTorch has no full u32); bit 31
-is the sign bit.
+On the card the whole schedule is one launch of K7 (``csrc/mega.cu``,
+:func:`block_schedule`): its CTAs reduce the blocks and test them against
+the entries' world root boxes, and the last CTA to finish packs the bits
+and orders the entries; the host allocates the outputs and enqueues that
+launch, with no PyTorch kernel and no sync. The plain PyTorch versions
+(:func:`block_stats_ref`, :func:`chunk_block_hits`, :func:`entry_perm`, as
+the JAX package's plain XLA, with :func:`world_root_boxes`) run on the CPU
+and are the kernel's oracle. The bitmask is int32 bit patterns of the JAX
+package's u32 words (PyTorch has no full u32); bit 31 is the sign bit.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -214,35 +217,88 @@ def check_blocks(kernel: str, p: int) -> None:
 
 
 # ---------------------------------------------------------------------------
-# K7: per-block stats
+# K7: per-block stats and the schedule made from them
 # ---------------------------------------------------------------------------
 
-def block_stats(rays: torch.Tensor, window: torch.Tensor,
-                tmin: float) -> torch.Tensor:
-    """(P/8, ``STATS_W``) f32 stats of ``rays`` (6, P, K) over the lanes
-    with ``window`` (P, K) above ``tmin``, one row per block of 8 packets.
-    CPU tensors take :func:`block_stats_ref`; CUDA tensors launch
-    ``rt_block_stats``."""
-    if rays.device.type == "cpu":
-        return block_stats_ref(rays, window, tmin)
+# entry orders, as the C entry point numbers them
+ORDERS = ("origin", "light")
+
+
+class BlockSchedule(NamedTuple):
+    """What one :func:`block_schedule` launch writes: the schedule the
+    culled sweeps take (``bits`` (E, ceil(PB/32)) int32 and ``entries``
+    (E, 5) int32 in walk order, ``octs`` (PB,) int32), the stats rows
+    (PB, ``STATS_W``) f32 and each entry's sort ``keys`` (E,) f32 in build
+    order (the mean entry depth for "origin", the squared distance from
+    the light for "light")."""
+    bits: torch.Tensor
+    octs: torch.Tensor
+    entries: torch.Tensor
+    stats: torch.Tensor
+    keys: torch.Tensor
+
+
+def schedule_buffers(n_entries: int, n_blocks: int, device):
+    """The outputs and scratch of one :func:`block_schedule` launch, views
+    of one int32 allocation: ``(bits, octs, rows, ranks, arrived, stats,
+    keys, enter)``, the last three f32 (``enter`` (E, PB) the per-block
+    entry distances)."""
+    e, pb = n_entries, n_blocks
+    words = -(-pb // 32)
+    ints = (e * words, pb, e * 5, e, 1)
+    floats = (pb * STATS_W, e, e * pb)
+    buf = torch.empty(sum(ints) + sum(floats), dtype=torch.int32, device=device)
+    head, tail = buf.split([sum(ints), sum(floats)])
+    bits, octs, rows, ranks, arrived = head.split(ints)
+    stats, keys, enter = tail.view(torch.float32).split(floats)
+    return (bits.view(e, words), octs, rows.view(e, 5), ranks, arrived,
+            stats.view(pb, STATS_W), keys, enter.view(e, pb))
+
+
+def block_schedule(ts, rays: torch.Tensor, window: torch.Tensor, tmin: float,
+                   order: str) -> BlockSchedule:
+    """The culling prepass of ``rays`` (6, P, K) on the card, in one K7
+    launch: the stats rows of the lanes with ``window`` (P, K) above
+    ``tmin``, one per block of 8 packets (:func:`block_stats_ref`'s), then
+    the bits and octants of :func:`chunk_block_hits` and the entries in
+    :func:`entry_perm`'s ``order``, all equal to the plain versions' bit
+    for bit (the "origin" keys round apart from PyTorch's sum). CUDA
+    tensors only; the host allocates and enqueues the launch, with no
+    other kernel and no sync."""
     k = "block_stats"
+    if order not in ORDERS:
+        raise ValueError(f"entry order {order!r}: use 'origin' or 'light'")
     p = rays.shape[1]
     check_blocks(k, p)
     pb = p // BLOCK_PACKETS
-    out = torch.empty((pb, STATS_W), dtype=torch.float32, device=rays.device)
+    e = ts.entries.shape[0]
+    m = ts.bvh_aabb_min.shape[0]
+    bits, octs, rows, ranks, arrived, stats, keys, enter = schedule_buffers(
+        e, pb, rays.device)
+    c = _build.check_operand
+    ptr = _build.Pointer
+    light = ts.light[:3] if order == "light" else (0.0, 0.0, 0.0)
     _build.launch(
         k,
         *_build.check_planes(k, "rays", rays, (6, *rays.shape[1:])),
-        _build.check_operand(k, "window", window, rays.shape[1:]),
-        pb, BLOCK_PACKETS * rays.shape[2], float(tmin),
-        _build.check_operand(k, "out", out),
+        c(k, "window", window, rays.shape[1:]),
+        pb, BLOCK_PACKETS * rays.shape[2], float(tmin), ptr(stats),
+        e, bits.shape[1], ORDERS.index(order), *light,
+        c(k, "entries", ts.entries, (e, 5), torch.int32),
+        c(k, "o2w", ts.o2w, (ts.o2w.shape[0], 3, 4)),
+        c(k, "bvh_aabb_min", ts.bvh_aabb_min, (m, 3)),
+        c(k, "bvh_aabb_max", ts.bvh_aabb_max, (m, 3)),
+        ptr(bits), ptr(octs), ptr(rows), ptr(keys), ptr(ranks), ptr(enter),
+        ptr(arrived),
     )
-    return out
+    return BlockSchedule(bits, octs, rows, stats, keys)
 
 
 def block_stats_ref(rays: torch.Tensor, window: torch.Tensor,
                     tmin: float) -> torch.Tensor:
-    """Plain PyTorch :func:`block_stats`, the reductions of
+    """(P/8, ``STATS_W``) f32 stats of ``rays`` (6, P, K) over the lanes
+    with ``window`` (P, K) above ``tmin``, one row per block of 8 packets,
+    in plain PyTorch: the reductions of
     ``_block_stats_kernel`` (``raytpu/ops/mega.py:360``): dead lanes take
     the +-3e38 sentinels, ``t_hi`` is at least 0, the counts are exact."""
     p = rays.shape[1]
@@ -261,7 +317,7 @@ def block_stats_ref(rays: torch.Tensor, window: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# the prepass on the stats rows (plain PyTorch on every device)
+# the prepass on the stats rows, plain PyTorch (the kernel's oracle)
 # ---------------------------------------------------------------------------
 
 def world_root_boxes(ts):
@@ -293,7 +349,7 @@ def _pack_bits(hit: torch.Tensor) -> torch.Tensor:
 
 
 def chunk_block_hits(ts, rays: torch.Tensor, window: torch.Tensor,
-                     tmin: float, stats_fn=block_stats):
+                     tmin: float):
     """Conservative (entry, block) culling (``raytpu/ops/mega.py:449``).
     Returns ``(bits, octs, depth)``:
 
@@ -304,12 +360,11 @@ def chunk_block_hits(ts, rays: torch.Tensor, window: torch.Tensor,
     * ``depth`` (E,) f32: the mean conservative entry distance over the
       entry's hit blocks.
 
-    ``stats_fn`` computes the stats rows (:func:`block_stats`, or its plain
-    version). The entries' world root boxes are the scene's ``root_boxes``,
-    computed once per transform update. The interval arithmetic runs with
-    the axes and the two box bounds stacked, so its op count does not grow
-    with the axes."""
-    stats = stats_fn(rays, window, tmin)                   # (PB, 17)
+    The stats rows come from :func:`block_stats_ref`, the entries' world
+    root boxes from :func:`world_root_boxes`. The interval arithmetic runs
+    with the axes and the two box bounds stacked, so its op count does not
+    grow with the axes."""
+    stats = block_stats_ref(rays, window, tmin)            # (PB, 17)
     o_lo, o_hi = stats[:, 0:3], stats[:, 3:6]
     d_lo, d_hi = stats[:, 6:9], stats[:, 9:12]
     n_live = stats[:, 16]
@@ -317,7 +372,7 @@ def chunk_block_hits(ts, rays: torch.Tensor, window: torch.Tensor,
     axis_bit = torch.arange(3, dtype=torch.int32, device=stats.device)
     octs = (neg_maj << axis_bit).sum(dim=1, dtype=torch.int32)
 
-    box_lo, box_hi = ts.root_boxes
+    box_lo, box_hi = world_root_boxes(ts)
     # interval reciprocal of [d_lo, d_hi]: sign-spanning -> (-big, big)
     spans = (d_lo <= 0.0) & (d_hi >= 0.0)                  # (PB, 3)
     inv_a = torch.where(spans, -BIG, 1.0 / torch.where(spans, 1.0, d_lo))
@@ -352,7 +407,7 @@ def entry_perm(ts, depth: torch.Tensor, order: str = "origin") -> torch.Tensor:
       the light end the most walks first).
     """
     if order == "light":
-        lo, hi = ts.root_boxes
+        lo, hi = world_root_boxes(ts)
         lp = ts.light_pos[None, :]
         sq = (torch.minimum(torch.maximum(lp, lo), hi) - lp).square()
         return torch.argsort(sq[:, 0] + sq[:, 1] + sq[:, 2], stable=True)

@@ -7,9 +7,9 @@ hit over every entry merged into the 9-plane state with strict
 ``t < best_t``; occlusion within ``(tmin, tmax)`` OR-merged into ``occ``)
 and take the JAX tier's schedule, which decides exact ties:
 
-* per call, the prepass of ``ops/mega.py`` (:func:`block_stats`, K7, then
-  :func:`chunk_block_hits`) gives a block hit bitmask, each block's octant
-  and each entry's depth;
+* per call, the prepass of ``ops/mega.py`` (on the card one launch of K7,
+  ``block_schedule``; on the CPU :func:`plain_prepass`) gives a block hit
+  bitmask, each block's octant and each entry's depth;
 * entries in stable depth order (closest) or ``order`` (shadow, default
   ``"light"``, ``raytpu/integrator.py:129``);
 * a lane skips an entry whose bit for its block is 0;
@@ -42,8 +42,7 @@ from raytpu_torch import _build
 from raytpu_torch.device_scene import TorchScene
 from raytpu_torch.ops.mega import (
     BLOCK_PACKETS,
-    block_stats,
-    block_stats_ref,
+    block_schedule,
     check_blocks,
     chunk_block_hits,
     entry_perm,
@@ -54,19 +53,27 @@ from raytpu_torch.utils.spans import spanned
 
 @spanned("rt.prepass")
 def prepass(ts: TorchScene, rays: torch.Tensor, window: torch.Tensor,
-            tmin: float, order: str, stats_fn=block_stats):
+            tmin: float, order: str):
     """The per-call schedule of a sweep: ``(bits, octs, entries)``, the
     bitmask rows (E, ceil(PB/32)) int32 and the entry rows (E, 5) int32,
-    both in walk order, and the blocks' octants (PB,) int32. The "light"
-    order depends on the transforms only: it is the scene's
-    ``light_order``, computed once per transform update."""
-    bits, octs, depth = chunk_block_hits(ts, rays, window, tmin, stats_fn)
-    if order == "light":
-        perm, entries = ts.light_order
-    else:
-        perm = entry_perm(ts, depth, order)
-        entries = ts.entries.index_select(0, perm)
-    return bits.index_select(0, perm), octs, entries
+    both in walk order, and the blocks' octants (PB,) int32. CPU tensors
+    take :func:`plain_prepass`; others one launch of K7
+    (``mega.block_schedule``: no other kernel, no host sync; a device other
+    than CUDA is refused there)."""
+    if rays.device.type == "cpu":
+        return plain_prepass(ts, rays, window, tmin, order)
+    return block_schedule(ts, rays, window, tmin, order)[:3]
+
+
+@spanned("rt.prepass")
+def plain_prepass(ts: TorchScene, rays: torch.Tensor, window: torch.Tensor,
+                  tmin: float, order: str):
+    """:func:`prepass` in plain PyTorch on any device, K7's oracle and the
+    plain walks' prepass (so a CPU frame has its span too):
+    ``chunk_block_hits`` and ``entry_perm``."""
+    bits, octs, depth = chunk_block_hits(ts, rays, window, tmin)
+    perm = entry_perm(ts, depth, order)
+    return bits.index_select(0, perm), octs, ts.entries.index_select(0, perm)
 
 
 def schedule_operands(k: str, rays, schedule):
@@ -206,7 +213,7 @@ def plain_schedule(ts: TorchScene, rays, window, tmin: float, order: str,
     p, k = rays.shape[1:]
     check_blocks("per-lane sweep", p)
     succ, skip = links or (ts.oct_succ, ts.oct_skip)
-    bits, octs, entries = prepass(ts, rays, window, tmin, order, block_stats_ref)
+    bits, octs, entries = plain_prepass(ts, rays, window, tmin, order)
     block = torch.arange(p * k, device=rays.device) // (BLOCK_PACKETS * k)
     walks = ((bits[:, block >> 5].long() >> (block & 31)) & 1).bool()
     base = octs.long()[block] * succ.shape[1]

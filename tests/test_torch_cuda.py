@@ -209,20 +209,22 @@ def test_epilogue_kernels_match_plain(rig, strided):
 
 @pytest.mark.parametrize("strided", [False, True])
 def test_block_stats_kernel_exact(rig, strided):
-    """K7 against its plain version, on a whole buffer and on a wave of
-    it whose planes lie apart."""
-    _, rays = rig
+    """K7's stats rows against their plain version, in both entry orders,
+    on a whole buffer and on a wave of it whose planes lie apart."""
+    r, rays = rig
     p0, b = (8, 8) if strided else (0, rays.shape[1])
     wave = rays[:, p0:p0 + b]
     assert wave.is_contiguous() != strided
     win = torch.full(wave.shape[1:], 1e4, device="cuda")
     win.view(-1)[::3] = 0.0
     win[:, :17] = 0.0
-    got = mega.block_stats(wave, win, 1e-3)
     want = mega.block_stats_ref(wave, win, 1e-3)
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    dead = mega.block_stats(wave, torch.zeros_like(win), 1e-3)
-    assert (dead[:, 16] == 0).all() and (dead[:, :3] == 3e38).all()
+    for order in mega.ORDERS:
+        got = mega.block_schedule(r.tscene, wave, win, 1e-3, order).stats
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        dead = mega.block_schedule(r.tscene, wave, torch.zeros_like(win), 1e-3,
+                                   order).stats
+        assert (dead[:, 16] == 0).all() and (dead[:, :3] == 3e38).all()
 
 
 @pytest.mark.parametrize("strided", [False, True])
@@ -695,3 +697,173 @@ def test_perlane_counting_launches_change_nothing(config4_slice, monkeypatch):
     assert passed and all(p is not None for p in passed)
     assert sum(_build.work_counts()["perlane_closest_sweep"].values()) > 0
     _build.reset_work_counts()
+
+
+# ---------------------------------------------------------------------------
+# the prepass in one launch: K7 with the schedule against the plain prepass
+# ---------------------------------------------------------------------------
+
+def _cone_wave(n_blocks: int, seed: int, k: int = 1024):
+    """(6, 8 n_blocks, k) CUDA rays and their (8 n_blocks, k) window: per
+    block a cone of rays aimed at the scene's centre from 8-14 units out,
+    every third block pointing away, every fifth lane dead, block 5 (if
+    any) dead and every fourth block's window short (9)."""
+    rng = np.random.default_rng(seed)
+    lanes = 8 * k
+    o, d = [], []
+    for b in range(n_blocks):
+        u = rng.normal(size=3)
+        ob = u / np.linalg.norm(u) * rng.uniform(8.0, 14.0) + rng.normal(
+            scale=0.3, size=(lanes, 3))
+        db = rng.uniform(-2.0, 2.0, 3) + rng.normal(scale=1.5, size=(lanes, 3)) - ob
+        o.append(ob)
+        d.append((-db if b % 3 == 2 else db) / np.linalg.norm(db, axis=1, keepdims=True))
+    p = 8 * n_blocks
+    rays = np.ascontiguousarray(np.concatenate([np.concatenate(o).T, np.concatenate(d).T]),
+                                np.float32).reshape(6, p, k)
+    win = np.full((p, k), 1e4, np.float32)
+    win.reshape(-1)[::5] = 0.0
+    win[40:48] = 0.0
+    for b in range(0, n_blocks, 4):
+        win[8 * b:8 * b + 8] = np.minimum(win[8 * b:8 * b + 8], 9.0)
+    return torch.from_numpy(rays).cuda(), torch.from_numpy(win).cuda()
+
+
+def _light_keys(ts):
+    """The "light" order's keys of ``entry_perm``, on the scene's device."""
+    lo, hi = mega.world_root_boxes(ts)
+    lp = ts.light_pos
+    sq = (torch.minimum(torch.maximum(lp, lo), hi) - lp).square()
+    return sq[:, 0] + sq[:, 1] + sq[:, 2]
+
+
+def _check_schedule(ts, rays, win, tmin=1e-3):
+    """K7's schedule of ``rays`` against the plain prepass of the same rays
+    moved to the CPU, in both orders: bits, octants and entry rows equal,
+    the stats rows bit for bit, the "origin" depth within 1e-6 relative and
+    the "light" keys exact; the culled sweeps' ``perlane.prepass`` takes
+    the same schedule. Returns the "origin" schedule."""
+    cpu = ts.to("cpu")
+    r, w = rays.cpu(), win.cpu()
+    _, _, depth = mega.chunk_block_hits(cpu, r, w, tmin)
+    stats = mega.block_stats_ref(r, w, tmin)
+    out = {}
+    for order in mega.ORDERS:
+        got = mega.block_schedule(ts, rays, win, tmin, order)
+        want = perlane.prepass(cpu, r, w, tmin, order)
+        for name, g, x in zip(("bits", "octs", "entries"), got, want):
+            assert g.dtype == x.dtype == torch.int32
+            assert torch.equal(g.cpu(), x), (order, name)
+        assert torch.equal(got.stats.cpu().view(torch.int32), stats.view(torch.int32))
+        if order == "origin":
+            torch.testing.assert_close(got.keys.cpu(), depth, rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(got.keys.cpu(), _light_keys(cpu))
+        for g, x in zip(perlane.prepass(ts, rays, win, tmin, order), want):
+            assert torch.equal(g.cpu(), x)
+        out[order] = got
+    return out["origin"]
+
+
+@pytest.mark.parametrize("case", ["whole", "strided", "pb40", "dead_block",
+                                  "dead_wave"])
+def test_block_schedule_equals_plain_prepass(rig, case):
+    """Two blocks (whole, the second without a live lane, and one as a
+    wave x[:, s:s+b] of a larger buffer), 40 blocks (not whole words of 32;
+    block 5 dead), and a wave with no live lane."""
+    r, rays = rig
+    ts = r.tscene
+    if case in ("whole", "strided", "dead_block"):
+        p0, b = (8, 8) if case == "strided" else (0, rays.shape[1])
+        wave = rays[:, p0:p0 + b]
+        win = torch.full(wave.shape[1:], 1e4, device="cuda")
+        win.view(-1)[::5] = 0.0
+        if case == "dead_block":
+            win[8:] = 0.0
+    else:
+        wave, win = _cone_wave(40, seed=3)
+        if case == "dead_wave":
+            win = torch.zeros_like(win)
+    got = _check_schedule(ts, wave, win)
+    pb = wave.shape[1] // mega.BLOCK_PACKETS
+    blk = torch.arange(pb, device="cuda")
+    hit = ((got.bits[:, blk >> 5] >> (blk & 31)) & 1).bool()
+    if case == "dead_wave":
+        assert not hit.any() and torch.equal(got.entries, ts.entries)
+    else:
+        assert hit.any()
+    if case == "dead_block":
+        assert not hit[:, 1].any()
+    if case == "pb40":
+        assert not hit[:, 5].any() and not hit.all()
+
+
+def test_block_schedule_many_entries():
+    """A chunked scene of 41 entries (more than a warp), on a wave of 40
+    blocks inside a larger buffer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    r = Renderer(scenes.mixed_scene(32, 32, 1, 1, depth=3, chunk_tris=64), "cuda")
+    r.set_transforms(0.1)
+    assert r.tscene.entries.shape[0] > 32
+    rays, win = _cone_wave(48, seed=8)
+    got = _check_schedule(r.tscene, rays[:, 64:], win[64:])
+    blk = torch.arange(40, device="cuda")
+    hit = ((got.bits[:, blk >> 5] >> (blk & 31)) & 1).bool()
+    assert hit.any() and not hit.all()
+
+
+def test_block_schedule_of_no_block(rig):
+    """A wave of no packet: no bit, no octant, the entries still ordered
+    (all depths 0: build order; "light" as the plain order)."""
+    r, rays = rig
+    ts = r.tscene
+    wave = rays[:, :0]
+    win = torch.zeros(wave.shape[1:], device="cuda")
+    e = ts.entries.shape[0]
+    got = mega.block_schedule(ts, wave, win, 1e-3, "origin")
+    assert got.bits.shape == (e, 0) and got.octs.shape == (0,)
+    assert torch.equal(got.entries, ts.entries)
+    light = mega.block_schedule(ts, wave, win, 1e-3, "light")
+    assert torch.equal(light.entries,
+                       ts.entries[mega.entry_perm(ts, None, "light")])
+
+
+def test_block_schedule_on_config4_slice(config4_slice):
+    """chip_smoke's 256-packet config4 slice (32 blocks: one whole word),
+    its primary rays and the shadow rays of their hits."""
+    r, rays, st0, srays, tmax = config4_slice
+    _check_schedule(r.tscene, rays, st0[traverse.ST_T])
+    _check_schedule(r.tscene, srays, tmax)
+
+
+def test_prepass_is_one_launch_without_sync(rig):
+    """One ``perlane.prepass`` call on the card launches K7 once (and the
+    memset of its arrival counter) and nothing else, and makes no host
+    sync."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    r, rays = rig
+    win = torch.full(rays.shape[1:], 1e4, device="cuda")
+    for order in mega.ORDERS:
+        perlane.prepass(r.tscene, rays, win, 1e-3, order)       # warm
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for order in mega.ORDERS:
+                perlane.prepass(r.tscene, rays, win, 1e-3, order)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    assert counts["block_stats"] == 2
+    assert sum(counts.values()) == 2, counts
+    # the device rows: the kernels and memsets, and the spans' annotations
+    device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not e.name.startswith("rt.")]
+    kernels = [n for n in device if "memset" not in n.lower()]
+    assert len(kernels) == 2 and all("block_stats_kernel" in n for n in kernels), device
+    assert len(device) == 4, device

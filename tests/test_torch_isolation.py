@@ -129,8 +129,10 @@ def test_cpu_wrappers_take_plain_path(small):
     # the per-lane tier's wrappers, on whole blocks of 8 packets
     prays = rays.repeat(1, 4, 1)
     pwin = torch.full(prays.shape[1:], 1e4)
-    assert torch.equal(mega.block_stats(prays, pwin, 1e-3),
-                       mega.block_stats_ref(prays, pwin, 1e-3))
+    for order in mega.ORDERS:
+        for a, b in zip(perlane.prepass(ts, prays, pwin, 1e-3, order),
+                        perlane.plain_prepass(ts, prays, pwin, 1e-3, order)):
+            assert torch.equal(a, b)
     pst = traverse.make_trace_state(pwin)
     got = perlane.perlane_closest_sweep(ts, prays, 1e-3, pst.clone())
     want = perlane.perlane_closest_sweep_ref(ts, prays, 1e-3, pst.clone())
@@ -191,7 +193,7 @@ def test_non_cpu_tensor_needs_cuda(small):
     prays = meta_rays.repeat(1, 4, 1)
     pwin = torch.zeros(prays.shape[1:], device="meta")
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
-        mega.block_stats(prays, pwin, 1e-3)
+        perlane.prepass(r.tscene, prays, pwin, 1e-3, "origin")
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         perlane.perlane_closest_sweep(r.tscene, prays, 1e-3,
                                       state.repeat(1, 4, 1))
