@@ -18,20 +18,22 @@ if str(ROOT) not in sys.path:
 TINY = {"width": 32, "height": 18}
 
 
-def make_tiny_bench(dest: Path, loop: int = 4) -> Path:
-    """A copy of ``rtbench/`` and ``BENCHMARK.json`` under ``dest`` with
-    every configuration at 32x18, the meshes at depth 1 and 2, an 8x8
+def make_tiny_bench(dest: Path, loop: int = 4, src: Path = ROOT) -> Path:
+    """A copy of ``src``'s ``rtbench/`` and ``BENCHMARK.json`` under
+    ``dest`` with every configuration at 32x18, each mesh that takes a
+    ``depth`` at depth 1 (the first object) or 2 (any other), an 8x8
     sky, loops of ``loop`` frames (12 for the wander) and 200 pixels
     compared a frame; returns the copy's benchmark folder."""
     bench = dest / "rtbench"
-    shutil.copytree(ROOT / "rtbench", bench,
+    shutil.copytree(src / "rtbench", bench,
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    shutil.copy(ROOT / "BENCHMARK.json", dest / "BENCHMARK.json")
+    shutil.copy(src / "BENCHMARK.json", dest / "BENCHMARK.json")
     for f in (bench / "configs").glob("*.json"):
         cfg = json.loads(f.read_text())
         cfg.update(TINY)
-        cfg["objects"][0]["mesh"]["depth"] = 1
-        cfg["objects"][1]["mesh"]["depth"] = 2
+        for i, obj in enumerate(cfg["objects"]):
+            if "depth" in obj["mesh"]:
+                obj["mesh"]["depth"] = 1 if i == 0 else 2
         cfg["skybox"]["size"] = 8
         f.write_text(json.dumps(cfg))
     for f in (bench / "traffic").glob("*.json"):

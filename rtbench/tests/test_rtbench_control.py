@@ -10,7 +10,7 @@ import torch
 
 from rtbench import check, readings, run
 
-CELLS = ("config4.closeup", "reference.wide")
+CELLS = ("config4.closeup", "reference.wide", "config4.wide", "reference.closeup")
 
 
 @pytest.mark.parametrize("workload", CELLS)

@@ -11,7 +11,7 @@ from rtbench import camerapath, check, run
 from rtbench.reference import scene_math
 from rtbench.reference.whitted import Reference
 
-CELLS = ("config4.closeup", "reference.wide")
+CELLS = ("config4.closeup", "reference.wide", "config4.wide", "reference.closeup")
 
 
 @pytest.mark.parametrize("workload", CELLS)
