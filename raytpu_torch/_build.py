@@ -23,15 +23,17 @@ frame launch from several host threads), and nothing else touches it. A run
 shows that the main path went through the kernels by resetting the
 counters, rendering, and reading them.
 
-K1 and K2 (the per-lane sweeps) also carry work counters
-(:func:`work_counts`): their node visits and triangle tests, counted while
-a frame is rendered with ``stats`` (:func:`counting`, which
-``integrator.render_packets`` turns on then). Their wrappers then pass a
-slot of a per-device buffer that this module owns, and the C entry point
-launches the kernels' counting instantiation, which adds each warp's sums
-with one 64-bit ``atomicAdd`` each; otherwise it passes none and the entry
-point launches the one that counts nothing. Their plain versions add the
-plain walk's counts of the same two numbers (:func:`counted`).
+K1 and K2 (the per-lane sweeps) and K8 and K9 (the consensus sweeps) also
+carry work counters (:func:`work_counts`, :data:`WORK_KEYS`): their node
+visits and triangle tests, and for K8 and K9 those of them the lanes' own
+walks need, counted while a frame is rendered with ``stats``
+(:func:`counting`, which ``integrator.render_packets`` turns on then).
+Their wrappers then pass a slot of a per-device buffer that this module
+owns, and the C entry point launches the kernels' counting instantiation,
+which adds each warp's sums with one 64-bit ``atomicAdd`` each; otherwise
+it passes none and the entry point launches the one that counts nothing.
+Their plain versions add the plain walk's counts of the same numbers
+(:func:`counted`).
 
 :func:`gxx_library` builds the host libraries of ``native/`` (the BVH
 builder, the OBJ parser and the JPEG decoder) with g++ into the same
@@ -93,11 +95,12 @@ _SIGNATURES = {
                              _P, _I, _P, _P, _P, _P, _I, _P, _P],
     # rays, (state | tmax, occ), n, tmin, the schedule (block lanes, bits,
     # words, octs), the packed wide links, nodes M, the entries and w2o, the
-    # packed nodes and triangles, (normals, T)
+    # packed nodes and triangles, (normals, T,) and the work counters or
+    # null
     "mega_closest_sweep": [_P, _L, _P, _L, _L, _F, _L, _P, _I, _P, _P, _L,
-                           _P, _I, _P, _P, _P, _P, _L, _P],
+                           _P, _I, _P, _P, _P, _P, _L, _P, _P],
     "mega_anyhit_sweep": [_P, _L, _P, _P, _L, _F, _L, _P, _I, _P, _P, _L,
-                          _P, _I, _P, _P, _P, _P],
+                          _P, _I, _P, _P, _P, _P, _P],
     # object-space rays, tmax, (out, its plane stride, slot | occ), n, tmin,
     # the mesh's node base, node count and slot base, the packed nodes,
     # bvh_miss, the packed triangles, (K11a: the normals and T)
@@ -119,10 +122,19 @@ _launches = dict.fromkeys(KERNELS, 0)
 _lib = None
 _lock = threading.Lock()
 
-# the kernels with work counters: node visits and triangle tests
-WORK_KERNELS = ("perlane_closest_sweep", "perlane_anyhit_sweep")
-_work_plain = {k: {"nodes": 0, "tests": 0} for k in WORK_KERNELS}
-_work_device = {}    # device -> (len(WORK_KERNELS), 2) int64 counters
+# the kernels with work counters and what each counts, in the order of
+# its counters: node visits and triangle tests, and for the consensus
+# sweeps those of them the lanes' own walks need (csrc/walk.cuh, OwnWalk)
+WORK_KEYS = {
+    "perlane_closest_sweep": ("nodes", "tests"),
+    "perlane_anyhit_sweep": ("nodes", "tests"),
+    "mega_closest_sweep": ("nodes", "tests", "own_nodes", "own_tests"),
+    "mega_anyhit_sweep": ("nodes", "tests", "own_nodes", "own_tests"),
+}
+WORK_KERNELS = tuple(WORK_KEYS)
+_WORK_WIDTH = max(map(len, WORK_KEYS.values()))
+_work_plain = {k: dict.fromkeys(keys, 0) for k, keys in WORK_KEYS.items()}
+_work_device = {}    # device -> (len(WORK_KERNELS), _WORK_WIDTH) int64 counters
 _count = threading.local()   # .on: this thread's frame counts its work
 
 # g++ flags of the host libraries of native/ (gxx_library)
@@ -279,8 +291,8 @@ def reset_launch_counts() -> None:
 
 @contextlib.contextmanager
 def counting(on: bool = True):
-    """Within the block, this thread's K1 and K2 launches and their plain
-    versions count their work (``on``), or do not."""
+    """Within the block, this thread's launches of :data:`WORK_KERNELS`
+    and their plain versions count their work (``on``), or do not."""
     saved = getattr(_count, "on", False)
     _count.on = on
     try:
@@ -295,13 +307,13 @@ def counting_on() -> bool:
 
 
 def work_pointer(kernel: str, device: torch.device) -> Pointer:
-    """``kernel``'s two int64 counters (node visits, triangle tests) in
+    """``kernel``'s int64 counters (:data:`WORK_KEYS`, in order) in
     ``device``'s work buffer, made zeroed at first use."""
     with _lock:
         buf = _work_device.get(device)
         if buf is None:
             buf = _work_device[device] = torch.zeros(
-                (len(WORK_KERNELS), 2), dtype=torch.int64, device=device)
+                (len(WORK_KERNELS), _WORK_WIDTH), dtype=torch.int64, device=device)
     return Pointer(buf[WORK_KERNELS.index(kernel)])
 
 
@@ -309,13 +321,13 @@ def work_pointer(kernel: str, device: torch.device) -> Pointer:
 def counted(kernel: str, counts=None):
     """The ``counts`` dict for a plain version of ``kernel`` to fill: while
     this thread counts (:func:`counting`), ``counts`` or a new dict, whose
-    added ``nodes`` and ``tests`` go to ``kernel``'s work counts when the
-    block ends; otherwise ``counts`` as given."""
+    added counts of ``kernel``'s :data:`WORK_KEYS` go to its work counts
+    when the block ends; otherwise ``counts`` as given."""
     if not counting_on():
         yield counts
         return
     c = {} if counts is None else counts
-    before = {key: c.get(key, 0) for key in ("nodes", "tests")}
+    before = {key: c.get(key, 0) for key in WORK_KEYS[kernel]}
     yield c
     with _lock:
         for key, n in before.items():
@@ -323,24 +335,24 @@ def counted(kernel: str, counts=None):
 
 
 def work_counts() -> dict:
-    """Node visits and triangle tests per kernel of :data:`WORK_KERNELS`
-    since the last reset: ``{kernel: {"nodes": n, "tests": n}}``, summed
-    over the plain versions and every device's counters (read after the
+    """The work counts per kernel of :data:`WORK_KERNELS` since the last
+    reset: ``{kernel: {key: n for key in WORK_KEYS[kernel]}}``, summed over
+    the plain versions and every device's counters (read after the
     device's queued work)."""
     with _lock:
         out = {k: dict(v) for k, v in _work_plain.items()}
         bufs = list(_work_device.values())
     for buf in bufs:
-        for k, (nodes, tests) in zip(WORK_KERNELS, buf.cpu().tolist()):
-            out[k]["nodes"] += nodes
-            out[k]["tests"] += tests
+        for k, row in zip(WORK_KERNELS, buf.cpu().tolist()):
+            for key, n in zip(WORK_KEYS[k], row):
+                out[k][key] += n
     return out
 
 
 def reset_work_counts() -> None:
     with _lock:
         for v in _work_plain.values():
-            v.update(nodes=0, tests=0)
+            v.update(dict.fromkeys(v, 0))
         for buf in _work_device.values():
             buf.zero_()
 

@@ -57,6 +57,14 @@
 // Every lane makes the same tests in the same order as before, so K8 and
 // K9 still equal their plain versions bit for bit.
 //
+// Work counters: each kernel is a template on kCount, as K1/K2 are
+// (perlane.cu). The entry points launch the counting instantiation when the
+// wrapper passes a `work` buffer (four u64: the walking lanes' node visits
+// and triangle tests, and those of them the lanes' own walks need,
+// walk.cuh's OwnWalk; raytpu_torch/_build.py work_counts), and the one
+// without, which counts nothing, otherwise. A counting warp adds its sums
+// once, after its entries (rt::add_work).
+//
 // Rays and state are (planes, n) with `*_s` elements between planes, as in
 // traverse.cu. The plain versions are
 // raytpu_torch/ops/consensus.py::mega_*_sweep_ref.
@@ -69,17 +77,19 @@ namespace {
 // 4 x 256 threads of the SM's 2048, at most 64 registers a thread.
 constexpr int kMinCtas = 4;
 
+template <bool kCount>
 __global__ void __launch_bounds__(rt::BLOCK, kMinCtas)
     mega_closest_sweep_kernel(const float* __restrict__ rays,
                               long long rays_s, float* __restrict__ state,
                               long long st_s, long long n, float tmin,
                               rt::Schedule sc, rt::Tables tab, rt::Packed pk,
                               const float* __restrict__ n_soa,
-                              long long n_tris) {
+                              long long n_tris, unsigned long long* work) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;  // n is whole warps: this leaves whole warps
   float bt = rt::load_once<true>(state + rt::ST_T * st_s + i);
   if (!__any_sync(rt::kFullWarp, bt > tmin)) return;  // a dead warp
+  rt::Work w;
 
   const rt::LaneSchedule ls = rt::lane_schedule(sc, i);  // warp-uniform
   const rt::PackedFetch f = pk.at(ls.row);
@@ -94,8 +104,8 @@ __global__ void __launch_bounds__(rt::BLOCK, kMinCtas)
     float o[3], d[3], d_inv[3];
     rt::object_ray(tab, en, ow, dw, o, d, d_inv);
     float bu = 0.f, bv = 0.f;
-    const int bs = rt::closest_in_entry<true>(f, en, o, d, d_inv, tmin, &bt,
-                                              &bu, &bv);
+    const int bs = rt::closest_in_entry<true, kCount>(f, en, o, d, d_inv,
+                                                      tmin, &bt, &bu, &bv, &w);
     if (bs >= 0) {
       win_e = e;
       win_s = bs;
@@ -103,6 +113,7 @@ __global__ void __launch_bounds__(rt::BLOCK, kMinCtas)
       win_v = bv;
     }
   }
+  if constexpr (kCount) rt::add_work<4>(work, w);
   if (win_e < 0) return;
   const rt::Entry en = rt::load_entry(tab, win_e);
   rt::Hit hit;
@@ -111,11 +122,13 @@ __global__ void __launch_bounds__(rt::BLOCK, kMinCtas)
   rt::write_hit<true>(state, st_s, i, bt, hit);
 }
 
+template <bool kCount>
 __global__ void __launch_bounds__(rt::BLOCK, kMinCtas)
     mega_anyhit_sweep_kernel(const float* __restrict__ rays,
                              long long rays_s, const float* __restrict__ tmax,
                              int* __restrict__ occ, long long n, float tmin,
-                             rt::Schedule sc, rt::Tables tab, rt::Packed pk) {
+                             rt::Schedule sc, rt::Tables tab, rt::Packed pk,
+                             unsigned long long* work) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;  // n is whole warps: this leaves whole warps
   const float tm = rt::load_once<true>(tmax + i);
@@ -128,14 +141,17 @@ __global__ void __launch_bounds__(rt::BLOCK, kMinCtas)
   float ow[3], dw[3];
   rt::load_ray<true>(rays, rays_s, i, ow, dw);
   bool done = !pending;
+  rt::Work w;
   for (int e = 0; e < tab.n_entries; ++e) {
     if (!ls.walks(sc, e)) continue;
     const rt::Entry en = rt::load_entry(tab, e);
     float o[3], d[3], d_inv[3];
     rt::object_ray(tab, en, ow, dw, o, d, d_inv);
-    done = rt::occluded_in_entry<true>(f, en, o, d, d_inv, tmin, tm, done);
+    done = rt::occluded_in_entry<true, kCount>(f, en, o, d, d_inv, tmin, tm,
+                                               done, &w);
     if (__all_sync(rt::kFullWarp, done)) break;  // every lane occluded
   }
+  if constexpr (kCount) rt::add_work<4>(work, w);
   if (pending && done) rt::store_once<true>(occ + i, 1);
 }
 
@@ -147,13 +163,15 @@ extern "C" {
 // place; the schedule (block lanes, bits, words, octants); the packed wide
 // links (8, M, 2) int32, M; the entries in walk order and w2o; the packed
 // nodes (M, 8) and triangles (T, 12) f32, 16-byte aligned; the
-// slot-ordered normals (9, T). n and block_lanes are multiples of 32.
+// slot-ordered normals (9, T); work: null, or four u64 that the counting
+// kernel adds its counts to. n and block_lanes are multiples of 32.
 int rt_mega_closest_sweep(
     const void* rays, long long rays_s, void* state, long long st_s,
     long long n, float tmin, long long block_lanes, const void* bits,
     int n_words, const void* octs, const void* links, long long n_nodes,
     const void* entries, int n_entries, const void* w2o, const void* nodes,
-    const void* tris, const void* n_soa, long long n_tris, void* stream) {
+    const void* tris, const void* n_soa, long long n_tris, void* work,
+    void* stream) {
   if (n % 32 != 0 || block_lanes % 32 != 0) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const rt::Schedule sc = rt::make_schedule(block_lanes, bits, n_words,
@@ -161,23 +179,24 @@ int rt_mega_closest_sweep(
     const rt::Tables tab = rt::make_tables(entries, n_entries, w2o);
     const rt::Packed pk{(const float4*)nodes, (const int2*)links,
                         (const float4*)tris};
-    mega_closest_sweep_kernel<<<rt::grid_for(n), rt::BLOCK, 0,
-                                (cudaStream_t)stream>>>(
+    const auto kernel = work ? mega_closest_sweep_kernel<true>
+                             : mega_closest_sweep_kernel<false>;
+    kernel<<<rt::grid_for(n), rt::BLOCK, 0, (cudaStream_t)stream>>>(
         (const float*)rays, rays_s, (float*)state, st_s, n, tmin, sc, tab, pk,
-        (const float*)n_soa, n_tris);
+        (const float*)n_soa, n_tris, (unsigned long long*)work);
   }
   return (int)cudaGetLastError();
 }
 
 // rays (6, n) f32 with a plane stride; tmax (n,) f32; occ (n,) int32
-// OR-merged in place; the schedule, links and tables as for
+// OR-merged in place; the schedule, links, tables and work as for
 // rt_mega_closest_sweep.
 int rt_mega_anyhit_sweep(
     const void* rays, long long rays_s, const void* tmax, void* occ,
     long long n, float tmin, long long block_lanes, const void* bits,
     int n_words, const void* octs, const void* links, long long n_nodes,
     const void* entries, int n_entries, const void* w2o, const void* nodes,
-    const void* tris, void* stream) {
+    const void* tris, void* work, void* stream) {
   if (n % 32 != 0 || block_lanes % 32 != 0) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const rt::Schedule sc = rt::make_schedule(block_lanes, bits, n_words,
@@ -185,10 +204,11 @@ int rt_mega_anyhit_sweep(
     const rt::Tables tab = rt::make_tables(entries, n_entries, w2o);
     const rt::Packed pk{(const float4*)nodes, (const int2*)links,
                         (const float4*)tris};
-    mega_anyhit_sweep_kernel<<<rt::grid_for(n), rt::BLOCK, 0,
-                               (cudaStream_t)stream>>>(
+    const auto kernel = work ? mega_anyhit_sweep_kernel<true>
+                             : mega_anyhit_sweep_kernel<false>;
+    kernel<<<rt::grid_for(n), rt::BLOCK, 0, (cudaStream_t)stream>>>(
         (const float*)rays, rays_s, (const float*)tmax, (int*)occ, n, tmin,
-        sc, tab, pk);
+        sc, tab, pk, (unsigned long long*)work);
   }
   return (int)cudaGetLastError();
 }
@@ -197,8 +217,8 @@ int rt_mega_anyhit_sweep(
 // and local arrays), and the CTAs of rt::BLOCK threads resident per SM and
 // the SMs, into out[0..3].
 int rt_consensus_attributes(int anyhit, int* out) {
-  const void* kernel = anyhit ? (const void*)mega_anyhit_sweep_kernel
-                              : (const void*)mega_closest_sweep_kernel;
+  const void* kernel = anyhit ? (const void*)mega_anyhit_sweep_kernel<false>
+                              : (const void*)mega_closest_sweep_kernel<false>;
   return rt::kernel_attributes(kernel, out);
 }
 

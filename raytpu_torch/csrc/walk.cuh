@@ -43,8 +43,10 @@
 // counts nothing and compiles to the walk without it): one node visit per
 // node the walk reads (the loop's step, a leaf included) and one triangle
 // test per rt::moller_trumbore call, into the lane's rt::Work, which
-// add_work sums over the warp into the launch's counters. The plain walk's
-// `counts` (traverse.py::_walk) counts the same two numbers.
+// add_work sums over the warp into the launch's counters. A consensus walk
+// counts these for its walking lanes only, and besides them the visits and
+// tests the lane's own walk needs (OwnWalk). The plain walk's `counts`
+// (traverse.py::_walk) counts the same numbers.
 #pragma once
 
 #include "common.cuh"
@@ -84,22 +86,27 @@ __device__ __forceinline__ void object_ray(const Tables& tab, const Entry& en,
 
 constexpr unsigned kFullWarp = 0xffffffffu;
 
-// A lane's node visits and triangle tests (kCount walks).
+// A lane's node visits and triangle tests (kCount walks), and in a
+// consensus walk those of them its own walk needs (OwnWalk).
 struct Work {
-  unsigned long long nodes = 0, tests = 0;
+  unsigned long long nodes = 0, tests = 0, own_nodes = 0, own_tests = 0;
 };
 
-// Sum the warp's Work and add it to out[0] (nodes) and out[1] (tests),
-// one 64-bit atomicAdd each from lane 0. Every lane of the warp calls it.
+// Sum the warp's Work and add it to out[0] (nodes), out[1] (tests) and,
+// with kN = 4, out[2] (own_nodes) and out[3] (own_tests), one 64-bit
+// atomicAdd each from lane 0. Every lane of the warp calls it.
+template <int kN = 2>
 __device__ __forceinline__ void add_work(unsigned long long* out, Work w) {
+  unsigned long long v[4] = {w.nodes, w.tests, w.own_nodes, w.own_tests};
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    w.nodes += __shfl_down_sync(kFullWarp, w.nodes, off);
-    w.tests += __shfl_down_sync(kFullWarp, w.tests, off);
+  for (int c = 0; c < kN; ++c) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v[c] += __shfl_down_sync(kFullWarp, v[c], off);
   }
   if ((threadIdx.x & 31) == 0) {
-    atomicAdd(out, w.nodes);
-    atomicAdd(out + 1, w.tests);
+#pragma unroll
+    for (int c = 0; c < kN; ++c) atomicAdd(out + c, v[c]);
   }
 }
 
@@ -237,6 +244,45 @@ __device__ __forceinline__ bool descend(const Node& nd, bool leaf,
   }
 }
 
+// The vote of a counting consensus walk (kWarp and kCount), which also
+// counts what the lane's own walk needs. Alone, a lane visits a node only
+// while every box of the node's ancestors in the entry hits its ray: where
+// the warp descends below an inner node whose box the lane's ray misses,
+// the lane's own walk takes the node's skip link, and the warp's walk
+// reaches that node where it leaves the subtree, so the lane's own walk
+// rejoins it there. The lane's visits count as its own while it is at the
+// warp's node, its triangle tests while it is and the leaf's box hits its
+// ray (a walk that tests a leaf's box needs no more).
+struct OwnWalk {
+  int rejoin = -1;  // where the own walk rejoins the warp's; -1: with it
+  bool mine = true, hit = false;  // at the warp's node; the lane's box hit
+
+  // descend<true>'s vote on node `node`, with the walking lane's visit
+  // counted
+  template <class Node>
+  __device__ __forceinline__ bool vote(Work* work, const Node& nd, int node,
+                                       bool leaf, bool walking,
+                                       const float* o, const float* d_inv,
+                                       float tmin, float tfar) {
+    if (node == rejoin) rejoin = -1;
+    mine = rejoin < 0;
+    hit = walking && nd.box(o, d_inv, tmin, tfar);
+    const bool go = __any_sync(kFullWarp, hit);
+    if (walking) {
+      ++work->nodes;
+      work->own_nodes += mine;
+    }
+    if (mine && go && !leaf && !hit) rejoin = nd.next(node, false);
+    return go;
+  }
+
+  // one triangle test of the warp's leaf, made by a walking lane
+  __device__ __forceinline__ void test(Work* work) const {
+    ++work->tests;
+    work->own_tests += mine && hit;
+  }
+};
+
 // Closest hit in one entry: lowers *bt on each strict improvement and
 // returns the winning BVH slot (-1 if none), with its u, v. A lane whose *bt
 // is not above tmin can take no hit, and does not vote. With kCount the
@@ -246,19 +292,30 @@ __device__ __forceinline__ int closest_in_entry(
     const F& f, const Entry& en, const float* o, const float* d,
     const float* d_inv, float tmin, float* bt, float* bu, float* bv,
     Work* work = nullptr) {
+  constexpr bool kOwn = kWarp && kCount;
   int bs = -1;
   int node = 0;
+  OwnWalk own;
   while (node != en.nc) {
-    if constexpr (kCount) ++work->nodes;
+    if constexpr (kCount && !kOwn) ++work->nodes;
     const auto nd = f.node(en.nb + node);
     const bool leaf = nd.first >= 0;
-    const bool go = descend<kWarp>(nd, leaf, *bt > tmin, o, d_inv, tmin, *bt);
+    const bool walking = *bt > tmin;
+    bool go;
+    if constexpr (kOwn)
+      go = own.vote(work, nd, node, leaf, walking, o, d_inv, tmin, *bt);
+    else
+      go = descend<kWarp>(nd, leaf, walking, o, d_inv, tmin, *bt);
     if (leaf && go) {
       const int cnt = nd.count();
       for (int k = 0; k < cnt; ++k) {
         const long long s = (long long)en.tb + nd.first + k;
         float t, u, v;
-        if constexpr (kCount) ++work->tests;
+        if constexpr (kOwn) {
+          if (walking) own.test(work);
+        } else if constexpr (kCount) {
+          ++work->tests;
+        }
         if (f.test(s, o, d, tmin, *bt, &t, &u, &v)) {
           *bt = t;
           bs = (int)s;
@@ -281,19 +338,29 @@ __device__ __forceinline__ bool occluded_in_entry(
     const F& f, const Entry& en, const float* o, const float* d,
     const float* d_inv, float tmin, float tm, bool done,
     Work* work = nullptr) {
+  constexpr bool kOwn = kWarp && kCount;
   int node = 0;
+  OwnWalk own;
   while (node != en.nc) {
-    if constexpr (kCount) ++work->nodes;
+    if constexpr (kCount && !kOwn) ++work->nodes;
     const auto nd = f.node(en.nb + node);
     const bool leaf = nd.first >= 0;
-    const bool go = descend<kWarp>(nd, leaf, !done, o, d_inv, tmin, tm);
+    bool go;
+    if constexpr (kOwn)
+      go = own.vote(work, nd, node, leaf, !done, o, d_inv, tmin, tm);
+    else
+      go = descend<kWarp>(nd, leaf, !done, o, d_inv, tmin, tm);
     if (leaf) {
       if (go) {
         const int cnt = nd.count();
         for (int k = 0; k < cnt && !done; ++k) {
           const long long s = (long long)en.tb + nd.first + k;
           float t, u, v;
-          if constexpr (kCount) ++work->tests;
+          if constexpr (kOwn) {
+            own.test(work);
+          } else if constexpr (kCount) {
+            ++work->tests;
+          }
           done = f.test(s, o, d, tmin, tm, &t, &u, &v);
         }
       }

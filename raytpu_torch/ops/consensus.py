@@ -33,7 +33,12 @@ warps. The kernels read the scene's packed records (``packed_nodes``,
 the same groups in the same order (``ops/traverse.closest_ref``/
 ``anyhit_ref`` with ``consensus=WARP``), so kernel and plain version agree
 bit for bit, and the ``counts`` hook counts the kernel's box tests of live
-lanes and their triangle tests.
+lanes and their triangle tests, and those of them the lanes' own walks
+need (``own_nodes``, ``own_tests``: ``traverse._walk``).
+
+While this thread counts work (``_build.counting``: a frame rendered with
+``stats``), the kernels count those four numbers on the card and the plain
+versions count the plain walk's, into the same ``_build.work_counts``.
 """
 
 from __future__ import annotations
@@ -89,7 +94,7 @@ def launch_closest(ts: TorchScene, rays: torch.Tensor, tmin: float,
         *_build.check_planes(k, "state", state, (9, *rays.shape[1:])),
         rays[0].numel(), float(tmin), *tables,
         _build.check_operand(k, "bvh_tri_n_soa", ts.bvh_tri_n_soa, (9, t)),
-        t,
+        t, perlane.visit_counters(k, rays.device),
     )
     return state
 
@@ -121,6 +126,7 @@ def launch_anyhit(ts: TorchScene, rays: torch.Tensor, tmin: float,
         _build.check_operand(k, "tmax", tmax, rays.shape[1:]),
         _build.check_operand(k, "occ", occ, rays.shape[1:], torch.int32),
         rays[0].numel(), float(tmin), *tables,
+        perlane.visit_counters(k, rays.device),
     )
     return occ
 
@@ -145,8 +151,9 @@ def mega_closest_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
     check_warps("mega_closest_sweep", rays)
     rows, walks, links = perlane.plain_schedule(
         ts, rays, state[ST_T], tmin, "origin", wide_links(ts))
-    return closest_ref(ts, rays, tmin, state, rows, walks, links, slots,
-                       counts, consensus=WARP)
+    with _build.counted("mega_closest_sweep", counts) as c:
+        return closest_ref(ts, rays, tmin, state, rows, walks, links, slots,
+                           c, consensus=WARP)
 
 
 def mega_anyhit_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
@@ -157,5 +164,6 @@ def mega_anyhit_sweep_ref(ts: TorchScene, rays: torch.Tensor, tmin: float,
     check_warps("mega_anyhit_sweep", rays)
     rows, walks, links = perlane.plain_schedule(ts, rays, tmax, tmin, order,
                                                 wide_links(ts))
-    return anyhit_ref(ts, rays, tmin, tmax, occ, rows, walks, links, counts,
-                      consensus=WARP)
+    with _build.counted("mega_anyhit_sweep", counts) as c:
+        return anyhit_ref(ts, rays, tmin, tmax, occ, rows, walks, links, c,
+                          consensus=WARP)

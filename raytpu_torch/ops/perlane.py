@@ -31,7 +31,8 @@ back.
 While this thread counts work (``_build.counting``: a frame rendered with
 ``stats``), the kernels count their node visits and triangle tests on the
 card and the plain versions count the plain walk's, into the same
-``_build.work_counts``.
+``_build.work_counts`` (:func:`visit_counters`; the consensus sweeps
+count so too).
 """
 
 from __future__ import annotations
@@ -120,8 +121,8 @@ def _work_counters(device) -> torch.Tensor:
     return torch.empty(WORK_SLOTS, dtype=torch.int32, device=device)
 
 
-def _visit_counters(k: str, device):
-    """Where launch ``k`` adds its node visits and triangle tests: the
+def visit_counters(k: str, device):
+    """Where launch ``k`` (K1, K2, K8 or K9) adds its work counts: the
     kernel's slot of ``_build``'s buffer while this thread counts, else
     None (the kernel that counts nothing)."""
     return _build.work_pointer(k, device) if _build.counting_on() else None
@@ -154,7 +155,7 @@ def launch_closest(ts: TorchScene, rays: torch.Tensor, tmin: float,
         *_build.check_planes(k, "state", state, (9, *rays.shape[1:])),
         rays[0].numel(), float(tmin), *tables,
         _build.check_operand(k, "bvh_tri_n_soa", ts.bvh_tri_n_soa, (9, t)),
-        t, taken.data_ptr(), WORK_SLOTS, _visit_counters(k, rays.device),
+        t, taken.data_ptr(), WORK_SLOTS, visit_counters(k, rays.device),
     )
     return state
 
@@ -187,7 +188,7 @@ def launch_anyhit(ts: TorchScene, rays: torch.Tensor, tmin: float,
         _build.check_operand(k, "tmax", tmax, rays.shape[1:]),
         _build.check_operand(k, "occ", occ, rays.shape[1:], torch.int32),
         rays[0].numel(), float(tmin), *tables, taken.data_ptr(), WORK_SLOTS,
-        _visit_counters(k, rays.device),
+        visit_counters(k, rays.device),
     )
     return occ
 

@@ -282,7 +282,9 @@ def _walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
     stop; a lane that stops tests no more triangles of its leaf). A lane's
     visits and tests happen in the order the CUDA thread makes them, so
     ``counts``, if a dict, receives the kernel's work too:
-    node visits (``nodes``) and Moller-Trumbore tests (``tests``). If it
+    node visits (``nodes``) and Moller-Trumbore tests (``tests``), and in
+    groups those of them the lanes' own walks need (``own_nodes``,
+    ``own_tests``). If it
     holds a dict ``rows``, that receives, per table, a bool mask of the rows
     the kernel reads (:data:`ROW_BYTES`; :func:`rows_bytes` sums them).
 
@@ -299,11 +301,19 @@ def _walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
     walk of ``csrc/walk.cuh`` (``kWarp``): each lane tests the box of every
     node, leaves included, and the group descends, or tests the leaf for
     all its lanes, where any of their boxes hit. A lane that stops leaves
-    its group, whose vote it no longer changes."""
+    its group, whose vote it no longer changes.
+
+    A lane's own walk, the walk of a group of that lane alone, visits a
+    node while every box of the node's ancestors in the entry hits its
+    ray, and tests the leaves whose box hits it: where the group descends
+    below an inner node whose box misses the lane's ray, the lane's own
+    walk takes the node's skip link and rejoins the group's where the
+    group's walk reaches that node (``csrc/walk.cuh``'s ``OwnWalk``)."""
     dev = window.device
     m = ts.bvh_tri_first.shape[0]
     lanes = torch.arange(window.shape[0], device=dev)
     node = torch.zeros_like(lanes)
+    rejoin = torch.full_like(lanes, -1)   # where a lane's own walk rejoins
     if groups is not None:
         _, gid = torch.unique(groups, return_inverse=True)
         n_groups = int(gid.max()) + 1
@@ -330,6 +340,7 @@ def _walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
                 tmin, window[li],
             )
 
+        own = None   # a group's lanes whose own walks test this node's leaf
         if groups is None:
             boxed = ~leaf
             go = leaf.clone()
@@ -338,8 +349,15 @@ def _walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
         else:
             boxed = torch.ones_like(leaf)
             gl = gid[lanes]
+            mine_box = box(boxed)
             hits = torch.zeros(n_groups, dtype=torch.int32, device=dev)
-            go = hits.index_add_(0, gl, box(boxed).int())[gl] > 0
+            go = hits.index_add_(0, gl, mine_box.int())[gl] > 0
+            if counts is not None:
+                rejoin = torch.where(rejoin == node, -1, rejoin)
+                mine = rejoin < 0
+                rejoin = torch.where(mine & go & ~leaf & ~mine_box, skip, rejoin)
+                counts["own_nodes"] = counts.get("own_nodes", 0) + int(mine.sum())
+                own = mine & mine_box
         descend = go & ~leaf
         test = go & leaf
         nxt = torch.where(descend, succ, skip)
@@ -366,6 +384,9 @@ def _walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
                 if counts is not None:
                     counts["tests"] = counts.get("tests", 0) + kl.numel()
                     _read_rows(counts, "triangle", s, ts.bvh_tri_v0.shape[0])
+                if own is not None:
+                    counts["own_tests"] = (counts.get("own_tests", 0)
+                                           + int(own[lf[sel]].sum()))
                 tri = (ts.bvh_tri_v0[s], ts.bvh_tri_e1[s], ts.bvh_tri_e2[s])
                 t, u, v, hit = moller_trumbore(
                     tuple(x[kl] for x in o), tuple(x[kl] for x in d),
@@ -376,7 +397,7 @@ def _walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
 
         node = torch.where(stop, torch.full_like(nxt, nc), nxt)
         keep = node != nc
-        lanes, node = lanes[keep], node[keep]
+        lanes, node, rejoin = lanes[keep], node[keep], rejoin[keep]
 
 
 def _closest_walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,

@@ -657,7 +657,7 @@ def test_perlane_work_counts_equal_the_plain_walks(config4_slice):
         perlane.perlane_anyhit_sweep(ts, srays, RAY_TMIN, tmax, occ0.clone())
     got = _build.work_counts()
     _build.reset_work_counts()
-    for k in _build.WORK_KERNELS:
+    for k in want:
         assert want[k]["nodes"] > 0 and want[k]["tests"] > 0, want
         assert got[k] == {"nodes": want[k]["nodes"], "tests": want[k]["tests"]}, (k, got)
 
@@ -696,6 +696,108 @@ def test_perlane_counting_launches_change_nothing(config4_slice, monkeypatch):
     r.render(stats={})
     assert passed and all(p is not None for p in passed)
     assert sum(_build.work_counts()["perlane_closest_sweep"].values()) > 0
+    _build.reset_work_counts()
+
+
+@pytest.fixture(scope="module")
+def config3_slice():
+    """The config3 stand-in (the refractive Cornell room, consensus tier),
+    the primary rays and windows of chip_smoke's 256-packet slice around
+    the frame's centre, the refracted rays of their hits and the shadow
+    rays from their hits, each with its window."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+    from raytpu_torch.config import RAY_TMAX, RAY_TMIN
+    from raytpu_torch.ops import shade
+    from raytpu_torch.ops import vec3 as v3
+
+    r = Renderer(scenes.config3_standin(), "cuda")
+    r.set_transforms(0.1)
+    rays, act = chip_smoke.primary_wave(r)
+    idx = torch.tensor(chip_smoke.sweep_slice(r.render_static, chip_smoke.SWEEP_PACKETS),
+                       device="cuda")
+    rays = rays[:, idx].contiguous()
+    win = torch.where(act[idx], RAY_TMAX, 0.0).float().contiguous()
+    hits = consensus.mega_closest_sweep(r.tscene, rays, RAY_TMIN,
+                                        traverse.make_trace_state(win))
+    t, valid, _, _, nrm, _, _ = traverse.unpack_state(hits)
+    d = tuple(rays[3:])
+    pos = v3.add(tuple(rays[:3]), v3.scale(torch.where(valid, t, 0.0), d))
+    ro, rd = shade.refract_bounce_soa(d, v3.normalize(nrm), pos)
+    refracted = torch.stack((*ro, *rd)).contiguous()
+    rwin = torch.where(valid, RAY_TMAX, 0.0).float().contiguous()
+    srays, tmax = chip_smoke.shadow_rays(r.tscene, rays, hits)
+    return r, ((rays, win), (refracted, rwin)), (srays, tmax)
+
+
+def _consensus_sweeps(ts, waves, shadow, closest, anyhit):
+    """``closest`` on both waves and ``anyhit`` on the shadow rays, from
+    fresh states and flags: (the two states as int32, the flags)."""
+    from raytpu_torch.config import RAY_TMIN
+
+    states = tuple(closest(ts, rays, RAY_TMIN, traverse.make_trace_state(win))
+                   .view(torch.int32) for rays, win in waves)
+    srays, tmax = shadow
+    occ0 = torch.zeros(tmax.shape, dtype=torch.int32, device="cuda")
+    return states, anyhit(ts, srays, RAY_TMIN, tmax, occ0)
+
+
+def test_consensus_work_counts_equal_the_plain_walks(config3_slice):
+    """K8's and K9's counting launches count exactly the four numbers of
+    their plain walks (node visits and triangle tests of the walking lanes,
+    and those of them the lanes' own walks need) on the config3 slice's
+    primary wave, its refracted wave and its shadow rays."""
+    r, waves, shadow = config3_slice
+    want = {"mega_closest_sweep": {}, "mega_anyhit_sweep": {}}
+    plain = _consensus_sweeps(
+        r.tscene, waves, shadow,
+        lambda *a: consensus.mega_closest_sweep_ref(*a, counts=want["mega_closest_sweep"]),
+        lambda *a: consensus.mega_anyhit_sweep_ref(*a, counts=want["mega_anyhit_sweep"]))
+    assert plain[1].any() and not plain[1].all()
+    _build.reset_work_counts()
+    with _build.counting():
+        counted = _consensus_sweeps(r.tscene, waves, shadow, consensus.mega_closest_sweep,
+                                    consensus.mega_anyhit_sweep)
+    got = _build.work_counts()
+    _build.reset_work_counts()
+    assert all(torch.equal(a, b) for a, b in zip(plain[0], counted[0]))
+    assert torch.equal(plain[1], counted[1])
+    for k, w in want.items():
+        assert set(w) >= set(_build.WORK_KEYS[k]) and all(v > 0 for v in w.values()), w
+        assert got[k] == {key: w[key] for key in _build.WORK_KEYS[k]}, (k, got)
+        assert w["own_nodes"] < w["nodes"] and w["own_tests"] <= w["tests"], w
+
+
+def test_consensus_counting_launches_change_nothing(config3_slice, monkeypatch):
+    """The counting and the non-counting launches of K8 and K9 give the same
+    states and occlusion flags bit for bit; the viewer's frame
+    (``Renderer.step``) passes no counters to any K8 or K9 launch, a frame
+    rendered with ``stats`` passes them to every one."""
+    r, waves, shadow = config3_slice
+    sweeps = (consensus.mega_closest_sweep, consensus.mega_anyhit_sweep)
+    plain = _consensus_sweeps(r.tscene, waves, shadow, *sweeps)
+    with _build.counting():
+        counted = _consensus_sweeps(r.tscene, waves, shadow, *sweeps)
+    _build.reset_work_counts()
+    assert all(torch.equal(a, b) for a, b in zip(plain[0], counted[0]))
+    assert torch.equal(plain[1], counted[1])
+
+    passed = []
+    launch = _build.launch
+
+    def spy(kernel, *args):
+        if kernel in ("mega_closest_sweep", "mega_anyhit_sweep"):
+            passed.append(args[-1])
+        return launch(kernel, *args)
+
+    monkeypatch.setattr(_build, "launch", spy)
+    r.step(0.2)
+    assert passed and all(p is None for p in passed)
+    passed.clear()
+    r.render(stats={})
+    assert passed and all(p is not None for p in passed)
+    assert sum(_build.work_counts()["mega_closest_sweep"].values()) > 0
     _build.reset_work_counts()
 
 

@@ -122,13 +122,13 @@ def test_a_frame_with_stats_counts_the_plain_walks_work(renderer):
 
     _build.reset_work_counts()
     renderer.render()
-    assert _build.work_counts() == {k: {"nodes": 0, "tests": 0}
-                                    for k in _build.WORK_KERNELS}
+    assert _build.work_counts() == {k: dict.fromkeys(keys, 0)
+                                    for k, keys in _build.WORK_KEYS.items()}
     with integrator.kernels(perlane_closest=closest, perlane_anyhit=anyhit):
         renderer.render(stats={})
     got = _build.work_counts()
     _build.reset_work_counts()
-    for k in _build.WORK_KERNELS:
+    for k in mine:
         assert mine[k]["nodes"] > 0 and mine[k]["tests"] > 0
         assert got[k] == {"nodes": mine[k]["nodes"], "tests": mine[k]["tests"]}
     renderer.render(stats={})
