@@ -1403,9 +1403,19 @@ def render_frames(r, n_frames: int, t0: float, dt: float, label: str, gpu: str,
                   tier: str) -> dict:
     """Warm-up frame, then ``n_frames`` with advancing transforms, from the
     scene's initial pose (the spin accumulates over ``set_transforms``
-    calls, so runs with the same arguments render the same frames);
-    checks, among them that each frame's sweeps took ``tier``."""
+    calls, so runs with the same arguments render the same frames). Each
+    pose renders through ``render(stats=)`` (eager: its sweeps must take
+    ``tier``; rays traced, host syncs) and then through the main path,
+    ``render()`` (from the second frame of a shape on a replay of its CUDA
+    graphs where ``graphs.graphable``), whose image must equal
+    ``integrator.render_frame``'s at that pose bit for bit. The main path's
+    frames give the frame ms and the launch counts (``launches``: summed
+    over them, the counters reset just before each)."""
+    import collections
+
     import torch
+    from raytpu_torch import _build
+    from raytpu_torch.integrator import render_frame
     from raytpu_torch.scene import AnimationState
 
     r.animation = AnimationState(r.scene.instances)
@@ -1413,31 +1423,39 @@ def render_frames(r, n_frames: int, t0: float, dt: float, label: str, gpu: str,
     r.render()
     torch.cuda.synchronize()
     ms, rays, syncs = [], [], []
+    launches = collections.Counter()
     for i in range(n_frames):
         r.set_transforms(t0 + dt * (i + 1))
         stats = {}
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        img = r.render(stats=stats)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - start) * 1e3)
-        check(bool(torch.isfinite(img).all()), f"{label} frame {i} finite")
-        std = img.std().item()
-        check(std > 1e-3, f"{label} frame {i} not constant (std {std})")
+        r.render(stats=stats)
         check(stats["tier"] == tier, f"{label} frame {i} on the {tier} tier ({stats['tier']})")
         rays.append(sum(int(stats[k].item()) for k in ("closest_rays", "shadow_rays")
                         if k in stats))
         syncs.append(stats["host_syncs"])
+        want = render_frame(r.tscene, r.render_static, r.camera_tensor())
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        start = time.perf_counter()
+        img = r.render()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - start) * 1e3)
+        launches.update(_build.launch_counts())
+        check(bool(torch.isfinite(img).all()), f"{label} frame {i} finite")
+        std = img.std().item()
+        check(std > 1e-3, f"{label} frame {i} not constant (std {std})")
+        check(torch.equal(img, want),
+              f"{label} frame {i}: the main path's frame equals the eager frame bit for bit")
     med = statistics.median(ms)
     ray_med = int(statistics.median(rays))
     rs = r.render_static
     print(f"{label}: {rs.width}x{rs.height} spp {rs.samples_per_pixel} bounces "
           f"{rs.max_bounce_count} fused {rs.fused} wavefront {rs.wavefront} tier {tier}: "
-          f"frame ms {[round(x, 3) for x in ms]} median {med:.3f} ms, rays traced "
-          f"{ray_med}, {ray_med / med / 1e3:.2f} Mrays/s, host syncs per frame "
+          f"frame ms {[round(x, 3) for x in ms]} median {med:.3f} ms (main path), rays "
+          f"traced {ray_med}, {ray_med / med / 1e3:.2f} Mrays/s, host syncs per frame "
           f"{syncs} [{gpu}]", flush=True)
     return dict(tier=tier, frame_ms=ms, median_ms=med, rays=ray_med,
-                mrays_per_s=ray_med / med / 1e3, host_syncs=syncs)
+                mrays_per_s=ray_med / med / 1e3, host_syncs=syncs,
+                launches={k: launches[k] for k in _build.launch_counts()})
 
 
 def check_launches(counts: dict, label: str, idle, brute: bool = False) -> dict:
@@ -1468,18 +1486,16 @@ def standin_tiers(r, label: str, gpu: str, prof_dir: Path, n_tied: int):
     ts = r.tscene
     check((ts.traversal, ts.auto_tier) == ("auto", "mega"),
           f"{label} resolves to the consensus tier ({ts.traversal}, {ts.auto_tier})")
-    _build.reset_launch_counts()
     mega = render_frames(r, 5, 0.0, 0.0, label, gpu, "mega")
-    counts = _build.launch_counts()
+    counts = mega["launches"]
     mega["launches"] = check_launches(counts, f"{label} frames",
                                       idle=CHAINED + PER_LANE[1:] + MESH + NEAREST)
     mega["profile"] = profile_frame(r, prof_dir / f"profile_{label}.txt", label, gpu)
     img = r.render()
     r.tscene = dataclasses.replace(ts, traversal="pallas")
-    _build.reset_launch_counts()
     pal = render_frames(r, 5, 0.0, 0.0, f"{label}_pallas", gpu, "pallas")
     check(pal["rays"] == mega["rays"], f"{label}: both tiers trace the same rays")
-    pal["launches"] = check_launches(_build.launch_counts(),
+    pal["launches"] = check_launches(pal["launches"],
                                      f"{label} pallas-tier frames",
                                      idle=PER_LANE + CONSENSUS + MESH + NEAREST)
     pal["profile"] = profile_frame(r, prof_dir / f"profile_{label}_pallas.txt",
@@ -2014,10 +2030,9 @@ def option_frames(r4, gpu: str, prof_dir: Path) -> tuple:
     for f in ("nearest", "bilinear2x"):
         r4.tscene = ts2x
         r4.render_static = dataclasses.replace(rs4, skybox_filter=f)
-        _build.reset_launch_counts()
         out[f] = render_frames(r4, 1, 0.05, 0.05, f"config4_standin_{f}", gpu, "perlane")
         out[f]["launches"] = check_launches(
-            _build.launch_counts(), f"config4 {f} frames",
+            out[f]["launches"], f"config4 {f} frames",
             idle=CHAINED + CONSENSUS + MESH + ("sky",))
         cam = r4.camera_tensor()
         img = render_frame(r4.tscene, r4.render_static, cam)
@@ -3445,9 +3460,8 @@ def main() -> int:
     # the main path: config4's default tier, per-lane
     check((ts.traversal, ts.auto_tier) == ("auto", "perlane"),
           f"config4 resolves to the per-lane tier ({ts.traversal}, {ts.auto_tier})")
-    _build.reset_launch_counts()
     c4 = render_frames(r4, 5, 0.05, 0.05, "config4_standin", gpu, "perlane")
-    counts = _build.launch_counts()
+    counts = c4["launches"]
     check(set(counts) == set(KERNELS), f"chip_smoke lists every kernel ({counts})")
     c4["launches"] = check_launches(counts, "config4 frames",
                                     idle=CHAINED + CONSENSUS + MESH + NEAREST)
@@ -3456,10 +3470,9 @@ def main() -> int:
 
     # the chained tier on the same scene, the same frames
     r4.tscene = dataclasses.replace(r4.tscene, traversal="pallas")
-    _build.reset_launch_counts()
     pal4 = render_frames(r4, 5, 0.05, 0.05, "config4_standin_pallas", gpu, "pallas")
     check(pal4["rays"] == c4["rays"], "both tiers trace the same rays in the same frames")
-    pal_counts = _build.launch_counts()
+    pal_counts = pal4["launches"]
     pal4["launches"] = check_launches(pal_counts, "config4 pallas-tier frames",
                                       idle=PER_LANE + CONSENSUS + MESH + NEAREST)
     pal4["profile"] = profile_frame(r4, prof_dir / "profile_config4_pallas.txt",
@@ -3477,9 +3490,8 @@ def main() -> int:
     # traversal="xla": the XLA body, compacted, on the per-(instance, mesh)
     # loop (K11a/K11b), whatever fused says
     r4.tscene = dataclasses.replace(r4.tscene, traversal="xla")
-    _build.reset_launch_counts()
     xla4 = render_frames(r4, 2, 0.05, 0.05, "config4_standin_xla", gpu, "xla")
-    mesh_counts = _build.launch_counts()
+    mesh_counts = xla4["launches"]
     xla4["launches"] = check_launches(mesh_counts, "config4 xla frames",
                                       idle=CHAINED + PER_LANE + CONSENSUS + FUSED + NEAREST)
     xla4["profile"] = profile_frame(r4, prof_dir / "profile_config4_xla.txt",
@@ -3500,9 +3512,8 @@ def main() -> int:
     ref_scene = scenes.reference_standin()
     rr = Renderer(ref_scene)
     print(f"reference stand-in: scene + BVH {time.perf_counter() - start:.2f} s", flush=True)
-    _build.reset_launch_counts()
     ref = render_frames(rr, 2, 0.05, 0.05, "reference_standin", gpu, "perlane")
-    ref["launches"] = check_launches(_build.launch_counts(), "reference frames",
+    ref["launches"] = check_launches(ref["launches"], "reference frames",
                                      idle=CHAINED + CONSENSUS + MESH + NEAREST)
     ref["profile"] = profile_frame(rr, prof_dir / "profile_reference.txt",
                                    "reference_standin", gpu)

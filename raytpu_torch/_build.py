@@ -19,9 +19,10 @@ versions bit for bit, and the raygen hash keeps the precise ``sinf``).
 
 Each kernel has a launch counter (:func:`launch_counts`): :func:`launch`
 adds one after a launch it issued, under a lock (the slots of a sharded
-frame launch from several host threads), and nothing else touches it. A run
-shows that the main path went through the kernels by resetting the
-counters, rendering, and reading them.
+frame launch from several host threads); a launch captured into a CUDA
+graph counts at each of the graph's replays instead (:func:`captured_launches`,
+:func:`add_launches`). A run shows that the main path went through the
+kernels by resetting the counters, rendering, and reading them.
 
 K1 and K2 (the per-lane sweeps) and K8 and K9 (the consensus sweeps) also
 carry work counters (:func:`work_counts`, :data:`WORK_KEYS`): their node
@@ -136,6 +137,7 @@ _WORK_WIDTH = max(map(len, WORK_KEYS.values()))
 _work_plain = {k: dict.fromkeys(keys, 0) for k, keys in WORK_KEYS.items()}
 _work_device = {}    # device -> (len(WORK_KERNELS), _WORK_WIDTH) int64 counters
 _count = threading.local()   # .on: this thread's frame counts its work
+_capture = threading.local()  # .launches: this thread's graph capture's
 
 # g++ flags of the host libraries of native/ (gxx_library)
 CXX_FLAGS = ("-O3", "-mfma", "-std=c++17", "-fPIC", "-shared")
@@ -255,6 +257,10 @@ def launch(kernel: str, *args) -> None:
     if err != 0:
         msg = lib.rt_error_string(err).decode()
         raise RuntimeError(f"{kernel}: CUDA error {err} ({msg})")
+    held = getattr(_capture, "launches", None)
+    if held is not None:   # captured into a graph: counted at each replay
+        held[kernel] = held.get(kernel, 0) + 1
+        return
     with _lock:
         _launches[kernel] += 1
 
@@ -287,6 +293,26 @@ def reset_launch_counts() -> None:
     with _lock:
         for k in _launches:
             _launches[k] = 0
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Within the block this thread's launches are held in the yielded
+    dict (kernel -> launches) instead of counted: a CUDA graph captures
+    them, and each replay counts them (:func:`add_launches`)."""
+    saved = getattr(_capture, "launches", None)
+    _capture.launches = held = {}
+    try:
+        yield held
+    finally:
+        _capture.launches = saved
+
+
+def add_launches(counts: dict) -> None:
+    """Count ``counts`` (kernel -> launches) as launched: a graph's replay."""
+    with _lock:
+        for k, n in counts.items():
+            _launches[k] += n
 
 
 @contextlib.contextmanager

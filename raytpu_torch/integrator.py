@@ -57,7 +57,9 @@ the live prefix length ``n_eff`` on the fused compacted path, the live
 packet count ``n_live`` in the body's compacted iterations), and the
 shadow-skip test ``any(lit)`` once per wave where the skip rule applies
 (``max_bounce_count > 4`` or spp 1). They are the loop's semantics, as
-``lax.while_loop``/``lax.cond`` are in the JAX loop.
+``lax.while_loop``/``lax.cond`` are in the JAX loop. On one card
+``Renderer`` replays the fused loop's stretches between two reads as CUDA
+graphs (``graphs.py``), with the same reads.
 
 Under a profiler the phases are ``rt.*`` spans (``utils/spans.py``): per
 wave ``rt.raygen``, ``rt.loop`` (the bounce loop, with ``rt.bounce``,
@@ -172,6 +174,7 @@ _KERNELS = {"raygen": raygen_packed, "closest": closest_sweep,
             "brute_anyhit": brute_anyhit, "sky": sample_cubemap_u32,
             "sky_nearest": sample_cubemap_u32_nearest,
             "shade": shade_epilogue, "accumulate": accumulate_epilogue}
+_DEFAULT_KERNELS = dict(_KERNELS)
 _PLAIN = {"raygen": raygen_packed_ref, "closest": closest_sweep_ref,
           "anyhit": anyhit_sweep_ref,
           "perlane_closest": perlane_closest_sweep_ref,
@@ -666,22 +669,43 @@ def _wave_rungs(p: int, budget: int, max_rungs: int = 3) -> list:
     return rungs
 
 
-@spanned("rt.bounce")
-def _fused_step(ts, rs, rays, win, tmp, miss, decay_p, stats, primary):
-    """One fused bounce over a wave (``_trace_sample_fused.step`` :448):
-    closest sweep, shade pass, shadow sweep (or its skip), accumulate pass,
-    the sweeps by tier (:func:`_sweeps`; ``primary`` for the first bounce).
-    ``rays``, ``tmp`` and ``miss`` are updated in place, ``win`` too: the
-    arguments may be waves ``x[:, s:s+b]`` of the loop's buffers."""
-    closest, anyhit = _sweeps(ts, rs, rays.shape[1], rays.shape[2], primary)
+def _loop_budget(p: int, rs) -> int:
+    """The fused loop's compacted-wave budget for a wave of ``p`` packets
+    (0: every bounce at full width): ``_wave_budget`` under
+    ``wavefront="compact"``, where it tiles P in whole ``BP`` steps."""
+    budget = _wave_budget(p) if rs.wavefront == "compact" else 0
+    if budget and (p % budget != 0 or budget % BP != 0):
+        return 0
+    return budget
+
+
+def _loop_rungs(p: int, budget: int, rs) -> list:
+    """The wave ladder the fused loop walks down (``rs.ladder``)."""
+    return _wave_rungs(p, budget) if rs.ladder == "auto" else [budget]
+
+
+def _shade_wave(ts, rs, rays, win, miss, stats, primary):
+    """The first half of a fused bounce over a wave: the closest sweep by
+    tier (:func:`_sweeps`; ``primary`` for the first bounce) and the shade
+    pass, which writes the continuation rays over ``rays`` and the miss
+    flags over ``miss`` -> the shade pass's outputs."""
+    closest, _ = _sweeps(ts, rs, rays.shape[1], rays.shape[2], primary)
     _count(stats, "closest_rays", win > 0.0)
     with span("rt.sweep.closest"):
         st = closest(ts, rays, RAY_TMIN, make_trace_state(win))
     with span("rt.shade"):
-        srays, swin, ab, lit, _, nwin, _ = _KERNELS["shade"](
-            rays, st, miss, ts.light[:3], ts.light[3])
+        return _KERNELS["shade"](rays, st, miss, ts.light[:3], ts.light[3])
+
+
+def _light_wave(ts, rs, shaded, win, tmp, decay_p, stats, primary,
+                shadow: bool):
+    """The second half of a fused bounce over a wave, on the shade pass's
+    outputs ``shaded``: the shadow sweep where ``shadow``, the accumulate
+    pass into ``tmp`` and the next windows into ``win``."""
+    srays, swin, ab, lit, _, nwin, _ = shaded
     occ = torch.zeros_like(lit)
-    if _shadow_always(rs) or _any(lit != 0, stats):   # (:463-472)
+    if shadow:
+        _, anyhit = _sweeps(ts, rs, srays.shape[1], srays.shape[2], primary)
         _count(stats, "shadow_rays", lit != 0)
         with span("rt.sweep.shadow"):
             anyhit(ts, srays, RAY_TMIN, swin, occ)
@@ -691,25 +715,90 @@ def _fused_step(ts, rs, rays, win, tmp, miss, decay_p, stats, primary):
     win.copy_(nwin)
 
 
-def _trace_sample_fused(ts: TorchScene, rs: RenderStatic, rays: torch.Tensor,
-                        s_row: torch.Tensor, active0: torch.Tensor,
-                        stats: Optional[dict] = None):
-    """The bounce loop on the packed ABI with the fused shade and
-    accumulate passes (``integrator._trace_sample_fused`` :379-572) over
-    ``rays`` (6, P, K), updated in place, and the per-packet sample index
-    ``s_row`` (P,) -> ``(missed, d, radiance)`` of (P, K) for the sky
-    (:func:`_deferred_sky`).
+@spanned("rt.bounce")
+def _fused_step(ts, rs, rays, win, tmp, miss, decay_p, stats, primary):
+    """One fused bounce over a wave (``_trace_sample_fused.step`` :448):
+    closest sweep, shade pass, shadow sweep (or its skip, :463-472: where
+    the skip rule applies, one host read of ``any(lit)``), accumulate
+    pass. ``rays``, ``tmp`` and ``miss`` are updated in place, ``win`` too:
+    the arguments may be waves ``x[:, s:s+b]`` of the loop's buffers."""
+    shaded = _shade_wave(ts, rs, rays, win, miss, stats, primary)
+    shadow = _shadow_always(rs) or _any(shaded[3] != 0, stats)
+    _light_wave(ts, rs, shaded, win, tmp, decay_p, stats, primary, shadow)
 
-    With ``wavefront="compact"`` and a budget (P >= 128): the peeled j=0
-    runs full width, then ONE stable live-first sort of the packets; later
-    iterations run over disjoint waves of ``b`` packets that cover only the
-    live prefix (liveness is monotone, so the live packets stay a prefix),
-    phase by phase down the rung ladder; the inverse permutation restores
-    frame order. The frame equals the full-width loop's bit for bit but for
-    exact ties, as in :func:`_trace_sample`. A wave is a view of the
-    loop's buffers: the kernels take plane strides, so nothing is copied."""
+
+def loop_ops(p: int, rs):
+    """The fused loop's schedule on a wave of ``p`` packets: a generator of
+    its units and host reads in order, to which :func:`drive` sends each
+    read's value. The units (:class:`_FusedLoop` runs them):
+
+    * ``("begin",)``: the loop's buffers; ``("end",)``: the result, back in
+      frame order;
+    * ``("step", s, b, primary)``: a bounce over packets ``[s, s+b)``
+      (:func:`_fused_step`, with its ``any(lit)`` read where the skip rule
+      applies); ``("iter", b, n)``: the ``n`` such steps ``s = 0, b, ...``
+      of a compacted iteration at rung ``b`` (:func:`_op_waves`);
+    * ``("sort",)``: the live-first sort after the peeled first bounce.
+
+    A read is ``("read", "neff")`` (the live prefix length, once a
+    compacted iteration) or ``("read", "live")`` (``any(window > 0)``, once
+    a bounce without a budget)."""
+    yield ("begin",)
+    budget = _loop_budget(p, rs)
+    if not budget:
+        j = 0
+        while j <= rs.max_bounce_count and (yield ("read", "live")):
+            yield ("step", 0, p, j == 0)
+            j += 1
+        yield ("end",)
+        return
+    yield ("step", 0, p, True)     # j = 0
+    yield ("sort",)
+    rungs = _loop_rungs(p, budget, rs)
+    j, ne = 1, None
+    for i, b in enumerate(rungs):
+        nxt = rungs[i + 1] if i + 1 < len(rungs) else 0
+        while j <= rs.max_bounce_count:
+            if ne is None:
+                ne = yield ("read", "neff")
+            if ne <= nxt:   # done, or the prefix fits the next rung
+                break
+            yield ("iter", b, -(-ne // b))
+            j += 1
+            ne = None
+    yield ("end",)
+
+
+def _op_waves(op) -> list:
+    """The waves ``(s, b, primary)`` of a ``step`` or ``iter`` unit."""
+    if op[0] == "step":
+        return [op[1:]]
+    _, b, n = op
+    return [(s, b, False) for s in range(0, n * b, b)]
+
+
+def drive(ops, run, read) -> None:
+    """Go through the schedule ``ops`` (:func:`loop_ops`): ``run(op)`` each
+    unit, ``read(op)`` each read, whose value goes back to ``ops``."""
+    value = None
+    while True:
+        try:
+            op = ops.send(value)
+        except StopIteration:
+            return
+        if op[0] == "read":
+            value = read(op)
+        else:
+            run(op)
+            value = None
+
+
+def _loop_buffers(s_row: torch.Tensor, active0: torch.Tensor):
+    """The fused loop's fresh buffers for a wave: ``(tmp, decay_p, win,
+    miss)``, the ambient radiance (3, P, K), the per-packet decay (P,), the
+    windows of the active lanes and the miss flags (P, K)."""
     p, k = active0.shape
-    dev = rays.device
+    dev = active0.device
     tmp = torch.empty((3, p, k), dtype=torch.float32, device=dev)
     for c, a in enumerate(shade.ambient_tuple()):
         tmp[c] = a
@@ -717,57 +806,126 @@ def _trace_sample_fused(ts: TorchScene, rs: RenderStatic, rays: torch.Tensor,
     decay_p = torch.pow(SAMPLE_DECAY, s_row)
     win = torch.where(active0, RAY_TMAX, 0.0)
     miss = torch.zeros((p, k), dtype=torch.int32, device=dev)
+    return tmp, decay_p, win, miss
 
-    budget = _wave_budget(p) if rs.wavefront == "compact" else 0
-    if budget and (p % budget != 0 or budget % BP != 0):
-        budget = 0
 
-    if not budget:
-        j = 0
-        while j <= rs.max_bounce_count and _any(win > 0.0, stats):
-            _fused_step(ts, rs, rays, win, tmp, miss, decay_p, stats, j == 0)
-            j += 1
-    else:
-        _fused_step(ts, rs, rays, win, tmp, miss, decay_p, stats, True)  # j = 0
-        j = 1
-        with span("rt.sort"):
-            plive = (win > 0.0).any(dim=1)
-            order = torch.argsort((~plive).to(torch.int32), stable=True)
-            inv = torch.argsort(order, stable=True)
-            rays = rays.index_select(1, order)
-            win = win.index_select(0, order)
-            tmp = tmp.index_select(1, order)
-            miss = miss.index_select(0, order)
-            decay_s = decay_p.index_select(0, order)
-        rows1 = torch.arange(1, p + 1, device=dev)
+@spanned("rt.sort")
+def _live_first(rays, win, tmp, miss, decay_p):
+    """The one stable live-first sort of the packets after the peeled j=0
+    -> the sorted ``(rays, win, tmp, miss, decay_p)`` and the inverse
+    permutation."""
+    plive = (win > 0.0).any(dim=1)
+    order = torch.argsort((~plive).to(torch.int32), stable=True)
+    inv = torch.argsort(order, stable=True)
+    return (rays.index_select(1, order), win.index_select(0, order),
+            tmp.index_select(1, order), miss.index_select(0, order),
+            decay_p.index_select(0, order), inv)
 
-        def n_eff() -> int:
-            """Live prefix length (last live row + 1): one host sync."""
-            live_row = (win > 0.0).any(dim=1)
-            return int(_read(torch.where(live_row, rows1, 0).max(), stats))
 
-        rungs = _wave_rungs(p, budget) if rs.ladder == "auto" else [budget]
-        ne = None
-        for i, b in enumerate(rungs):
-            nxt = rungs[i + 1] if i + 1 < len(rungs) else 0
-            while j <= rs.max_bounce_count:
-                if ne is None:
-                    ne = n_eff()
-                if ne <= nxt:   # done, or the prefix fits the next rung
-                    break
-                for s in range(0, ne, b):
-                    _fused_step(ts, rs, rays[:, s:s + b], win[s:s + b],
-                                tmp[:, s:s + b], miss[s:s + b],
-                                decay_s[s:s + b], stats, False)
-                j += 1
-                ne = None
-        with span("rt.sort"):
-            rays = rays.index_select(1, inv)
-            tmp = tmp.index_select(1, inv)
-            miss = miss.index_select(0, inv)
+@spanned("rt.sort")
+def _frame_order(rays, tmp, miss, inv):
+    """The loop's ``rays``, ``tmp`` and ``miss`` back in frame order."""
+    return (rays.index_select(1, inv), tmp.index_select(1, inv),
+            miss.index_select(0, inv))
 
-    # at loop exit d is each miss lane's miss direction (no carry needed)
-    return miss != 0, (rays[3], rays[4], rays[5]), (tmp[0], tmp[1], tmp[2])
+
+class _FusedLoop:
+    """The fused loop on one wave: ``rays`` (6, P, K), bounced in place,
+    the per-packet sample index ``s_row`` (P,) and the active lanes
+    ``active0`` (P, K). :meth:`run` enqueues a unit of :func:`loop_ops` on
+    the loop's buffers, :meth:`reduction` a read's one-element tensor, and
+    :meth:`read` reads it (one counted host sync). After ``("end",)``,
+    ``result`` is ``(missed, d, radiance)`` of (P, K) for the sky. A wave
+    is a view of the loop's buffers: the kernels take plane strides, so
+    nothing is copied.
+
+    A graph plan (``graphs.FramePlan``) also runs a bounce over a wave
+    ``(s, b, primary)`` as the two halves of :func:`_fused_step`, with the
+    ``any(lit)`` read (``("read", "lit", s, b, primary)``) between them:
+    ``("shade", s, b, primary)`` and ``("light", s, b, primary,
+    shadow)``."""
+
+    def __init__(self, ts, rs, rays, s_row, active0, stats=None):
+        self.ts, self.rs, self.stats = ts, rs, stats
+        self.rays, self.s_row, self.active0 = rays, s_row, active0
+
+    def run(self, op):
+        """Enqueue unit ``op`` -> what later units and reads take from it
+        (a shade unit's outputs, the result) or None."""
+        ts, rs, stats = self.ts, self.rs, self.stats
+        kind = op[0]
+        if kind == "begin":
+            self.tmp, self.decay, self.win, self.miss = _loop_buffers(
+                self.s_row, self.active0)
+            self.inv = None
+        elif kind in ("step", "iter"):
+            for s, b, primary in _op_waves(op):
+                _fused_step(ts, rs, self.rays[:, s:s + b], self.win[s:s + b],
+                            self.tmp[:, s:s + b], self.miss[s:s + b],
+                            self.decay[s:s + b], stats, primary)
+        elif kind == "shade":
+            s, b, primary = op[1:]
+            self.shaded = _shade_wave(ts, rs, self.rays[:, s:s + b],
+                                      self.win[s:s + b], self.miss[s:s + b],
+                                      stats, primary)
+            return self.shaded
+        elif kind == "light":
+            s, b, primary, shadow = op[1:]
+            _light_wave(ts, rs, self.shaded, self.win[s:s + b],
+                        self.tmp[:, s:s + b], self.decay[s:s + b], stats,
+                        primary, shadow)
+        elif kind == "sort":
+            (self.rays, self.win, self.tmp, self.miss, self.decay,
+             self.inv) = _live_first(self.rays, self.win, self.tmp, self.miss,
+                                     self.decay)
+            self.rows1 = torch.arange(1, self.win.shape[0] + 1,
+                                      device=self.win.device)
+        elif kind == "end":
+            rays, tmp, miss = self.rays, self.tmp, self.miss
+            if self.inv is not None:
+                rays, tmp, miss = _frame_order(rays, tmp, miss, self.inv)
+            # at loop exit d is each miss lane's miss direction (no carry)
+            self.result = (miss != 0, (rays[3], rays[4], rays[5]),
+                           (tmp[0], tmp[1], tmp[2]))
+            return self.result
+        else:
+            raise ValueError(f"no unit {op!r}")
+        return None
+
+    def reduction(self, op) -> torch.Tensor:
+        """The one-element tensor read ``op`` reads."""
+        what = op[1]
+        if what == "lit":
+            return (self.shaded[3] != 0).any()
+        if what == "live":
+            return (self.win > 0.0).any()
+        # the live prefix length: last live row + 1
+        return torch.where((self.win > 0.0).any(dim=1), self.rows1, 0).max()
+
+    def read(self, op):
+        return _read(self.reduction(op), self.stats)
+
+
+def _trace_sample_fused(ts: TorchScene, rs: RenderStatic, rays: torch.Tensor,
+                        s_row: torch.Tensor, active0: torch.Tensor,
+                        stats: Optional[dict] = None):
+    """The bounce loop on the packed ABI with the fused shade and
+    accumulate passes (``integrator._trace_sample_fused`` :379-572) over
+    ``rays`` (6, P, K), updated in place, and the per-packet sample index
+    ``s_row`` (P,) -> ``(missed, d, radiance)`` of (P, K) for the sky
+    (:func:`_deferred_sky`): :func:`loop_ops`'s schedule, each unit run as
+    it comes.
+
+    With ``wavefront="compact"`` and a budget (P >= 128): the peeled j=0
+    runs full width, then ONE stable live-first sort of the packets; later
+    iterations run over disjoint waves of ``b`` packets that cover only the
+    live prefix (liveness is monotone, so the live packets stay a prefix),
+    phase by phase down the rung ladder; the inverse permutation restores
+    frame order. The frame equals the full-width loop's bit for bit but for
+    exact ties, as in :func:`_trace_sample`."""
+    loop = _FusedLoop(ts, rs, rays, s_row, active0, stats)
+    drive(loop_ops(active0.shape[0], rs), loop.run, loop.read)
+    return loop.result
 
 
 def render_packets(ts: TorchScene, rs: RenderStatic, camera: torch.Tensor,
@@ -794,16 +952,29 @@ def render_packets(ts: TorchScene, rs: RenderStatic, camera: torch.Tensor,
     if stats is not None:
         stats.setdefault("host_syncs", 0)
     with _build.counting(stats is not None):
-        if not rs.fold_spp and spp > 1:
+        if not _folds(rs):
             return _render_samples(ts, rs, camera, px, py, active0, rays6, stats)
         if stats is not None:
             stats["tier"] = frame_tier(ts, p * spp, k)
-        pxs = px.repeat_interleave(spp, dim=0)
-        pys = py.repeat_interleave(spp, dim=0)
-        act = active0.repeat_interleave(spp, dim=0)
-        s_row = torch.arange(spp, dtype=torch.float32, device=px.device).repeat(p)
-        colors = _trace_wave(ts, rs, camera, pxs, pys, act, s_row, rays6, stats)
+        colors = _trace_wave(ts, rs, camera, *_folded_rows(px, py, active0, spp),
+                             rays6, stats)
         return tuple(c.reshape(p, spp, k).mean(dim=1) for c in colors)
+
+
+def _folds(rs: RenderStatic) -> bool:
+    """Whether :func:`render_packets` renders the samples as one wave: the
+    spp fold, or one sample."""
+    return rs.fold_spp or rs.samples_per_pixel == 1
+
+
+def _folded_rows(px, py, active0, spp: int):
+    """The spp fold's wave of packets ``px``/``py``/``active0`` (P, K):
+    ``(px, py, active, s_row)`` of spp * P packets, packet t*spp + s = tile
+    t, sample s."""
+    rows = tuple(x.repeat_interleave(spp, dim=0) for x in (px, py, active0))
+    s_row = torch.arange(spp, dtype=torch.float32,
+                         device=px.device).repeat(px.shape[0])
+    return (*rows, s_row)
 
 
 def _render_samples(ts, rs, camera, px, py, active0, rays6, stats):
@@ -873,8 +1044,7 @@ def tiled_pixels(rs: RenderStatic, device):
     ``(px, py)`` (P, K) f32 and the in-frame lane mask, the packet count
     padded to a ``SEG_PACKETS`` multiple with dead packets."""
     t = rs.tile
-    w_t = -(-rs.width // t)
-    h_t = -(-rs.height // t)
+    h_t, w_t = _tile_grid(rs)
     ty, tx = torch.meshgrid(torch.arange(h_t, device=device),
                             torch.arange(w_t, device=device), indexing="ij")
     iy, ix = torch.meshgrid(torch.arange(t, device=device),
@@ -884,7 +1054,7 @@ def tiled_pixels(rs: RenderStatic, device):
     in_frame = (xs < rs.width) & (ys < rs.height)
     px = torch.clamp_max(xs, rs.width - 1).to(torch.float32)
     py = torch.clamp_max(ys, rs.height - 1).to(torch.float32)
-    pad = (-px.shape[0]) % SEG_PACKETS
+    pad = frame_packets(rs) - px.shape[0]
     if pad:
         zf = torch.zeros((pad, px.shape[1]), dtype=torch.float32, device=device)
         px = torch.cat([px, zf])
@@ -897,8 +1067,7 @@ def tiled_pixels(rs: RenderStatic, device):
 def detile(colors, rs: RenderStatic) -> torch.Tensor:
     """Packets -> (H, W, 3) image by reshape/permute (padding dropped)."""
     t = rs.tile
-    h_t = -(-rs.height // t)
-    w_t = -(-rs.width // t)
+    h_t, w_t = _tile_grid(rs)
     planes = [
         c[: h_t * w_t]
         .reshape(h_t, w_t, t, t)
@@ -907,6 +1076,35 @@ def detile(colors, rs: RenderStatic) -> torch.Tensor:
         for c in colors
     ]
     return torch.stack(planes, dim=-1)
+
+
+def _tile_grid(rs: RenderStatic):
+    """The frame's tiles: ``(rows, columns)``."""
+    return -(-rs.height // rs.tile), -(-rs.width // rs.tile)
+
+
+def frame_packets(rs: RenderStatic) -> int:
+    """The packets of :func:`tiled_pixels`: the frame's tiles, padded to a
+    ``SEG_PACKETS`` multiple."""
+    h_t, w_t = _tile_grid(rs)
+    return h_t * w_t + (-h_t * w_t) % SEG_PACKETS
+
+
+def frame_chunk(rs: RenderStatic) -> int:
+    """Packets a chunk of :func:`render_frame` (0: the frame is one)."""
+    if not rs.ray_chunk:
+        return 0
+    chunk = max(1, rs.ray_chunk // rs.packet_size)
+    chunk = -(-chunk // SEG_PACKETS) * SEG_PACKETS
+    return chunk if chunk < frame_packets(rs) else 0
+
+
+def one_fused_wave(ts: TorchScene, rs: RenderStatic) -> bool:
+    """Whether :func:`render_frame` renders a frame as one wave of the
+    fused loop: one chunk (:func:`frame_chunk`), the samples folded
+    (:func:`_folds`), the fused loop taken (:func:`_use_fused`)."""
+    return (not frame_chunk(rs) and _folds(rs) and _use_fused(
+        ts, rs, frame_packets(rs) * rs.samples_per_pixel, rs.packet_size))
 
 
 def render_frame(ts: TorchScene, rs: RenderStatic, camera: torch.Tensor,
@@ -921,11 +1119,8 @@ def render_frame(ts: TorchScene, rs: RenderStatic, camera: torch.Tensor,
     over the chunks."""
     (px, py), in_frame = tiled_pixels(rs, ts.device)
     p = px.shape[0]
-    chunk = 0
-    if rs.ray_chunk:
-        chunk = max(1, rs.ray_chunk // rs.packet_size)
-        chunk = -(-chunk // SEG_PACKETS) * SEG_PACKETS
-    if not chunk or chunk >= p:
+    chunk = frame_chunk(rs)
+    if not chunk:
         colors = render_packets(ts, rs, camera, px, py, in_frame, stats=stats)
         return detile(colors, rs)
     pad = (-p) % chunk

@@ -16,7 +16,8 @@ from raytpu_torch.camera import Camera
 from raytpu_torch.scene import AnimationState, Scene
 from raytpu_torch.accel import attach_bvh
 from raytpu_torch.device_scene import brute_scene, build_device_scene
-from raytpu_torch.integrator import RenderStatic, render_frame
+from raytpu_torch.graphs import FramePlans
+from raytpu_torch.integrator import RenderStatic
 from raytpu_torch.parallel import make_mesh, render_sharded, replicate
 from raytpu_torch.utils import validation
 from raytpu_torch.utils.spans import span
@@ -34,7 +35,11 @@ class Renderer:
 
     Under ``traversal="brute"`` or ``bvh_builder="brute"`` it attaches no
     BVH (``raytpu/render.py:32``): every sweep is then the brute tracers'
-    per-(instance, mesh) loop (``device_scene.brute_scene``)."""
+    per-(instance, mesh) loop (``device_scene.brute_scene``).
+
+    Frames on one card replay the CUDA graphs of their shape's plan
+    (``graphs.FramePlans``: the fused loop, no ``stats``); the first frame
+    of a shape renders eagerly and captures them."""
 
     def __init__(self, scene: Scene, device="cuda",
                  camera: Optional[Camera] = None):
@@ -53,6 +58,7 @@ class Renderer:
         else:
             self.tscene = attach_bvh(tscene, scene, leaf_size=cfg.leaf_size)
         self._replicas = None          # (the tscene they came from, replicas)
+        self._plans = FramePlans()
         self.animation = AnimationState(scene.instances)
         self.time_param = 0.0
         if scene.config.validation:
@@ -95,8 +101,8 @@ class Renderer:
                 img = render_sharded(self.replicas, self.render_static,
                                      self.camera_tensor(), self.mesh, stats=stats)
             else:
-                img = render_frame(self.tscene, self.render_static,
-                                   self.camera_tensor(), stats=stats)
+                img = self._plans.render(self.tscene, self.render_static,
+                                         self.camera_tensor(), stats=stats)
             if self.scene.config.validation:
                 validation.check_frame(img)
             return img

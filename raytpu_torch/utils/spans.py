@@ -20,14 +20,21 @@ The names, from the outside in (``rtbench/`` reads them):
 
 * ``rt.step`` (``Renderer.step``), ``rt.set_transforms``, ``rt.render``,
   ``rt.readback`` (the image's copy to the host in ``render_np``);
-* per wave ``rt.raygen``, then ``rt.loop`` (the bounce loop, up to the
-  sky) holding ``rt.bounce`` (one bounce) and ``rt.sort`` (the live-first
-  sort and its inverse); then ``rt.sky``;
+* per wave ``rt.raygen``, then ``rt.loop`` (the bounce loop, from its
+  buffers up to the sky) holding ``rt.bounce`` (one bounce) and
+  ``rt.sort`` (the live-first sort and its inverse); then ``rt.sky``;
 * in a bounce ``rt.sweep.closest`` and ``rt.sweep.shadow``, each holding
   ``rt.prepass`` on the culled tiers, and ``rt.shade``, ``rt.accumulate``
   (K3, K4);
 * ``rt.sync``: each counted host sync (``integrator._read``);
-* ``rt.detile``.
+* ``rt.detile``;
+* ``rt.graph.capture`` (each unit a frame plan captures, ``graphs.py``)
+  and ``rt.graph.replay`` (each replay of one): a replayed frame shows the
+  raygen's replay, then ``rt.loop`` holding the loop's replays and its
+  ``rt.sync`` reads over the eager loop's stretch, then the sky's replay;
+  none of the spans that the captured work records (``rt.prepass``,
+  ``rt.sweep.*``, ``rt.shade``, ``rt.accumulate``): that work runs inside
+  the replays.
 """
 
 from __future__ import annotations

@@ -969,3 +969,96 @@ def test_prepass_is_one_launch_without_sync(rig):
     kernels = [n for n in device if "memset" not in n.lower()]
     assert len(kernels) == 2 and all("block_stats_kernel" in n for n in kernels), device
     assert len(device) == 4, device
+
+
+# scenes of the CUDA graph tests: a config3-like consensus frame, the
+# config4 stand-in (per-lane) with its orbiting armadillo, a deep loop
+# (63 bounces: an any(lit) read a wave) on compacted waves and one at full
+# width (no budget: an any(window) read a bounce)
+GRAPH_SCENES = {
+    "consensus": lambda: scenes.config3_standin(sky_size=64),
+    "perlane": lambda: scenes.config4_standin(),
+    "deep": lambda: scenes.mixed_scene(256, 192, 4, 63),
+    "deep_full_width": lambda: scenes.mixed_scene(64, 48, 1, 63),
+}
+
+
+@pytest.mark.parametrize("name", list(GRAPH_SCENES))
+def test_replayed_frames_equal_eager_frames(name, monkeypatch):
+    """From the second frame of a shape on, ``Renderer.render`` replays the
+    plan's CUDA graphs: at two camera poses and two time parameters the
+    replayed frame equals the eager frame (``integrator.render_frame``) bit
+    for bit, with no capture, no ``_build.launch`` call from Python, the
+    eager frame's host reads and its launch counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from raytpu_torch import graphs, integrator
+    from raytpu_torch.camera import Camera
+
+    r = Renderer(GRAPH_SCENES[name](), "cuda")
+    assert graphs.graphable(r.tscene, r.render_static)
+    r.set_transforms(0.05)
+    r.render()                    # eager, then the plan captures its units
+    reads, launches, captures = [], [], []
+    read, launch, capture = integrator._read, _build.launch, graphs.FramePlan._capture
+    monkeypatch.setattr(integrator, "_read",
+                        lambda x, stats: reads.append(1) or read(x, stats))
+    monkeypatch.setattr(_build, "launch",
+                        lambda *args: launches.append(args[0]) or launch(*args))
+    monkeypatch.setattr(graphs.FramePlan, "_capture",
+                        lambda plan, op: captures.append(op) or capture(plan, op))
+    base = r.camera.state_dict()
+    frames = []
+    for turn, tp in ((0.0, 0.05), (30.0, 0.05), (0.0, 0.35), (30.0, 0.35)):
+        cam = Camera.from_state_dict(base)
+        cam.process_mouse_movement(turn, turn / 3)
+        r.camera = cam
+        r.set_transforms(tp)
+        reads.clear(), launches.clear(), _build.reset_launch_counts()
+        want = integrator.render_frame(r.tscene, r.render_static, r.camera_tensor())
+        eager = (len(reads), _build.launch_counts())
+        assert launches and eager[0] > 0
+        reads.clear(), launches.clear(), _build.reset_launch_counts()
+        got = r.render()
+        assert not launches and not captures, (launches, captures)
+        assert (len(reads), _build.launch_counts()) == eager
+        assert torch.equal(got, want)
+        frames.append(got)
+    assert not torch.equal(frames[0], frames[1])       # a stale camera shows
+    if name != "consensus":                             # config3 is static
+        assert not torch.equal(frames[0], frames[2])   # stale transforms show
+
+
+def test_the_profiler_records_replayed_kernels():
+    """A replayed frame under ``torch.profiler`` shows its graphs' kernels
+    as device events (K7, K8, K3, K4) and one ``rt.graph.replay`` span a
+    replay, all inside ``rt.loop`` but the raygen's before it and the
+    sky's after it, as an eager frame lays out its spans."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    r = Renderer(scenes.config3_standin(sky_size=64), "cuda")
+    r.set_transforms(0.1)
+    r.render()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        r.render()
+        torch.cuda.synchronize()
+    events = prof.events()
+    device = " ".join(e.name for e in events if e.device_type == DeviceType.CUDA)
+    for kernel in ("block_stats_kernel", "mega_closest_sweep_kernel",
+                   "shade_epilogue_kernel", "accumulate_epilogue_kernel"):
+        assert kernel in device, kernel
+    names = [e.name for e in events]
+    assert names.count("rt.graph.replay") >= 3
+    assert "rt.graph.capture" not in names and "rt.bounce" not in names
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    (loop,) = [e.time_range for e in host if e.name == "rt.loop"]
+    replays = sorted((e.time_range for e in host if e.name == "rt.graph.replay"),
+                     key=lambda t: t.start)
+    assert replays[0].end <= loop.start and replays[-1].start >= loop.end
+    outside = [(t.start, t.end) for t in replays[1:-1]
+               if not loop.start <= t.start <= t.end <= loop.end]
+    assert not outside, ((loop.start, loop.end), outside)
