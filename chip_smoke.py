@@ -39,10 +39,10 @@ loop:
   waves also against K1/K2's plain versions (bit for bit), and its pixels
   against the pallas-tier frame of the same pose (only exact ties may
   differ);
-* two config4 frames through the eager ``fused="off"`` body and two
-  through the fused loop at full width (no compaction);
+* two config4 frames through the fused loop at full width (no
+  compaction);
 * two config4 frames with ``traversal="xla"``, which the JAX package renders
-  through its XLA body whatever ``fused`` says: the compacted body
+  through its XLA body: the compacted body
   (``body_compact``) on the per-(instance, mesh) loop, which must launch
   K11a/K11b and no packed sweep, prepass or fused shading kernel; from the
   same primary rays the frame within 1e-5 of the fused pallas-tier frame;
@@ -59,13 +59,14 @@ loop:
   (same rays, equal pixels), and one profiled frame of each tier;
 * at 256x192 (P = 256, budget 64, so compaction engages): the compacted
   frame against the full-width fused frame and the chained and consensus
-  tiers' frames (bit for bit), the eager frame from the same rays, and the
-  plain path (SSIM, and max abs diff from the same primary rays); the XLA
-  body's compacted frames against its full-width ones, bit for bit, on the
-  "xla", per-lane and pallas tiers;
+  tiers' frames (bit for bit), the "xla" tier's XLA body frame from the
+  same rays (within 1e-5), and the plain path (SSIM, and max abs diff from
+  the same primary rays); the XLA body's compacted "xla" frame against its
+  full-width one, bit for bit;
 * the tie scene (two coincident boxes of different materials) through
-  every tier ("xla" against the pallas tier through the same body): no
-  pixel may differ;
+  every packed tier: no pixel may differ; on "xla" no lane of the primary
+  wave may differ from K10a/K10b's, and the frame is within 1e-5 of the
+  pallas tier's;
 * the knobs phase (``knobs_phase``): ``brute_closest_kernel`` and
   ``brute_anyhit_kernel`` against their plain versions bit for bit on a
   slice of config2's primary wave (times and bounds; the any-hit's
@@ -79,10 +80,8 @@ loop:
   its reference at one pose, differing only in pixels of proven tie
   lanes, with frame ms, host syncs and idle share: config1 (512x512) and
   config3 with no BVH (``traversal="brute"``, which must launch the brute
-  kernels and no sweep) against their ``"xla"`` and XLA-body frames,
-  config2 and config3 under ``divergence`` "split", "split_all" and
-  "sort" against their XLA-body frames, config2 with ``bounce_unroll``
-  against its full-width body frame (no host sync), and config4 at
+  kernels and no sweep) against their ``"xla"`` frames and within 1e-5 of
+  their fused default frames, and config4 at
   ``chunk_tris=11264`` (31 entries, its trees against
   :data:`CHUNK_DIGEST`) on the per-lane and pallas tiers against the
   unchunked frames;
@@ -263,7 +262,7 @@ def import_port():
     from raytpu_torch.io import image, native  # noqa: F401
     from raytpu_torch.parallel import dist  # noqa: F401
     from raytpu_torch.accel import chunking  # noqa: F401
-    from raytpu_torch.ops import consensus, epilogue, intersect, mega, perlane, raygen, rebin, sky, traverse, vec3  # noqa: F401
+    from raytpu_torch.ops import consensus, epilogue, intersect, mega, perlane, raygen, sky, traverse, vec3  # noqa: F401
     from raytpu_torch.utils import log, ssim, timing, validation  # noqa: F401
 
 
@@ -1449,7 +1448,7 @@ def render_frames(r, n_frames: int, t0: float, dt: float, label: str, gpu: str,
     ray_med = int(statistics.median(rays))
     rs = r.render_static
     print(f"{label}: {rs.width}x{rs.height} spp {rs.samples_per_pixel} bounces "
-          f"{rs.max_bounce_count} fused {rs.fused} wavefront {rs.wavefront} tier {tier}: "
+          f"{rs.max_bounce_count} wavefront {rs.wavefront} tier {tier}: "
           f"frame ms {[round(x, 3) for x in ms]} median {med:.3f} ms (main path), rays "
           f"traced {ray_med}, {ray_med / med / 1e3:.2f} Mrays/s, host syncs per frame "
           f"{syncs} [{gpu}]", flush=True)
@@ -1518,31 +1517,48 @@ def standin_tiers(r, label: str, gpu: str, prof_dir: Path, n_tied: int):
 def tie_check(r) -> dict:
     """The tie scene (two coincident boxes, mirror and diffuse) through the
     pallas tier and the per-lane, hybrid, consensus and auto (consensus)
-    tiers, and "xla" (the XLA body on the per-(instance, mesh) loop) against
-    the pallas tier through the same body (the fused loop's shading kernels
-    round apart from the body): the pixels that differ (the JAX bench's
-    ``tie_check``, whose bar is 0)."""
+    tiers: the pixels that differ (the JAX bench's ``tie_check``, whose bar
+    is 0). "xla" (the XLA body on the per-(instance, mesh) loop) on the
+    primary wave: the lanes where the loop on K11a/K11b and the chained
+    sweeps K10a/K10b differ (bar 0), and its frame within 1e-5 of the
+    pallas tier's (the fused loop's shading kernels round apart from the
+    body)."""
     import torch
+    from raytpu_torch.config import RAY_TMAX, RAY_TMIN
     from raytpu_torch.integrator import render_frame
+    from raytpu_torch.ops import trace
 
-    def frame(trav, **knobs):
+    def frame(trav):
         return render_frame(dataclasses.replace(r.tscene, traversal=trav),
-                            dataclasses.replace(r.render_static, **knobs),
-                            r.camera_tensor())
+                            r.render_static, r.camera_tensor())
 
     frames = {trav: frame(trav)
               for trav in ("pallas", "perlane", "hybrid", "mega", "auto")}
     n_diff = {trav: int((img != frames["pallas"]).any(dim=-1).sum().item())
               for trav, img in frames.items() if trav != "pallas"}
-    n_diff["xla"] = int((frame("xla") != frame("pallas", fused="off"))
-                        .any(dim=-1).sum().item())
+    rays, act = primary_wave(r)
+    o, d = tuple(rays[:3]), tuple(rays[3:])
+    win = torch.where(act, RAY_TMAX, 0.0)
+    loop = trace.closest_hit_loop(r.tscene, o, d, RAY_TMIN, win)
+    chained = trace.closest_hit_wave(r.tscene, o, d, RAY_TMIN, win)
+    lanes = torch.zeros_like(win, dtype=torch.bool)
+    for field in loop._fields:
+        for a, b in zip(*((getattr(loop, field), getattr(chained, field))
+                          if field == "n" else
+                          ((getattr(loop, field),), (getattr(chained, field),)))):
+            lanes |= a != b
+    lanes |= (trace.any_hit_loop(r.tscene, o, d, RAY_TMIN, win)
+              != trace.any_hit_wave(r.tscene, o, d, RAY_TMIN, win))
+    n_diff["xla_primary_lanes"] = int(lanes.sum().item())
+    far = (frame("xla") - frames["pallas"]).abs().max().item()
     rs = r.render_static
     print(f"tie scene {rs.width}x{rs.height} spp {rs.samples_per_pixel} bounces "
-          f"{rs.max_bounce_count}: pixels differing from the pallas tier {n_diff}",
-          flush=True)
+          f"{rs.max_bounce_count}: pixels differing from the pallas tier {n_diff}; "
+          f"xla frame max abs diff to it {far:.3g}", flush=True)
     check(frames["pallas"].std().item() > 1e-3, "the tie scene's frame is not constant")
     check(not any(n_diff.values()), f"tie check n_diff 0 ({n_diff})")
-    return {"n_diff": n_diff}
+    check(far <= 1e-5, f"tie scene xla frame within 1e-5 of the pallas tier's ({far})")
+    return {"n_diff": n_diff, "xla_max_abs_diff": far}
 
 
 def tier_waves(r, t0: float) -> dict:
@@ -2448,7 +2464,7 @@ def native_loaders(mesh, gpu: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the knobs phase: the brute tracers, the oracle, divergence, unroll, chunks
+# the knobs phase: the brute tracers, the oracle, chunks
 # ---------------------------------------------------------------------------
 
 # the triangles config4's EXACT_TIES lanes keep: K10a's (build order) and
@@ -2974,9 +2990,10 @@ def knobs_phase(renderers: dict, scene4, gpu: str, prof_dir: Path):
     config1-3 and the 256x192 config4 frame (:func:`brute_oracle`),
     config4's known ties
     (:func:`brute_known_ties`), then frames: brute config1 (512x512) and
-    config3 (1280x720), config2 and config3 under each divergence value,
-    config2 unrolled, config4 chunked on the per-lane and pallas tiers.
-    Each against its reference frame at :data:`KNOB_POSE`, differing only
+    config3 (1280x720) against their "xla" frames (the XLA body) and
+    within 1e-5 of their fused default frames, config4 chunked on the
+    per-lane and pallas tiers against the unchunked frames.
+    Each at :data:`KNOB_POSE`, differing only
     in pixels of proven tie lanes; frame ms, host syncs and idle share.
     Returns ``(record, the brute kernels' records with their launches in
     the brute frames, the brute config1 Renderer)``."""
@@ -3024,8 +3041,6 @@ def knobs_phase(renderers: dict, scene4, gpu: str, prof_dir: Path):
         ok = allowed(label, r)
         n_xla = frame_diff(got, render_frame(dataclasses.replace(
             r.tscene, traversal="xla"), rs, cam), ok, f"{label} brute vs xla")
-        n_body = frame_diff(got, render_frame(r.tscene, dataclasses.replace(
-            rs, fused="off"), cam), ok, f"{label} brute vs the default tier's body")
         fused = render_frame(r.tscene, rs, cam)
         tie_mask = torch.zeros(got.shape[:2], dtype=torch.bool, device=got.device)
         for y, x in ok:
@@ -3035,53 +3050,11 @@ def knobs_phase(renderers: dict, scene4, gpu: str, prof_dir: Path):
         check(far <= 1e-5, f"{label} brute vs the fused default frame within 1e-5 off "
               f"the tie pixels ({far})")
         rec["frames"][f"{label}_brute"] = dict(
-            knob_row(brute_rec[label], n_body, "default tier, XLA body"),
-            pixels_differing_xla=n_xla, max_abs_diff_fused=far,
-            tie_pixels=len(ok))
+            knob_row(brute_rec[label], n_xla, "xla (the XLA body)"),
+            max_abs_diff_fused=far, tie_pixels=len(ok))
         print(f"{label} brute frame at pose {KNOB_POSE}: {n_xla} pixels differ from "
-              f"the xla frame, {n_body} from the default tier's XLA body frame (proven "
-              f"tie pixels {len(ok)}), max abs diff to the fused default frame off "
-              f"them {far:.3g} [{gpu}]", flush=True)
-
-    # divergence scheduling on the consensus stand-ins
-    for label, r in (("config2_standin", rc2), ("config3_standin", rc3)):
-        rs = r.render_static
-        pose(r, KNOB_POSE)
-        cam = r.camera_tensor()
-        want = render_frame(r.tscene, dataclasses.replace(rs, fused="off"), cam)
-        for div in ("split", "split_all", "sort"):
-            rs_d = dataclasses.replace(rs, divergence=div)
-            n_diff = frame_diff(render_frame(r.tscene, rs_d, cam), want,
-                                allowed(label, r), f"{label} divergence={div}")
-            r.render_static = rs_d
-            row = knob_row(timed_frames(r, f"{label}_{div}", gpu, "mega", prof_dir),
-                           n_diff, "default tier, XLA body")
-            r.render_static = rs
-            rec["frames"][f"{label}_{div}"] = row
-            print(f"{label} divergence={div}: {n_diff} pixels differ from the "
-                  f"default XLA body frame [{gpu}]", flush=True)
-        pose(r, KNOB_POSE)
-
-    # the unrolled bounce loop
-    rs = rc2.render_static
-    full = dataclasses.replace(rs, fused="off", wavefront="full")
-    unrolled = dataclasses.replace(rs, bounce_unroll=True, wavefront="full")
-    pose(rc2, KNOB_POSE)
-    cam = rc2.camera_tensor()
-    st_u = {}
-    got = render_frame(rc2.tscene, unrolled, cam, stats=st_u)
-    n_diff = frame_diff(got, render_frame(rc2.tscene, full, cam), set(),
-                        "config2 unrolled vs the full-width body")
-    check(st_u.get("host_syncs", 0) == 0, f"the unrolled frame reads nothing back ({st_u})")
-    rc2.render_static = unrolled
-    row = knob_row(timed_frames(rc2, "config2_standin_unrolled", gpu, "mega",
-                                prof_dir), n_diff, "full-width XLA body")
-    rc2.render_static = rs
-    pose(rc2, KNOB_POSE)
-    rec["frames"]["config2_unrolled"] = row
-    print(f"config2 bounce_unroll=True, wavefront='full': {n_diff} pixels differ "
-          f"from the full-width XLA body frame; host syncs {row['host_syncs']} "
-          f"[{gpu}]", flush=True)
+              f"the xla frame (proven tie pixels {len(ok)}), max abs diff to the "
+              f"fused default frame off them {far:.3g} [{gpu}]", flush=True)
 
     # chunked trees: config4 at raytpu's chunk size
     r4 = renderers["config4_standin"]
@@ -3451,7 +3424,7 @@ def main() -> int:
     print(f"teapot stand-in tree sha256 {digest} (raytpu's {TREE_DIGEST})", flush=True)
     check(digest == TREE_DIGEST, "the port builds raytpu's tree of the teapot stand-in")
     rs4 = r4.render_static
-    check(rs4.fused == "on" and rs4.wavefront == "compact",
+    check(rs4.wavefront == "compact",
           f"the stand-ins render the default path ({rs4})")
 
     r4.set_transforms(0.05)
@@ -3480,15 +3453,13 @@ def main() -> int:
     r4.tscene = dataclasses.replace(r4.tscene, traversal="auto")
     waves4 = tier_waves(r4, 0.05)
 
-    r4.render_static = dataclasses.replace(rs4, fused="off", wavefront="full")
-    eager4 = render_frames(r4, 2, 0.05, 0.05, "config4_standin_eager", gpu, "perlane")
     r4.render_static = dataclasses.replace(rs4, wavefront="full")
     full4 = render_frames(r4, 2, 0.05, 0.05, "config4_standin_full_width", gpu,
                           "perlane")
     r4.render_static = rs4
 
     # traversal="xla": the XLA body, compacted, on the per-(instance, mesh)
-    # loop (K11a/K11b), whatever fused says
+    # loop (K11a/K11b)
     r4.tscene = dataclasses.replace(r4.tscene, traversal="xla")
     xla4 = render_frames(r4, 2, 0.05, 0.05, "config4_standin_xla", gpu, "xla")
     mesh_counts = xla4["launches"]
@@ -3531,7 +3502,7 @@ def main() -> int:
         print(f"{label}: scene + BVH {time.perf_counter() - start:.2f} s "
               f"({tsc.bvh_aabb_min.shape[0]} nodes, {tsc.bvh_tri_v0.shape[0]} "
               f"triangles, {len(tsc.traversal_list)} entries)", flush=True)
-        check(rc.render_static.fused == "on" and rc.render_static.wavefront == "compact",
+        check(rc.render_static.wavefront == "compact",
               f"{label} renders the default path")
         res, ties = compare_consensus(rc, label, gpu,
                                       whole_plain=label == "config3_standin")
@@ -3561,21 +3532,13 @@ def main() -> int:
           "256x192 consensus-tier frame equals the per-lane frame bit for bit")
     print("256x192 compacted per-lane frame vs full-width fused frame and vs the "
           "pallas-tier and consensus-tier frames on the card: bit for bit", flush=True)
-    body = {}
-    for trav in ("xla", "perlane", "pallas"):
-        ts_t = dataclasses.replace(small.tscene, traversal=trav)
-        body[trav] = render_frame(ts_t, dataclasses.replace(rs_s, fused="off"), cam)
-        check(torch.equal(body[trav], render_frame(ts_t, dataclasses.replace(
-            rs_s, fused="off", wavefront="full"), cam)),
-              f"256x192 {trav}: the compacted XLA body equals the full-width body "
-              f"bit for bit")
-    check(torch.equal(body["xla"], render_frame(dataclasses.replace(
-        small.tscene, traversal="xla"), rs_s, cam)),
-          "256x192 xla: fused='on' renders the XLA body too")
-    check(torch.equal(body["xla"], body["pallas"]),
-          "256x192: the xla body frame equals the pallas-tier body frame bit for bit")
-    print("256x192 XLA body (fused='off'), compacted vs full width on the xla, "
-          "per-lane and pallas tiers, and xla vs pallas: bit for bit", flush=True)
+    ts_x = dataclasses.replace(small.tscene, traversal="xla")
+    body = render_frame(ts_x, rs_s, cam)
+    check(torch.equal(body, render_frame(ts_x, dataclasses.replace(
+        rs_s, wavefront="full"), cam)),
+          "256x192 xla: the compacted XLA body equals the full-width body bit for bit")
+    print("256x192 XLA body on the xla tier, compacted vs full width: bit for bit",
+          flush=True)
     with plain_kernels():
         img_p = render_frame(small.tscene, rs_s, cam).cpu().numpy()
     img_k = img_k.cpu().numpy()
@@ -3589,12 +3552,11 @@ def main() -> int:
     print(f"256x192 kernel path vs plain path from the same primary rays: "
           f"max abs diff {same:.3g}", flush=True)
     check(same <= 1e-6, f"same-rays frames within 1e-6 ({same})")
-    got, want = same_rays_frames(
-        small, rs_s, dataclasses.replace(rs_s, fused="off", wavefront="full"))
-    eager_diff = max((a - b).abs().max().item() for a, b in zip(got, want))
-    print(f"256x192 fused compacted frame vs eager frame from the same primary "
-          f"rays: max abs diff {eager_diff:.3g}", flush=True)
-    check(eager_diff <= 1e-5, f"fused vs eager frame within 1e-5 ({eager_diff})")
+    got, want = same_rays_frames(small, rs_s, rs_s, ts_b=ts_x)
+    body_diff = max((a - b).abs().max().item() for a, b in zip(got, want))
+    print(f"256x192 fused per-lane frame vs the xla tier's XLA body frame from the "
+          f"same primary rays: max abs diff {body_diff:.3g}", flush=True)
+    check(body_diff <= 1e-5, f"fused vs XLA body frame within 1e-5 ({body_diff})")
     tie_r = Renderer(scenes.tie_scene())
     tie = tie_check(tie_r)
 
@@ -3614,13 +3576,12 @@ def main() -> int:
 
     print(json.dumps({"gpu": gpu, "config4_standin": c4,
                       "config4_standin_pallas": pal4, "config4_tier_waves": waves4,
-                      "config4_standin_eager": eager4,
                       "config4_standin_full_width": full4,
                       "config4_standin_xla": xla4, "reference_standin": ref,
                       **cons,
                       "small_frame": {"ssim": s, "max_abs_diff": diff,
                                       "same_rays_max_abs_diff": same,
-                                      "eager_same_rays_max_abs_diff": eager_diff,
+                                      "body_same_rays_max_abs_diff": body_diff,
                                       "compact_equals_full": True,
                                       "perlane_equals_pallas": True,
                                       "mega_equals_perlane": True,

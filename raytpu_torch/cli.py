@@ -69,8 +69,8 @@ def _overrides(args) -> dict:
     """The RenderConfig fields set on the command line."""
     overrides = {}
     for field in ("width", "height", "samples_per_pixel", "max_bounce_count",
-                  "ray_chunk", "devices", "traversal", "divergence",
-                  "wavefront", "chunk_tris"):
+                  "ray_chunk", "devices", "traversal", "wavefront",
+                  "chunk_tris"):
         v = getattr(args, field, None)
         if v is not None:
             overrides[field] = v
@@ -130,9 +130,6 @@ def _add_scene_args(p: argparse.ArgumentParser) -> None:
                    choices=("auto", "perlane", "mega", "xla", "pallas",
                             "brute"),
                    help="traversal backend (default auto)")
-    p.add_argument("--divergence", choices=("off", "split", "split_all",
-                                            "sort"),
-                   help="divergence scheduling mode (see RenderConfig)")
     p.add_argument("--wavefront", choices=("full", "compact"),
                    help="bounce-loop scheduling (see RenderConfig)")
     p.add_argument("--light", type=float, nargs=3, metavar=("X", "Y", "Z"))

@@ -97,74 +97,29 @@ class RenderConfig:
     test_fps: bool = False                    # uncapped frame loop + FPS print
     validation: bool = False                  # NaN/finite guards on the render path
 
-    # skybox filter: "bilinear" (default: the reference's LINEAR-sampler
-    # semantics — on TPU this rides the MXU texture unit, ops/sky_mxu.py,
-    # at single-tap cost; 4 gathers on the fallback/CPU path), "bilinear2x"
-    # (one gather into a 2x-prefiltered map — max quarter-texel error vs
-    # true bilinear), "nearest" (1 gather, unfiltered)
+    # skybox filter of the deferred sky fetch: "bilinear" (the reference's
+    # LINEAR sampler; K6), "bilinear2x" (one tap into a 2x-prefiltered map,
+    # at most a quarter texel from true bilinear), "nearest" (one tap)
     skybox_filter: str = "bilinear"
-    # deferred-sky sampler: "auto" (MXU texture unit on TPU when the map and
-    # packet shape allow, else gather), "gather", or "mxu" (forced)
-    sky_sampler: str = "auto"
-    # window-cell lane re-binning of the deferred MXU sky fetch's
-    # compacted fallback sub-wave (sky_mxu._rebin_subwave): "auto"
-    # (currently resolves OFF — both rebin designs measured-REJECTED on
-    # chip, see integrator._use_sky_rebin), "on" (experiment), "off".
-    # Same ≤1 u8 LSB sampler contract either way (path assignment
-    # shifts across the sort).
-    sky_rebin: str = "auto"
 
-    # --- TPU-specific knobs (no reference analog; tuning surface) ---
-    # divergence scheduling for sparse/divergent waves (shadow + bounce
-    # sweeps; ops/rebin.py). Both alternatives to "off" were implemented,
-    # measured on v5e, and REJECTED for the reference workloads — kept as
-    # recorded experiments (docs/roadmap.md):
-    #   "split" / "split_all": static sub-tile regrouping (reshape/
-    #     transpose; spp sample copies of a 1/spp tile as one packet,
-    #     quartering each walk's footprint at spp=4) — bit-identical but
-    #     config4 185→320 ms, config2 28→38 ms: 4× walk count (root
-    #     parks, per-group overhead) beats the narrower cones.
-    #   "sort": segmented octant/liveness lane sort — pathological
-    #     (config4 frame 185 ms → 6.2 s; XLA sorts inside the bounce
-    #     while_loop).
-    divergence: str = "off"
-    # bounce-loop scheduling: "full" runs every loop iteration at frame
-    # width; "compact" sorts packets live-first after the (peeled) primary
-    # bounce and runs later iterations over ~P/4-packet waves — packet
-    # moves are contiguous row copies (measured ~bandwidth speed), the
-    # elementwise shading/bookkeeping and sweeps shrink 4×, and waves
-    # iterate when more packets survive than the budget. Bit-identical
-    # (per-lane results are permutation-invariant). Default "compact"
-    # since round 3f: it measured ~neutral in round 3b when sweep cost
-    # dominated, but after the per-lane tier + round-3e sky/shadow cuts it
-    # wins every preset on-chip (tools/r5_compact_ab.py, same-session
-    # A/B over the pair walk: config5 18.9 → 17.9 ms, config2 22.9 →
-    # 22.1, config4 137.9 → 136.0, reference 75.4 → 72.5).
+    # --- port knobs (no reference analog) ---
+    # bounce-loop scheduling: "full" runs every bounce at frame width;
+    # "compact" sorts the packets live-first after the first bounce and
+    # runs the later ones over waves of the live packets only (the frame
+    # is the same but for exact ties)
     wavefront: str = "compact"
     ray_chunk: int = 0            # rays per traversal chunk; 0 = whole frame
-    # statically unroll the bounce loop (max_bounce_count <= 8 only):
-    # identical math to the lax.while_loop, measured as an A/B knob for
-    # the loop's structural overhead (carried-buffer copies around the
-    # aliased sweep kernels). Larger executable; default off.
-    bounce_unroll: bool = False
-    # triangles per BLAS chunk for the closest-hit set; 0 = SMEM-sized
-    # default (accel/chunking.CHUNK_TRIS). Small-mesh scenes with divergent
-    # bounce waves measure faster with FINER chunks (config5: 2048 → ~2.5 ms
-    # off a 34 ms frame, tools/r4_finechunk.py): shorter per-chunk walks
-    # beat the extra prepass entries once trees are shallow. The
-    # anyhit-specialized shadow set keeps its own coarser partition.
+    # triangles per BVH chunk (accel/chunking.py): a mesh above it is cut
+    # into several trees, each its own entry; 0 = one tree a mesh
     chunk_tris: int = 0
-    # max triangles per BVH leaf (default 12, the measured optimum — see
-    # ops/intersect.LEAF_UNROLL for the A/B table; the pair link word's
-    # 4-bit cnt field caps it at 15; RAYTPU_LEAF_SIZE overrides BOTH this
-    # and the traversal unroll — one env var keeps them consistent)
+    # max triangles per BVH leaf (the packed link word's 4-bit count caps
+    # it at 15); RAYTPU_LEAF_SIZE sets it
     leaf_size: int = int(os.environ.get("RAYTPU_LEAF_SIZE", "12"))
     bvh_builder: str = "auto"     # "auto" | "native" | "sah" | "median" | "lbvh"
     # "auto" | "hybrid" | "perlane" | "mega" | "xla" | "pallas" | "brute"
-    # ("hybrid": per-lane tier for the peeled primary sweeps, megakernel
-    # for bounce sweeps — see ops/trace.py:_use_perlane)
+    # ("hybrid": the per-lane sweeps on the first bounce, the consensus
+    # sweeps on the later ones; integrator._tier)
     traversal: str = "auto"
-    dtype: str = "float32"
     devices: int = 1              # pixel-tile sharding degree (parallel/dist.py)
 
     @property

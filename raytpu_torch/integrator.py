@@ -3,24 +3,24 @@
 ``_trace_sample_fused`` (:379-572) with its sort-once compacted waves
 (``_wave_budget`` :239, ``_wave_rungs`` :258), the XLA bounce body of
 ``_trace_sample`` (:611-898, ``bounce_core`` :651) with its per-iteration
-resort (``body_compact`` :748) for ``fused="off"``, for
-``traversal="xla"`` and for a scene without a BVH, its peel rule (:830)
-and unrolled loop (:837), the deferred sky fetch (:575) with its three filters,
-the validation guards (:567-571, :857-862), ``render_packets`` (:901-970)
-with its interleaved spp fold and its unfolded loop of one wave per sample,
-``render_pixels`` (:976) for a list of pixels, tile-major pixel packets
-(:1002), ``render_frame`` (:1047) with its ray chunks, and ``detile``
-(:1092). ``parallel/dist.py`` shards a frame's tile rows over several
-devices, each slot through ``render_packets``.
+resort (``body_compact`` :748) for the per-(instance, mesh) loop, the
+deferred sky fetch (:575) with its three filters, the validation guards
+(:567-571, :857-862), ``render_packets`` (:901-970) with its interleaved
+spp fold and its unfolded loop of one wave per sample, ``render_pixels``
+(:976) for a list of pixels, tile-major pixel packets (:1002),
+``render_frame`` (:1047) with its ray chunks, and ``detile`` (:1092).
+``parallel/dist.py`` shards a frame's tile rows over several devices, each
+slot through ``render_packets``.
 
-The default path (``fused="on"``, ``wavefront="compact"``): per bounce a
-closest-hit sweep, the fused shade pass, a shadow any-hit sweep and the
-fused accumulate pass, on the packed (6, P, K) rays and (3, P, K)
-radiance; after the first bounce the packets sort live-first once and
-later bounces run over waves of the live prefix only. Every one of these,
-the raygen and the sky run through their kernel wrappers (CUDA tensors
-launch the hand-written kernels); ``make_trace_state``, the sort and the
-bookkeeping are plain PyTorch, as they are plain XLA in the JAX loop.
+Each packed tier has one loop, the fused loop (``wavefront="compact"`` by
+default): per bounce a closest-hit sweep, the fused shade pass, a shadow
+any-hit sweep and the fused accumulate pass, on the packed (6, P, K) rays
+and (3, P, K) radiance; after the first bounce the packets sort live-first
+once and later bounces run over waves of the live prefix only. Every one
+of these, the raygen and the sky run through their kernel wrappers (CUDA
+tensors launch the hand-written kernels); ``make_trace_state``, the sort
+and the bookkeeping are plain PyTorch, as they are plain XLA in the JAX
+loop.
 
 The sweeps follow the scene's traversal tier as the JAX package routes
 them (``raytpu/ops/trace.py:491-547``, ``_use_perlane`` :550, ``_use_mega``
@@ -35,21 +35,15 @@ on the later bounces under "hybrid"; the chained sweeps (K10a, K10b;
 "xla" is no packed tier (``_use_perlane``, ``_use_mega`` and
 ``_all_pallas`` all reject it), so the JAX package's ``_use_fused``
 (:204-236) never takes the fused loop for it: an "xla" frame renders
-through the XLA body whatever ``fused`` says, and every sweep of it is the
-unpacked per-(instance, mesh) loop (``ops/trace.closest_hit_loop`` /
-``any_hit_loop``) on the one-mesh walks K11a/K11b. The packed tiers
-reject packets other than ``PACKET_K`` lanes too (tiles other than 32x32),
-so such frames render so on every traversal value (``_tier``). A scene
-with no BVH (``traversal="brute"`` or ``bvh_builder="brute"``) renders
-through the XLA body too, every sweep the same loop over the brute
-tracers (``brute_closest_kernel`` / ``brute_anyhit_kernel``).
-
-The JAX package's scheduling knobs take the XLA body as well (:224):
-``divergence`` permutes the lanes around the consensus sweeps
-(``ops/rebin.py``; the j=0 closest sweep is left alone under "sort" and
-"split" at a fold of 2 or 4 samples, :830-832, and scheduled under
-"split_all"), and ``bounce_unroll`` runs every bounce of a full-width loop
-of at most 8 bounces with no host read between them (:837-849).
+through the XLA body, and every sweep of it is the unpacked
+per-(instance, mesh) loop (``ops/trace.closest_hit_loop`` /
+``any_hit_loop``) on the one-mesh walks K11a/K11b. The packed tiers reject
+packets other than ``PACKET_K`` lanes too (tiles other than 32x32), so
+such frames render so on every traversal value (``_tier``). A scene with
+no BVH (``traversal="brute"`` or ``bvh_builder="brute"``) renders through
+the XLA body too, every sweep the same loop over the brute tracers
+(``brute_closest_kernel`` / ``brute_anyhit_kernel``). Those two tiers are
+the only ones the XLA body serves.
 
 Host syncs per frame (each counted in ``stats["host_syncs"]``): the loop
 condition once per bounce iteration (``any(window > 0)`` at full width,
@@ -115,7 +109,6 @@ from raytpu_torch.ops.perlane import (
     perlane_closest_sweep_ref,
 )
 from raytpu_torch.ops.raygen import primary_rays_soa, raygen_packed, raygen_packed_ref
-from raytpu_torch.ops.rebin import DIVERGENCE
 from raytpu_torch.ops.sky import (
     sample_cubemap_u32,
     sample_cubemap_u32_nearest,
@@ -124,11 +117,9 @@ from raytpu_torch.ops.sky import (
 )
 from raytpu_torch.ops.trace import (
     any_hit_loop,
-    any_hit_wave,
     brute_mesh_anyhit,
     brute_mesh_closest,
     closest_hit_loop,
-    closest_hit_wave,
 )
 from raytpu_torch.ops.traverse import (
     anyhit_sweep,
@@ -159,9 +150,6 @@ PACKET_K = 1024
 # per-(instance, mesh) loop on the one-mesh walks or the brute tracers
 # (_tier); "brute" leaves the scene without a BVH (render.Renderer)
 _TRAVERSALS = ("auto", "pallas", "xla", "perlane", "mega", "hybrid", "brute")
-# RenderConfig.sky_rebin's values: each renders the same frame in the port
-# (its sky kernel has no compacted fallback sub-wave to re-bin, :70-94)
-_SKY_REBIN = ("auto", "on", "off")
 
 # the frame's kernel wrappers, looked up at call time so that
 # plain_kernels() can swap in their plain versions
@@ -217,17 +205,12 @@ def plain_kernels():
 class RenderStatic:
     """Render parameters of the port (``raytpu/integrator.py:97-202``).
 
-    ``fused``: "on" runs the fused bounce loop (the shade and accumulate
-    kernels on the packed buffers); "off" the eager XLA body of
-    ``bounce_core``. ``traversal="xla"`` renders through the body whatever
-    ``fused`` says, as the JAX package does. ``wavefront``: "compact"
-    compacts the bounces after the first, in the fused loop by one
-    live-first sort, in the body by a resort every iteration
-    (``body_compact``); "full" runs every bounce at full width. Both compose
-    with either ``fused``. ``ladder``: "auto" moves the fused
-    compacted loop to smaller waves as the live prefix shrinks
-    (``_wave_rungs``), "off" keeps the one budget. ``shadow_order``: the
-    per-lane and consensus shadow sweeps' entry order
+    ``wavefront``: "compact" compacts the bounces after the first, in the
+    fused loop by one live-first sort, in the XLA body by a resort every
+    iteration (``body_compact``); "full" runs every bounce at full width.
+    ``ladder``: "auto" moves the fused compacted loop to smaller waves as
+    the live prefix shrinks (``_wave_rungs``), "off" keeps the one budget.
+    ``shadow_order``: the per-lane and consensus shadow sweeps' entry order
     (``raytpu/integrator.py:129``), "light" (nearest the light first) or
     "origin" (by entry depth).
 
@@ -238,21 +221,7 @@ class RenderStatic:
     ``ray_chunk``: rays per chunk of the frame (whole packets, rounded up
     to ``SEG_PACKETS``; 0 traces the whole frame at once). ``validation``:
     the non-finite guards at the end of both bounce loops
-    (``utils/validation.guard``).
-
-    ``divergence``: the lane schedule around the consensus sweeps, "off",
-    "split", "split_all" or "sort" (``ops/rebin.py``); anything but "off"
-    renders through the XLA body. ``bounce_unroll``: with
-    ``wavefront="full"`` (no compaction budget) and at most 8 bounces, the
-    XLA body runs all ``max_bounce_count + 1`` iterations with no host read
-    between them (:837-849), the shadow sweep of every iteration included;
-    the frame equals the loop's.
-
-    The JAX package's ``sample_group`` (:151-160) groups a tile's folded
-    sample packets into one consensus group of its TPU megakernel; the
-    port's consensus sweeps group lanes by warp (``ops/consensus.py``), so
-    only the divergence schedule reads it: "split" regroups a fold of 2 or
-    4 samples."""
+    (``utils/validation.guard``)."""
 
     width: int
     height: int
@@ -260,35 +229,23 @@ class RenderStatic:
     max_bounce_count: int
     skybox_filter: str = "bilinear"
     wavefront: str = "compact"
-    fused: str = "on"
     ladder: str = "auto"
     tile: int = 32
     fold_spp: bool = True
     shadow_order: str = "light"
     ray_chunk: int = 0
     validation: bool = False
-    divergence: str = "off"
-    bounce_unroll: bool = False
 
     @property
     def packet_size(self) -> int:
         return self.tile * self.tile
 
-    @property
-    def sample_group(self) -> int:
-        """The spp samples a folded tile's adjacent packets hold (1 when
-        not folded, or spp not 1, 2, 4 or 8)."""
-        spp = self.samples_per_pixel
-        return spp if self.fold_spp and spp in (1, 2, 4, 8) else 1
-
     def __post_init__(self):
         for name, allowed in (("skybox_filter", ("bilinear", "nearest",
                                                   "bilinear2x")),
                               ("wavefront", ("full", "compact")),
-                              ("fused", ("on", "off")),
                               ("ladder", ("auto", "off")),
-                              ("shadow_order", ("light", "origin")),
-                              ("divergence", DIVERGENCE)):
+                              ("shadow_order", ("light", "origin"))):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"{name}={getattr(self, name)!r}: use one "
                                  f"of {allowed}")
@@ -299,24 +256,18 @@ class RenderStatic:
     @classmethod
     def from_config(cls, config: RenderConfig) -> "RenderStatic":
         """The render parameters of a ``RenderConfig``. Raises on a value
-        the JAX package does not know, rather than ignoring it. All
-        ``sky_sampler`` values compute the same filter, so each maps to the
-        port's one sampler of it, and every ``sky_rebin`` value renders the
-        same frame; every ``bvh_builder`` of the JAX package is accepted
-        (``accel.attach_bvh`` builds its tree, "brute" none), and so is
-        ``chunk_tris`` >= 0 (the chunks ``attach_bvh`` cuts). ``dtype`` is
-        read nowhere, as in the JAX package (the frame is float32).
-        ``devices`` is the Renderer's (``devices > 1`` shards the frame,
-        ``parallel/``); it must be at least 1."""
+        the JAX package does not know, rather than ignoring it. Every
+        ``bvh_builder`` of the JAX package is accepted (``accel.attach_bvh``
+        builds its tree, "brute" none), and so is ``chunk_tris`` >= 0 (the
+        chunks ``attach_bvh`` cuts). ``devices`` is the Renderer's
+        (``devices > 1`` shards the frame, ``parallel/``); it must be at
+        least 1."""
         if config.devices < 1:
             raise ValueError(f"RenderConfig.devices={config.devices!r}: use 1 "
                              "device or more")
         if config.chunk_tris < 0:
             raise ValueError(f"RenderConfig.chunk_tris={config.chunk_tris!r}: "
                              "use 0 (one tree a mesh) or a triangle count")
-        if config.sky_rebin not in _SKY_REBIN:
-            raise ValueError(f"RenderConfig.sky_rebin={config.sky_rebin!r}: "
-                             f"use one of {_SKY_REBIN}")
         _check_traversal(config.traversal)
         if config.bvh_builder not in BVH_BUILDERS + ("brute",):
             raise ValueError(
@@ -331,8 +282,6 @@ class RenderStatic:
             wavefront=config.wavefront,
             ray_chunk=config.ray_chunk,
             validation=config.validation,
-            divergence=config.divergence,
-            bounce_unroll=bool(config.bounce_unroll),
         )
 
 
@@ -401,46 +350,27 @@ def _sweeps(ts: TorchScene, rs, p: int, k: int, primary: bool):
                               order=rs.shadow_order))
 
 
-def _traces(ts: TorchScene, rs, p: int, k: int, primary: bool,
-            sparse: str = "off"):
-    """``(closest, occlusion)`` of a wave of ``p`` packets of ``k`` lanes
-    for the XLA body, each with ``closest_hit_wave``'s / ``any_hit_wave``'s
-    arguments: the per-(instance, mesh) loop over the brute tracers where
-    the tier is "brute" and on K11a/K11b where it is "xla"
-    (:func:`_tier`), else the tier's packed sweeps (:func:`_sweeps`). On
-    the consensus tier the closest sweep's lanes take the divergence
-    schedule ``sparse`` and the shadow sweep's ``rs.divergence``, as the
-    JAX body passes them (``raytpu/integrator.py:661``, :693)."""
-    tier = _tier(ts, p, primary, k)
-    if tier == "brute":
+def _traces(ts: TorchScene):
+    """``(closest, occlusion)`` of a wave for the XLA body, each with
+    ``closest_hit_loop``'s / ``any_hit_loop``'s arguments: the
+    per-(instance, mesh) loop over the brute tracers for a scene with no
+    BVH (tier "brute"), else on K11a/K11b (tier "xla"; :func:`_tier`)."""
+    if not ts.has_bvh:
         return (functools.partial(closest_hit_loop, walk=functools.partial(
                     brute_mesh_closest, closest=_KERNELS["brute_closest"])),
                 functools.partial(any_hit_loop, walk=functools.partial(
                     brute_mesh_anyhit, anyhit=_KERNELS["brute_anyhit"])))
-    if tier == "xla":
-        return (functools.partial(closest_hit_loop,
-                                  walk=_KERNELS["mesh_closest"]),
-                functools.partial(any_hit_loop, walk=_KERNELS["mesh_anyhit"]))
-    closest, anyhit = _sweeps(ts, rs, p, k, primary)
-    mega = tier == "mega"
-    return (functools.partial(closest_hit_wave, sweep=closest,
-                              sparse=sparse if mega else "off",
-                              group=rs.sample_group),
-            functools.partial(any_hit_wave, sweep=anyhit,
-                              sparse=rs.divergence if mega else "off",
-                              group=rs.sample_group))
+    return (functools.partial(closest_hit_loop, walk=_KERNELS["mesh_closest"]),
+            functools.partial(any_hit_loop, walk=_KERNELS["mesh_anyhit"]))
 
 
-def _use_fused(ts: TorchScene, rs, p: int, k: int) -> bool:
+def _use_fused(ts: TorchScene, p: int, k: int) -> bool:
     """Whether the fused loop renders a frame of ``p`` packets of ``k``
-    lanes (``integrator._use_fused`` :204, without its TPU test):
-    ``fused="on"``, the default scheduling (``divergence="off"``, no
-    ``bounce_unroll``, :224) and a packed tier, which "xla" and "brute"
-    are not, nor any tier at packets other than ``PACKET_K`` lanes
-    (:234)."""
-    return (rs.fused == "on" and rs.divergence == "off"
-            and not rs.bounce_unroll
-            and _tier(ts, p, True, k) not in ("xla", "brute"))
+    lanes (``integrator._use_fused`` :204, without its TPU test): the first
+    bounce's tier is a packed one, which "xla" and "brute" are not, nor any
+    tier at packets other than ``PACKET_K`` lanes (:234). Every other frame
+    renders through the XLA body."""
+    return _tier(ts, p, True, k) not in ("xla", "brute")
 
 
 def _count(stats, key, mask):
@@ -472,15 +402,12 @@ def _shadow_always(rs) -> bool:
 
 
 @spanned("rt.bounce")
-def _bounce_core(ts, rs, o, d, tmp, active, miss_rec, decay, stats, traces,
-                 shadow_always: bool = False):
+def _bounce_core(ts, rs, o, d, tmp, active, miss_rec, decay, stats, traces):
     """One bounce at the width of its inputs (``integrator.py:651-736``)
     through the ``traces`` (:func:`_traces`): closest trace, miss record,
     shadow + Blinn-Phong, mirror/refract continuations. Per-lane results
     depend only on the lane, so it runs alike over the full wave or a
-    compacted wave of it. ``shadow_always`` sweeps the shadow rays without
-    the skip test's host read (a wave with no lit lane sweeps all-zero
-    windows, which occlude nothing)."""
+    compacted wave of it."""
     _count(stats, "closest_rays", active)
     lane_tmax = torch.where(active, torch.full_like(o[0], RAY_TMAX),
                             torch.zeros_like(o[0]))
@@ -503,7 +430,7 @@ def _bounce_core(ts, rs, o, d, tmp, active, miss_rec, decay, stats, traces,
     light_dist = v3.norm(to_light)
     l = v3.scale(1.0 / torch.clamp_min(light_dist, 1e-30), to_light)
 
-    if shadow_always or _shadow_always(rs) or _any(lit_candidate, stats):
+    if _shadow_always(rs) or _any(lit_candidate, stats):
         _count(stats, "shadow_rays", lit_candidate)
         with span("rt.sweep.shadow"):
             occluded = traces[1](
@@ -566,22 +493,9 @@ def _trace_sample(ts: TorchScene, rs: RenderStatic, o, d,
     ``_bounce_core`` over disjoint waves of ``budget`` rows that cover the
     live packets, and restores frame order with the inverse permutation.
     The budget divides P, so the waves never overlap, and the frame equals
-    the full-width body's bit for bit but for exact ties: on the per-lane
-    and consensus tiers the resort changes which packets share a culling
-    block, and with it the octant and entry order the block walks in, so a
-    ray that hits two triangles at exactly the same t may keep the other
-    one (as those tiers and the pallas tier may differ). The live packet
+    the full-width body's bit for bit but for exact ties. The live packet
     count is the iteration's one host read; it is also the loop condition
-    (no live packet, no live lane).
-
-    The divergence schedule (``rs.divergence``) applies to every closest
-    sweep but the first where the JAX body peels j=0 (:830-832: a
-    compaction budget, "hybrid", "sort", or "split" at a fold of 2 or 4
-    samples) and to every shadow sweep. With ``rs.bounce_unroll``, no
-    budget and at most 8 bounces (:837-849), all ``max_bounce_count + 1``
-    iterations run with no host read: no loop condition, and the shadow
-    sweep without its skip test; lanes that are done sweep zero windows,
-    so the frame equals the loop's."""
+    (no live packet, no live lane)."""
     p, k = o[0].shape
     tmp = tuple(torch.full((p, k), c, dtype=torch.float32, device=o[0].device)
                 for c in shade.ambient_tuple())
@@ -589,27 +503,18 @@ def _trace_sample(ts: TorchScene, rs: RenderStatic, o, d,
     miss_rec = torch.zeros((p, k), dtype=torch.bool, device=o[0].device)
     active = active0
     budget = _wave_budget(p) if rs.wavefront == "compact" else 0
-    peel = bool(budget) or ts.traversal == "hybrid" or rs.divergence == "sort" \
-        or (rs.divergence == "split" and rs.sample_group in (2, 4))
-    first = _traces(ts, rs, p, k, primary=True,
-                    sparse="off" if peel else rs.divergence)
+    traces = _traces(ts)
     j = 0
     if not budget:
-        later = _traces(ts, rs, p, k, primary=False, sparse=rs.divergence)
-        unroll = rs.bounce_unroll and rs.max_bounce_count <= 8
-        # inclusive bounce cap (shader.rgen:84); exits once every lane is
-        # done, unless unrolled
-        while j <= rs.max_bounce_count and (unroll or _any(active, stats)):
+        # inclusive bounce cap (shader.rgen:84); exits once every lane is done
+        while j <= rs.max_bounce_count and _any(active, stats):
             o, d, tmp, active, miss_rec = _bounce_core(
-                ts, rs, o, d, tmp, active, miss_rec, decay, stats,
-                later if j else first, unroll)
+                ts, rs, o, d, tmp, active, miss_rec, decay, stats, traces)
             j += 1
     else:
         o, d, tmp, active, miss_rec = _bounce_core(      # the peeled j = 0
-            ts, rs, o, d, tmp, active, miss_rec, decay, stats, first)
+            ts, rs, o, d, tmp, active, miss_rec, decay, stats, traces)
         j = 1
-        traces = _traces(ts, rs, budget, k, primary=False,
-                         sparse=rs.divergence)
         while j <= rs.max_bounce_count:
             live = active.any(dim=1)
             n_live = int(_read(live.sum(), stats))
@@ -1002,7 +907,7 @@ def _trace_wave(ts, rs, camera, px, py, act, s_row, rays6, stats):
     Vec3 color."""
     p, k = px.shape
     spp = rs.samples_per_pixel
-    fused = _use_fused(ts, rs, p, k)
+    fused = _use_fused(ts, p, k)
     if rays6 is None:
         with span("rt.raygen"):
             rays6 = _KERNELS["raygen"](camera, s_row, px, py, spp, rs.width,
@@ -1104,7 +1009,7 @@ def one_fused_wave(ts: TorchScene, rs: RenderStatic) -> bool:
     fused loop: one chunk (:func:`frame_chunk`), the samples folded
     (:func:`_folds`), the fused loop taken (:func:`_use_fused`)."""
     return (not frame_chunk(rs) and _folds(rs) and _use_fused(
-        ts, rs, frame_packets(rs) * rs.samples_per_pixel, rs.packet_size))
+        ts, frame_packets(rs) * rs.samples_per_pixel, rs.packet_size))
 
 
 def render_frame(ts: TorchScene, rs: RenderStatic, camera: torch.Tensor,

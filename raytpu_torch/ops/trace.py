@@ -1,11 +1,9 @@
 """Scene-level closest hit and occlusion for a packet wave (counterpart of
 ``raytpu/ops/trace.py:127-459``).
 
-``closest_hit_wave`` / ``any_hit_wave`` serve the packed-ABI tiers: pack the
-rays, sweep every (instance, mesh) entry in one call, unpack. Around a
-consensus sweep they apply the divergence schedule (``sparse``,
-``ops/rebin.schedule``) as the JAX package's megakernel branch does
-(:188-225, :376-410).
+``closest_hit_wave`` / ``any_hit_wave`` run a packed-ABI sweep on a wave of
+unpacked rays: pack the rays, sweep every (instance, mesh) entry in one
+call, unpack.
 ``closest_hit_loop`` / ``any_hit_loop`` are the JAX package's unpacked
 per-(instance, mesh) loop (:256-322, :429-459), which ``traversal="xla"``
 takes: per entry in ``traversal_list`` order, the rays move to the
@@ -24,7 +22,6 @@ from typing import NamedTuple
 import torch
 
 from raytpu_torch.device_scene import TorchScene
-from raytpu_torch.ops import rebin
 from raytpu_torch.ops import vec3 as v3
 from raytpu_torch.ops.intersect import BIG_T, brute_anyhit, brute_closest
 from raytpu_torch.ops.traverse import (
@@ -51,18 +48,12 @@ class HitWave(NamedTuple):
 
 
 def closest_hit_wave(ts: TorchScene, o, d, tmin: float, tmax: torch.Tensor,
-                     sweep=closest_sweep, sparse: str = "off",
-                     group: int = 1) -> HitWave:
+                     sweep=closest_sweep) -> HitWave:
     """Closest hit of the wave ``(o, d)`` (Vec3 of (P, K)) within the
     per-lane window ``(tmin, tmax)``, through ``sweep`` (the kernel wrapper,
-    or its plain version), the lanes in the order of the divergence
-    schedule ``sparse`` for a wave folded ``group`` samples a tile
-    (``rebin.schedule``; "off" leaves them)."""
-    o, d, tmax, back = rebin.schedule(o, d, tmax.expand(o[0].shape), tmin,
-                                      sparse, group)
-    state = make_trace_state(tmax.contiguous())
-    rays = pack_rays(o, d)
-    state = back(sweep(ts, rays, tmin, state))
+    or its plain version)."""
+    state = make_trace_state(tmax.expand(o[0].shape).contiguous())
+    state = sweep(ts, pack_rays(o, d), tmin, state)
     t, valid, mat, inst, n, u, v = unpack_state(state)
     return HitWave(
         t=torch.where(valid, t, torch.full_like(t, BIG_T)),
@@ -71,15 +62,12 @@ def closest_hit_wave(ts: TorchScene, o, d, tmin: float, tmax: torch.Tensor,
 
 
 def any_hit_wave(ts: TorchScene, o, d, tmin: float, tmax: torch.Tensor,
-                 sweep=anyhit_sweep, sparse: str = "off",
-                 group: int = 1) -> torch.Tensor:
+                 sweep=anyhit_sweep) -> torch.Tensor:
     """Occlusion of the wave within ``(tmin, tmax)`` per lane -> bool (P, K),
-    the lanes scheduled as in :func:`closest_hit_wave`."""
-    o, d, tmax, back = rebin.schedule(o, d, tmax.expand(o[0].shape), tmin,
-                                      sparse, group)
-    rays = pack_rays(o, d)
+    through ``sweep`` as in :func:`closest_hit_wave`."""
     occ = torch.zeros(o[0].shape, dtype=torch.int32, device=o[0].device)
-    occ = back(sweep(ts, rays, tmin, tmax.contiguous(), occ))
+    occ = sweep(ts, pack_rays(o, d), tmin,
+                tmax.expand(o[0].shape).contiguous(), occ)
     return occ != 0
 
 

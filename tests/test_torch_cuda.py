@@ -449,8 +449,9 @@ def test_build_order_walks_bitwise(rig, strided):
 
 def test_xla_frame_launches_mesh_walks(rig):
     """An "xla" frame renders through the XLA body, compacted, on K11a/K11b
-    and launches no packed sweep and no fused shading; it equals the
-    pallas tier's frame through the same body bit for bit."""
+    and launches no packed sweep and no fused shading; it is within 1e-5
+    of the pallas tier's fused frame, whose shading kernels round apart
+    from the body's ops."""
     r, _ = rig
     ts = dataclasses.replace(r.tscene, traversal="xla")
     _build.reset_launch_counts()
@@ -461,9 +462,9 @@ def test_xla_frame_launches_mesh_walks(rig):
     assert counts["mesh_closest"] > 0 and counts["mesh_anyhit"] > 0, counts
     assert all(n == 0 for k, n in counts.items()
                if k not in ("mesh_closest", "mesh_anyhit", "raygen", "sky")), counts
-    body = dataclasses.replace(r.render_static, fused="off")
-    assert torch.equal(img, render_frame(dataclasses.replace(ts, traversal="pallas"),
-                                         body, r.camera_tensor()))
+    pallas = render_frame(dataclasses.replace(ts, traversal="pallas"),
+                          r.render_static, r.camera_tensor())
+    assert (img - pallas).abs().max() <= 1e-5
 
 
 def test_bench_run_benchmark_on_a_small_standin(rig):

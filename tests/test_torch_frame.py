@@ -10,8 +10,8 @@ Both packages render one host scene (``tests/torch_twin.py``).
     ``render_frame``. The cases (spp 2, 0 bounces), (1, 3) and (2, 63)
     cover spp {1, 2}, bounces {0, 3, 63} and both branches of the
     shadow-skip rule. The port's frame comes from its default fused loop
-    (the shade and accumulate kernels' plain versions) and, held to the
-    same bar, from its eager ``fused="off"`` body. The rays are fed to raytpu's bounce
+    (the shade and accumulate kernels' plain versions), compacted and,
+    held to the same bar, at full width. The rays are fed to raytpu's bounce
     body and not regenerated inside ``render_frame`` because the shader
     hash is chaotic: XLA compiles the raygen inside the frame's jit with
     other rounding than the same ops run eagerly (measured 1e-2 apart on a
@@ -81,12 +81,12 @@ def _jax_frame(scene, static, rs, o, d, s_idx, act):
 
 
 def _same_rays_frames(width, height, spp, bounces, scene_fn=scenes.mixed_scene,
-                      short_cap=None, eager=False, tier=None, **cfg):
+                      short_cap=None, full=False, tier=None, **cfg):
     """(port frame, raytpu frame) from the same primary rays, the port's
     through its default fused loop; with ``short_cap``, also the port's
-    frame at that bounce cap; with ``eager``, also the port's frame through
-    its eager ``fused="off"`` body. ``tier``, if given, is the port's
-    expected ``frame_tier``."""
+    frame at that bounce cap; with ``full``, also the port's frame through
+    its full-width loop (``wavefront="full"``). ``tier``, if given, is the
+    port's expected ``frame_tier``."""
     jscene, scene = twin(scene_fn(width, height, spp, bounces, **cfg))
     jr = JaxRenderer(jscene)
     jr.set_transforms(T_ANIM)
@@ -123,9 +123,8 @@ def _same_rays_frames(width, height, spp, bounces, scene_fn=scenes.mixed_scene,
         return detile(colors, rs).numpy()
 
     got = port(rs)
-    if eager:
-        return got, want, port(dataclasses.replace(rs, fused="off",
-                                                   wavefront="full"))
+    if full:
+        return got, want, port(dataclasses.replace(rs, wavefront="full"))
     if short_cap is None:
         return got, want
     return got, want, port(dataclasses.replace(rs, max_bounce_count=short_cap))
@@ -133,11 +132,11 @@ def _same_rays_frames(width, height, spp, bounces, scene_fn=scenes.mixed_scene,
 
 @pytest.mark.parametrize("spp,bounces", [(2, 0), (1, 3)])
 def test_same_rays_frame_matches_raytpu(spp, bounces):
-    got, want, eager = _same_rays_frames(64, 48, spp, bounces, eager=True)
+    got, want, full = _same_rays_frames(64, 48, spp, bounces, full=True)
     assert got.shape == want.shape == (48, 64, 3)
     assert want.std() > 0.05  # materials and sky all show
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
-    np.testing.assert_allclose(eager, want, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(full, want, rtol=0, atol=1e-5)
 
 
 def test_same_rays_deep_frame_matches_raytpu():

@@ -182,14 +182,12 @@ def test_cli_rejects_what_the_port_lacks(tmp_path, flags, match):
 
 @pytest.mark.parametrize("preset,flags,entries", [
     ("config1_standin", ["--traversal", "brute"], None),
-    ("config1_standin", ["--divergence", "sort"], 1),
-    ("config1_standin", ["--divergence", "split"], 1),
     ("config2_standin", ["--chunk-tris", "2048"], 3),
-], ids=("brute", "sort", "split", "chunk_tris"))
+], ids=("brute", "chunk_tris"))
 def test_cli_renders_the_knobs(tmp_path, monkeypatch, preset, flags, entries):
     """``render --cpu`` writes the frame under the brute tracer (no tree
-    attached), a divergence schedule and chunked trees (config2's 5,120
-    triangles in chunks of at most 2,048: three trees, three entries)."""
+    attached) and with chunked trees (config2's 5,120 triangles in chunks
+    of at most 2,048: three trees, three entries)."""
     built = []
 
     def spy(*args, **kwargs):

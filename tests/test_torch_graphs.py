@@ -211,7 +211,7 @@ def small():
 
 @pytest.mark.parametrize("case", ["default", "cpu", "stats", "counting",
                                   "validation", "kernels", "chunks",
-                                  "unfolded", "xla", "body"])
+                                  "unfolded", "xla"])
 def test_graphable_reads_what_the_code_can_observe(small, case):
     ts, rs, stats = _cuda_named(small.tscene), small.render_static, None
     with _build.counting(case == "counting"), integrator.kernels(
@@ -226,8 +226,7 @@ def test_graphable_reads_what_the_code_can_observe(small, case):
             rs = dataclasses.replace(rs, **{
                 "validation": {"validation": True},
                 "chunks": {"ray_chunk": 1024, "width": 1280},
-                "unfolded": {"fold_spp": False},
-                "body": {"fused": "off"}}.get(case, {}))
+                "unfolded": {"fold_spp": False}}.get(case, {}))
         assert graphs.graphable(ts, rs, stats) == (case == "default")
     assert graphs.graphable(_cuda_named(small.tscene), small.render_static)
 

@@ -226,9 +226,9 @@ def test_launch_without_cuda_raises():
 
 
 def test_unported_config_values_raise():
-    """Every value the JAX package renders is accepted (the scheduling
-    knobs, brute force, chunks and the experiments ported in the knobs
-    slice among them); values it does not know still raise."""
+    """Every value the port renders is accepted (brute force, chunks and
+    the builders among them); values it does not know still raise, and
+    the JAX package's scheduling knobs and ignored fields are no fields."""
     from raytpu_torch.integrator import RenderStatic
 
     base = scenes.two_box_scene().config
@@ -237,36 +237,38 @@ def test_unported_config_values_raise():
     RenderStatic.from_config(base.replace(wavefront="full"))
     for knob in (dict(wavefront="sorted"), dict(skybox_filter="cubic"),
                  dict(ray_chunk=-1), dict(devices=0),
-                 dict(divergence="bogus"), dict(sky_rebin="sometimes"),
                  dict(traversal="bvh"), dict(chunk_tris=-1),
                  dict(bvh_builder="kd")):
         with pytest.raises(ValueError):
             RenderStatic.from_config(base.replace(**knob))
+    for knob in (dict(divergence="split"), dict(bounce_unroll=True),
+                 dict(sky_rebin="on"), dict(sky_sampler="gather"),
+                 dict(dtype="bfloat16")):
+        with pytest.raises(TypeError):
+            base.replace(**knob)
     # the values ported in the options slice and the knobs slice
     for knob in (dict(skybox_filter="nearest"), dict(skybox_filter="bilinear2x"),
                  dict(ray_chunk=4096), dict(validation=True), dict(devices=2),
                  dict(bvh_builder="sah"), dict(bvh_builder="median"),
                  dict(bvh_builder="lbvh"), dict(bvh_builder="native"),
                  dict(bvh_builder="brute"), dict(traversal="brute"),
-                 dict(divergence="split"), dict(divergence="split_all"),
-                 dict(divergence="sort"), dict(bounce_unroll=True),
-                 dict(sky_rebin="on"), dict(sky_rebin="off"),
-                 dict(chunk_tris=256), dict(dtype="bfloat16")):
+                 dict(chunk_tris=256)):
         rs = RenderStatic.from_config(base.replace(**knob))
         for name, value in knob.items():
-            assert name in ("bvh_builder", "devices", "traversal", "chunk_tris",
-                            "dtype", "sky_rebin") or getattr(rs, name) == value
+            assert name in ("bvh_builder", "devices", "traversal",
+                            "chunk_tris") or getattr(rs, name) == value
     for trav in ("auto", "pallas", "xla", "perlane", "mega", "hybrid", "brute"):
         RenderStatic.from_config(base.replace(traversal=trav))
     assert not RenderStatic(32, 32, 2, 1, fold_spp=False).fold_spp
-    # the eager body composes with full-width and compacted waves
-    RenderStatic(32, 32, 2, 1, wavefront="full", fused="off")
-    RenderStatic(32, 32, 2, 1, wavefront="compact", fused="off")
-    for bad in (dict(fused="auto"), dict(ladder="on"),
-                dict(shadow_order="far"), dict(skybox_filter="trilinear"),
-                dict(divergence="scatter")):
+    RenderStatic(32, 32, 2, 1, wavefront="full")
+    for bad in (dict(ladder="on"), dict(shadow_order="far"),
+                dict(skybox_filter="trilinear")):
         with pytest.raises(ValueError):
             RenderStatic(32, 32, 2, 1, **bad)
+    for gone in (dict(fused="off"), dict(divergence="sort"),
+                 dict(bounce_unroll=True)):
+        with pytest.raises(TypeError):
+            RenderStatic(32, 32, 2, 1, **gone)
 
 
 def test_plain_kernels_swaps_and_restores(small):

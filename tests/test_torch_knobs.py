@@ -1,33 +1,31 @@
 """The ``RenderConfig`` values the JAX package renders with no BVH, with
-its divergence schedule, with chunked trees and with its unrolled bounce
-loop, held against raytpu on the CPU:
+chunked trees and at full width, held against raytpu on the CPU:
 
 * the brute tracers' plain versions (``brute_closest_ref``,
   ``brute_anyhit_ref``) against ``raytpu.ops.intersect.brute_closest`` /
   ``brute_anyhit`` on seeded triangle soups with dead lanes and duplicated
   triangles (exact ties): prim exact, t, u and v within 4 f32 ulps,
   occlusion flags exact;
-* the divergence schedule (``ops/rebin.py``) against raytpu's on seeded
-  keys and planes, exact;
 * the port's chunked trees (``chunk_tris=2048`` on
   ``generate_highpoly(depth=5)``, 10 entries) against raytpu's
   ``attach_bvh``, bit for bit;
-* frames of ``mixed_scene(64, 48, spp 2, 3 bounces)`` under each new value
+* frames of ``mixed_scene(64, 48, spp 2, 3 bounces)`` under each value
   against raytpu's frame from the same primary rays, within 1e-5, and
-  against the port's default frame through the same body (the XLA body,
-  ``fused="off"``, or the fused loop for the chunked trees), bit for bit:
-  the scene has no exact ties;
+  against the port's default frame of the same rays, bit for bit: the
+  brute scenes against the XLA body's frame on the scene's BVH
+  (``traversal="xla"``, the body's other loop), the chunked trees and the
+  full-width loop against the fused loop's default frame; the scene has
+  no exact ties;
 * a brute frame and a chunked frame over 2 CPU slots, equal to one
   device's.
 
 raytpu's side renders in a child process whose XLA:CPU has no fused
 multiply-add (``--xla_cpu_max_isa=AVX``, as in ``test_torch_traverse.py``):
 the port rounds every operation once. raytpu's frames are its brute
-program's, with ``bounce_unroll`` where that is the value: every tier of
-raytpu computes the same hits and the scene has no exact ties, and off a
-TPU raytpu's divergence schedule never runs (it reaches only its
-megakernel) and its chunks change no hit, while its BVH programs take
-about 40 s each to compile here.
+program's, unrolled for the full-width frame (its ``bounce_unroll``
+computes the loop's frame): every tier of raytpu computes the same hits
+and the scene has no exact ties, and its chunks change no hit, while its
+BVH programs take about 40 s each to compile here.
 """
 
 import dataclasses
@@ -47,20 +45,18 @@ from raytpu import integrator as ji
 from raytpu.accel import attach_bvh as jax_attach_bvh
 from raytpu.device_scene import build_device_scene as jax_device_scene
 from raytpu.ops import intersect as jint
-from raytpu.ops import rebin as jrb
 from raytpu.render import Renderer as JaxRenderer
 from raytpu_torch import integrator, scenes
 from raytpu_torch.accel import attach_bvh
 from raytpu_torch.device_scene import build_device_scene, pack_tris
 from raytpu_torch.integrator import (
-    RenderStatic,
     _use_fused,
     detile,
     render_packets,
     tiled_pixels,
 )
 from raytpu_torch.io.genmesh import generate_highpoly
-from raytpu_torch.ops import intersect, rebin
+from raytpu_torch.ops import intersect
 from raytpu_torch.render import Renderer
 from raytpu_torch.scene import load_scene
 from tests.torch_twin import one_thread, twin
@@ -70,25 +66,20 @@ REPO = Path(__file__).resolve().parent.parent
 T_ANIM = 0.1
 TMIN = 1e-3
 SEEDS = (0, 1, 2)
-# each new value: its config knobs, the render statics of the port's
-# default frame it is held to bit for bit, and raytpu's frame it is held to
-# within 1e-5 (the unrolled loop runs only at full width)
-BODY = dict(fused="off")
-FULL = dict(fused="off", wavefront="full")
+# each value: its config knobs, the port's default frame it is held to bit
+# for bit ("body": the XLA body on the scene's BVH; "fused": the fused
+# loop), and raytpu's program whose frame it is held to within 1e-5
 KNOBS = {
-    "traversal=brute": (dict(traversal="brute"), BODY, "brute"),
-    "bvh_builder=brute": (dict(bvh_builder="brute"), BODY, "brute"),
-    "divergence=sort": (dict(divergence="sort"), BODY, "brute"),
-    "divergence=split": (dict(divergence="split"), BODY, "brute"),
-    "divergence=split_all": (dict(divergence="split_all"), BODY, "brute"),
-    "bounce_unroll": (dict(bounce_unroll=True, wavefront="full"), FULL,
-                      "unroll"),
-    "chunk_tris=64": (dict(chunk_tris=64), dict(fused="on"), "brute"),
+    "traversal=brute": (dict(traversal="brute"), "body", "brute"),
+    "bvh_builder=brute": (dict(bvh_builder="brute"), "body", "brute"),
+    "chunk_tris=64": (dict(chunk_tris=64), "fused", "brute"),
+    "wavefront=full": (dict(wavefront="full"), "fused", "unroll"),
 }
-# raytpu's programs: its brute loop, and its brute loop unrolled
-JAX_PROGRAMS = {"brute": dict(traversal="brute"),
-                "unroll": dict(traversal="brute", bounce_unroll=True,
-                               wavefront="full")}
+# raytpu's programs, each its scene's config knobs and its render statics:
+# its brute loop, and its brute loop unrolled at full width
+JAX_PROGRAMS = {"brute": (dict(traversal="brute"), {}),
+                "unroll": (dict(traversal="brute", wavefront="full"),
+                           dict(bounce_unroll=True))}
 
 
 @pytest.fixture(autouse=True)
@@ -145,10 +136,10 @@ def _knob_frames() -> dict:
     """raytpu's folded frame of each of its programs, and per knob the
     port's frame and its default frame, all from raytpu's primary rays."""
     out, rays = {}, None
-    for prog, knob in JAX_PROGRAMS.items():
+    for prog, (knob, statics) in JAX_PROGRAMS.items():
         jr = JaxRenderer(twin(scenes.mixed_scene(64, 48, 2, 3, **knob))[0])
         jr.set_transforms(T_ANIM)
-        rs_j = dataclasses.replace(jr.render_static, fused="off")
+        rs_j = dataclasses.replace(jr.render_static, fused="off", **statics)
         cam = jnp.asarray(jr.camera.basis())
         (px, py), _, act = ji._tiled_pixels(rs_j)
         spp, (p, k) = 2, px.shape
@@ -173,16 +164,15 @@ def _knob_frames() -> dict:
         return detile(render_packets(ts, rs, cam_t, tpx, tpy, t_in,
                                      rays6=rays6), rs).numpy()
 
-    defaults = {}
-    for name, (knob, ref_rs, _) in KNOBS.items():
+    defaults = {
+        "body": frame(dataclasses.replace(base.tscene, traversal="xla"),
+                      base.render_static),
+        "fused": frame(base.tscene, base.render_static)}
+    for name, (knob, ref, _) in KNOBS.items():
         r = Renderer(twin(scenes.mixed_scene(64, 48, 2, 3, **knob))[1], "cpu")
         r.set_transforms(T_ANIM)
         out[f"{name}_got"] = frame(r.tscene, r.render_static)
-        key = tuple(sorted(ref_rs.items()))
-        if key not in defaults:
-            defaults[key] = frame(base.tscene, dataclasses.replace(
-                base.render_static, **ref_rs))
-        out[f"{name}_default"] = defaults[key]
+        out[f"{name}_default"] = defaults[ref]
     return out
 
 
@@ -256,59 +246,6 @@ def test_brute_wrappers_refuse_cuda_without_a_card():
         intersect.brute_anyhit(rays, tmax, tris, TMIN)
 
 
-@pytest.mark.parametrize("p", [64, 40, 24, 8, 6])
-def test_rebin_matches_raytpu(p):
-    """octant_key, rebin_perm (segments of 64, 32, 16 or 8 packets, or
-    none), permute and permute_planes against raytpu's, exact."""
-    rng = np.random.default_rng(p)
-    k = 1024
-    d = rng.normal(size=(3, p, k)).astype(np.float32)
-    d[:, :, ::9] = 0.0
-    live = rng.random((p, k)) < 0.6
-    planes = rng.normal(size=(9, p, k)).astype(np.float32)
-    want_key = np.asarray(jrb.octant_key(tuple(jnp.asarray(x) for x in d),
-                                         jnp.asarray(live)))
-    key = rebin.octant_key(tuple(torch.from_numpy(x) for x in d),
-                           torch.from_numpy(live))
-    np.testing.assert_array_equal(key.numpy(), want_key)
-    j_sigma, j_rank, j_seg = jrb.rebin_perm(jnp.asarray(want_key))
-    sigma, rank, seg = rebin.rebin_perm(key)
-    assert seg == j_seg == {64: 64, 40: 8, 24: 8, 8: 8, 6: 0}[p]
-    if not seg:
-        assert sigma is None and j_sigma is None
-        return
-    np.testing.assert_array_equal(sigma.numpy(), np.asarray(j_sigma))
-    np.testing.assert_array_equal(rank.numpy(), np.asarray(j_rank))
-    np.testing.assert_array_equal(
-        rebin.permute(torch.from_numpy(planes[0]), sigma).numpy(),
-        np.asarray(jrb.permute(jnp.asarray(planes[0]), j_sigma)))
-    got = rebin.permute_planes(torch.from_numpy(planes), sigma)
-    np.testing.assert_array_equal(
-        got.numpy(), np.asarray(jrb.permute_planes(jnp.asarray(planes), j_sigma)))
-    back = rebin.permute_planes(got, rank)
-    np.testing.assert_array_equal(back.numpy(), planes)
-
-
-@pytest.mark.parametrize("spp", [1, 2, 4, 3])
-def test_tile_split_matches_raytpu(spp):
-    p = 8 * spp
-    rng = np.random.default_rng(spp)
-    planes = rng.normal(size=(9, p, 1024)).astype(np.float32)
-    assert rebin.can_split(p, 1024, spp) == jrb.can_split(p, 1024, spp) \
-        == (spp in (2, 4))
-    assert not rebin.can_split(p, 64, spp)
-    x = torch.from_numpy(planes[0])
-    np.testing.assert_array_equal(rebin.tile_split(x, spp).numpy(),
-                                  np.asarray(jrb.tile_split(jnp.asarray(planes[0]), spp)))
-    np.testing.assert_array_equal(rebin.tile_merge(x, spp).numpy(),
-                                  np.asarray(jrb.tile_merge(jnp.asarray(planes[0]), spp)))
-    assert torch.equal(rebin.tile_merge(rebin.tile_split(x, spp), spp), x)
-    for merge in (False, True):
-        np.testing.assert_array_equal(
-            rebin.tile_split_planes(torch.from_numpy(planes), spp, merge).numpy(),
-            np.asarray(jrb.tile_split_planes(jnp.asarray(planes), spp, merge)))
-
-
 def test_chunked_trees_equal_raytpu():
     """``chunk_tris=2048`` on the 20,480-triangle highpoly (with a 12-
     triangle box of one chunk beside it): the port's concatenated trees,
@@ -350,9 +287,8 @@ def test_knob_frame_matches_raytpu(child, name):
 
 def test_knob_routing():
     """Brute scenes take the brute loop on every traversal value and tile;
-    the scheduling knobs take the XLA body, where the schedule really
-    permutes the consensus waves; the unrolled loop reads nothing back;
-    chunked trees keep the fused loop and their tier."""
+    chunked trees keep the fused loop and their tier, and a full-width
+    frame the fused loop."""
     scene = scenes.mixed_scene(64, 48, 2, 3)
     r = Renderer(scene, "cpu")
     rb = Renderer(scenes.mixed_scene(64, 48, 2, 3, traversal="brute"), "cpu")
@@ -364,42 +300,23 @@ def test_knob_routing():
         ts = dataclasses.replace(rb.tscene, traversal=trav)
         for k in (64, 1024):
             assert integrator.frame_tier(ts, 64, k) == "brute"
-            assert not _use_fused(ts, r.render_static, 64, k)
+            assert not _use_fused(ts, 64, k)
     # a scene that has a BVH walks it under "brute" (raytpu/ops/trace.py:290)
     assert integrator.frame_tier(dataclasses.replace(r.tscene, traversal="brute"),
                                  64, 1024) == "xla"
-    for knob in (dict(divergence="sort"), dict(bounce_unroll=True)):
-        assert not _use_fused(r.tscene, dataclasses.replace(r.render_static, **knob),
-                              64, 1024)
     rc = Renderer(scenes.mixed_scene(64, 48, 2, 3, chunk_tris=64), "cpu")
     assert len(rc.tscene.entry_rows) > len(r.tscene.entry_rows)
-    assert _use_fused(rc.tscene, rc.render_static, 64, 1024)
-
-    calls = []
-    real = rebin.schedule
-
-    def spy(o, d, tmax, tmin, sparse, group):
-        out = real(o, d, tmax, tmin, sparse, group)
-        calls.append((sparse, not torch.equal(out[2], tmax)))
-        return out
-
+    assert _use_fused(rc.tscene, 64, 1024)
+    assert integrator.frame_tier(rc.tscene, 64, 1024) \
+        == integrator.frame_tier(r.tscene, 64, 1024) == "mega"
+    r.render_static = dataclasses.replace(r.render_static, wavefront="full")
     r.set_transforms(T_ANIM)
-    for div in ("sort", "split", "split_all"):
-        calls.clear()
-        rs = dataclasses.replace(r.render_static, divergence=div,
-                                 wavefront="full")   # no peel for a budget
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(rebin, "schedule", spy)
-            r.render_static = rs
-            r.render()
-        closest_first = calls[0][0]
-        assert closest_first == ("split_all" if div == "split_all" else "off")
-        assert any(moved for sparse, moved in calls if sparse == div), div
-    r.render_static = dataclasses.replace(r.render_static, divergence="off",
-                                          bounce_unroll=True)
     stats = {}
     r.render(stats=stats)
-    assert stats.get("host_syncs", 0) == 0 and stats["tier"] == "mega"
+    assert stats["tier"] == "mega"
+    # the full-width loop reads the live windows once a bounce, at most,
+    # and never the lit lanes (spp 2 and 3 bounces always sweep)
+    assert 0 < stats["host_syncs"] <= r.render_static.max_bounce_count + 1
 
 
 @pytest.mark.parametrize("knob", [dict(traversal="brute"), dict(chunk_tris=64)],
@@ -416,19 +333,13 @@ def test_sharded_knob_frame_equals_single(knob):
 
 
 def test_new_values_accepted_and_rendered():
-    """``sky_rebin`` and ``dtype`` are accepted and change nothing; a brute
-    Renderer validates its scene."""
+    """A brute Renderer validates its scene and renders within 1e-5 of the
+    default frame; a scene of repeated meshes keeps a prim range each."""
     base = Renderer(scenes.two_box_scene(32, 32, 2, 2), "cpu").render()
-    for knob in (dict(sky_rebin="on"), dict(sky_rebin="off"),
-                 dict(dtype="bfloat16"), dict(traversal="brute", validation=True)):
-        r = Renderer(scenes.two_box_scene(32, 32, 2, 2, **knob), "cpu")
-        img = r.render()
-        if "traversal" in knob:
-            assert (img - base).abs().max() <= 1e-5
-        else:
-            assert torch.equal(img, base)
-    assert RenderStatic.from_config(scenes.two_box_scene().config.replace(
-        dtype="float16")).sample_group == 1
+    r = Renderer(scenes.two_box_scene(32, 32, 2, 2, traversal="brute",
+                                      validation=True), "cpu")
+    assert r.render_static.validation and not r.tscene.has_bvh
+    assert (r.render() - base).abs().max() <= 1e-5
     s = load_scene(scenes.two_box_scene().config,
                    meshes=[generate_highpoly(depth=1)] * 2)
     assert Renderer(s, "cpu").tscene.mesh_prim_ranges == ((0, 80), (80, 80))

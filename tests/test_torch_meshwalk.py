@@ -15,9 +15,10 @@
   exact, t within 4 ulps, the normal within 1e-5, occlusion exact;
 * an ``"xla"`` frame against raytpu's ``"xla"`` frame from the same primary
   rays (1e-5 per pixel, SSIM > 0.98);
-* the XLA body's per-iteration resort (``body_compact``): compacted frames
-  equal full-width ones bit for bit on every tier, and ``"xla"`` on the tie
-  scene equals the pallas tier;
+* the XLA body's per-iteration resort (``body_compact``): compacted
+  ``"xla"`` frames equal full-width ones bit for bit; on the tie scene
+  ``"xla"`` finds the pallas tier's hits on the primary wave, bit for bit,
+  and its frame is within 1e-6 of the pallas tier's fused frame;
 * the port's native trees against the committed library's.
 
 The JAX sides run in a child process without FMA (``--xla_cpu_max_isa=AVX``,
@@ -44,10 +45,12 @@ from raytpu.render import Renderer as JaxRenderer
 from raytpu.utils.ssim import ssim
 from raytpu_torch import integrator, scenes
 from raytpu_torch.accel import native
+from raytpu_torch.config import RAY_TMAX, RAY_TMIN
 from raytpu_torch.device_scene import TorchScene, from_raytpu
 from raytpu_torch.integrator import render_frame
 from raytpu_torch.io.genmesh import armadillo_standin, generate_highpoly
 from raytpu_torch.ops import trace, traverse
+from raytpu_torch.ops.raygen import raygen_packed_ref
 from raytpu_torch.render import Renderer
 from tests.test_pallas import _setup
 from tests.test_torch_frame import _same_rays_frames
@@ -361,18 +364,17 @@ def _frame_widths(ts, rs, cam, budget=None):
     return img, stats["tier"], widths
 
 
-@pytest.mark.parametrize("traversal", ["xla", "perlane", "mega", "pallas"])
+@pytest.mark.parametrize("traversal", ["xla"])
 def test_body_compact_equals_full_width(traversal):
     """``body_compact``: from the same scene and rays, the compacted XLA
     body's frames equal the full-width body's bit for bit. At 128x96 the
-    32x32 tiles (the packed tiers' packets; other tiles render "xla" on
-    every value) make 128 packets of 1024 lanes (budget 64), 24 of them in
+    32x32 tiles make 128 packets of 1024 lanes (budget 64), 24 of them in
     the frame; with the budget cut to 8, the iterations after the peeled
     first run several waves."""
     r = Renderer(scenes.mixed_scene(128, 96, 2, 3), "cpu")
     r.set_transforms(T_ANIM)
     ts = dataclasses.replace(r.tscene, traversal=traversal)
-    rs = dataclasses.replace(r.render_static, fused="off")
+    rs = r.render_static
     cam = r.camera_tensor()
     full, tier, widths = _frame_widths(ts, dataclasses.replace(
         rs, wavefront="full"), cam)
@@ -384,30 +386,44 @@ def test_body_compact_equals_full_width(traversal):
         assert widths[0] == 128 and set(widths[1:]) == {wave}, widths
         assert torch.equal(img, full), budget
     assert len(widths) > 6    # several waves an iteration
-    if traversal == "xla":   # the fused loop is never taken for "xla"
-        img, tier, widths = _frame_widths(
-            ts, dataclasses.replace(rs, fused="on"), cam)
-        assert tier == "xla" and widths[0] == 128 and torch.equal(img, full)
 
 
 def test_xla_tie_scene_equals_pallas():
-    """The tie check: two coincident boxes, ``"xla"`` (the loop on K11a /
-    K11b) against the pallas tier (K10a / K10b) through the same body,
-    compacted: n_diff 0. The pallas tier's fused frame shades in other
-    kernels, whose rounding may move a pixel by an ulp."""
+    """The tie check: two coincident boxes. On the primary wave the loop on
+    K11a / K11b (``"xla"``) finds the chained sweeps' (K10a / K10b, the
+    pallas tier) hits and occlusion bit for bit, ties included: both walk
+    the entries in build order. The ``"xla"`` frame (the XLA body) is
+    within 1e-6 of the pallas tier's fused frame, whose shading kernels
+    may round a pixel an ulp apart."""
     r = Renderer(scenes.tie_scene(), "cpu")
+    rs = r.render_static
+    spp = rs.samples_per_pixel
+    (px, py), act = integrator.tiled_pixels(rs, "cpu")
+    px, py, act, s_row = integrator._folded_rows(px, py, act, spp)
+    rays = raygen_packed_ref(r.camera_tensor(), s_row, px, py, spp, rs.width,
+                             rs.height)
+    o, d = tuple(rays[:3]), tuple(rays[3:])
+    win = torch.where(act, RAY_TMAX, 0.0)
+    ts = dataclasses.replace(r.tscene, traversal="xla")
+    hit = trace.closest_hit_loop(ts, o, d, RAY_TMIN, win)
+    chained = trace.closest_hit_wave(ts, o, d, RAY_TMIN, win,
+                                     sweep=traverse.closest_sweep_ref)
+    assert int(hit.valid.sum()) > 300    # the boxes' lanes
+    for field in hit._fields:
+        a, b = getattr(hit, field), getattr(chained, field)
+        for x, y in zip(*((a, b) if field == "n" else ((a,), (b,)))):
+            assert torch.equal(x, y), field
+    occ = trace.any_hit_loop(ts, o, d, RAY_TMIN, win)
+    assert occ.any() and torch.equal(occ, trace.any_hit_wave(
+        ts, o, d, RAY_TMIN, win, sweep=traverse.anyhit_sweep_ref))
     frames = {}
-    for trav, fused in (("xla", "on"), ("pallas", "off"), ("pallas", "on")):
+    for trav in ("xla", "pallas"):
         stats = {}
-        frames[trav, fused] = render_frame(
-            dataclasses.replace(r.tscene, traversal=trav),
-            dataclasses.replace(r.render_static, fused=fused),
-            r.camera_tensor(), stats=stats)
+        frames[trav] = render_frame(dataclasses.replace(r.tscene, traversal=trav),
+                                    rs, r.camera_tensor(), stats=stats)
         assert stats["tier"] == trav
-    xla, pallas = frames["xla", "on"], frames["pallas", "off"]
-    assert pallas.std() > 1e-3
-    assert int((xla != pallas).any(dim=-1).sum()) == 0
-    assert (xla - frames["pallas", "on"]).abs().max() <= 1e-6
+    assert frames["pallas"].std() > 1e-3
+    assert (frames["xla"] - frames["pallas"]).abs().max() <= 1e-6
 
 
 def _corners(mesh):

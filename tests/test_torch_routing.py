@@ -10,7 +10,7 @@ one-mesh Pallas kernel under a forced ``"pallas"`` and the XLA packet walk
 under every other value. The port's loop walks K11a/K11b, which compute
 both. The tie scene (two coincident boxes) at ``tile=8``, 32x24, spp 1, 2
 bounces, from the same primary rays, must equal raytpu's frame within 1e-5
-per pixel with ``stats["tier"] == "xla"``, ``fused="on"`` or not.
+per pixel with ``stats["tier"] == "xla"``.
 
 raytpu renders no frame for a forced ``"pallas"`` at that width: its
 one-mesh kernel asserts a packet of 1024 lanes (its register layout), so
@@ -19,9 +19,8 @@ runs the same loop on the packet walk.
 
 A scene with no BVH (``traversal="brute"``) takes the loop over the brute
 tracers at every tile and on every traversal value, through the XLA body
-(raytpu's ``has_bvh`` gates every packed tier); the divergence schedule
-keeps the scene's tier and takes the XLA body (``raytpu/integrator.py:224``),
-and on the tie scene its frames equal that body's frame bit for bit.
+(raytpu's ``has_bvh`` gates every packed tier). At 32x32 tiles every packed
+tier takes the fused loop, the XLA body only "xla" and "brute".
 """
 
 import dataclasses
@@ -36,12 +35,13 @@ import torch
 from raytpu import integrator as ji
 from raytpu.ops import trace as jt
 from raytpu.render import Renderer as JaxRenderer
-from raytpu_torch import scenes
+from raytpu_torch import integrator, scenes
 from raytpu_torch.device_scene import brute_scene
 from raytpu_torch.integrator import (
     PACKET_K,
     _use_fused,
     detile,
+    frame_packets,
     render_frame,
     render_packets,
     tiled_pixels,
@@ -100,14 +100,13 @@ def test_raytpu_routes_every_value_through_the_loop(tie8):
                    rs_j, *rays)
 
 
-@pytest.mark.parametrize("fused", ["on", "off"])
 @pytest.mark.parametrize("traversal", TRAVERSALS)
-def test_tile8_frame_is_the_loop_and_matches_raytpu(tie8, traversal, fused):
+def test_tile8_frame_is_the_loop_and_matches_raytpu(tie8, traversal):
     _, r, _, _, want, rays6 = tie8
-    rs = dataclasses.replace(r.render_static, tile=TILE, fused=fused)
+    rs = dataclasses.replace(r.render_static, tile=TILE)
     ts = dataclasses.replace(r.tscene, traversal=traversal)
     (px, py), in_frame = tiled_pixels(rs, "cpu")
-    assert not _use_fused(ts, rs, *px.shape)
+    assert not _use_fused(ts, *px.shape)
     stats = {}
     with one_thread():
         got = detile(render_packets(ts, rs, r.camera_tensor(), px, py, in_frame,
@@ -118,30 +117,38 @@ def test_tile8_frame_is_the_loop_and_matches_raytpu(tie8, traversal, fused):
 
 
 @pytest.mark.parametrize("traversal", TRAVERSALS)
-def test_tile32_frame_keeps_its_tier(tie8, traversal):
+def test_tile32_frame_keeps_its_tier(tie8, traversal, monkeypatch):
     """The same scene at 32x32 tiles keeps the tier each value names, and
-    every packed tier takes the fused loop."""
+    every packed tier takes the fused loop: only "xla" reaches the XLA
+    body."""
     r = tie8[1]
     ts = dataclasses.replace(r.tscene, traversal=traversal)
     want = {"auto": r.tscene.auto_tier}.get(traversal, traversal)
     rs = r.render_static
     (px, _), _ = tiled_pixels(rs, "cpu")
     assert px.shape[1] == PACKET_K
-    assert _use_fused(ts, rs, *px.shape) == (traversal != "xla")
+    assert _use_fused(ts, *px.shape) == (traversal != "xla")
+    loops = []
+    for name in ("_trace_sample", "_trace_sample_fused"):
+        def spy(*args, _real=getattr(integrator, name), _name=name, **kwargs):
+            loops.append(_name)
+            return _real(*args, **kwargs)
+        monkeypatch.setattr(integrator, name, spy)
     stats = {}
     with one_thread():
         img = render_frame(ts, rs, r.camera_tensor(), stats=stats)
     assert stats["tier"] == want and img.std() > 0.05
+    assert loops == ["_trace_sample" if traversal == "xla"
+                     else "_trace_sample_fused"]
 
 
-@pytest.mark.parametrize("fused", ["on", "off"])
-def test_brute_scene_takes_the_brute_loop(tie8, fused):
+def test_brute_scene_takes_the_brute_loop(tie8):
     """The tie scene without its BVH: the brute loop at tile 8 from the same
     rays, within 1e-5 of raytpu's frame, and at 32x32 tiles too, on every
     traversal value."""
     _, r, _, _, want, rays6 = tie8
     ts = brute_scene(r.tscene)
-    rs = dataclasses.replace(r.render_static, tile=TILE, fused=fused)
+    rs = dataclasses.replace(r.render_static, tile=TILE)
     (px, py), in_frame = tiled_pixels(rs, "cpu")
     stats = {}
     with one_thread():
@@ -151,29 +158,9 @@ def test_brute_scene_takes_the_brute_loop(tie8, fused):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
     for trav in TRAVERSALS + ("brute",):
         tsb = dataclasses.replace(ts, traversal=trav)
+        assert not _use_fused(tsb, frame_packets(r.render_static), PACKET_K)
         stats = {}
         with one_thread():
-            img = render_frame(tsb, dataclasses.replace(r.render_static,
-                                                        fused=fused),
-                               r.camera_tensor(), stats=stats)
+            img = render_frame(tsb, r.render_static, r.camera_tensor(),
+                               stats=stats)
         assert stats["tier"] == "brute" and img.std() > 0.05
-
-
-@pytest.mark.parametrize("divergence", ["sort", "split", "split_all"])
-@pytest.mark.parametrize("traversal", ["mega", "hybrid"])
-def test_divergence_keeps_the_tier_in_the_xla_body(divergence, traversal):
-    r = Renderer(scenes.tie_scene(64, 48, divergence=divergence), "cpu")
-    ts = dataclasses.replace(r.tscene, traversal=traversal)
-    rs = r.render_static
-    (px, _), _ = tiled_pixels(rs, "cpu")
-    assert not _use_fused(ts, rs, px.shape[0] * 2, PACKET_K)
-    assert _use_fused(ts, dataclasses.replace(rs, divergence="off"),
-                      px.shape[0] * 2, PACKET_K)
-    stats = {}
-    with one_thread():
-        got = render_frame(ts, rs, r.camera_tensor(), stats=stats)
-        want = render_frame(ts, dataclasses.replace(rs, divergence="off",
-                                                    fused="off"),
-                            r.camera_tensor())
-    assert stats["tier"] == traversal
-    assert torch.equal(got, want)

@@ -31,7 +31,8 @@ def raytpu_twin(scene):
         ObjectConfig(o.path, MaterialType(int(o.material)), o.animation)
         for o in cfg.objects
     )
-    config = RenderConfig(**{**_fields(cfg, RenderConfig), "objects": objects})
+    # the port's fields, each of which raytpu's RenderConfig has too
+    config = RenderConfig(**{**_fields(cfg, type(cfg)), "objects": objects})
     return load_scene(config, meshes=[Mesh(**_fields(m, Mesh)) for m in scene.meshes],
                       skybox=scene.skybox)
 
