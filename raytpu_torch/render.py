@@ -113,9 +113,22 @@ class Renderer:
         return torch.clamp(img * 255.0 + 0.5, 0, 255).to(torch.uint8)
 
     def render_np(self) -> np.ndarray:
+        """One frame -> (H, W, 3) f32 C-contiguous array on the host.
+
+        A frame on the card is copied once, device to host, into a fresh
+        page-locked block from PyTorch's caching host allocator (a DMA
+        with no staging through pageable memory); the array is a view of
+        that block and keeps it alive. Each live frame so pins one block,
+        which the allocator may round up in size, and hands back to its
+        cache for a later frame once the array is dropped. A frame on the
+        CPU is returned as it is, with nothing pinned."""
         img = self.render()
         with span("rt.readback"):
-            return img.cpu().numpy()
+            if not img.is_cuda:
+                return img.cpu().numpy()
+            host = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
+            host.copy_(img)
+            return host.numpy()
 
     def step(self, time_param: float) -> np.ndarray:
         with span("rt.step"):

@@ -1063,3 +1063,72 @@ def test_the_profiler_records_replayed_kernels():
     outside = [(t.start, t.end) for t in replays[1:-1]
                if not loop.start <= t.start <= t.end <= loop.end]
     assert not outside, ((loop.start, loop.end), outside)
+
+
+@pytest.fixture(scope="module")
+def moving():
+    """A small scene on the card whose spinning and orbiting meshes change
+    every frame, warmed so that its frames replay their graphs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    r = Renderer(scenes.mixed_scene(64, 48, 2, 3), "cuda")
+    r.step(0.05)
+    return r
+
+
+def test_step_equals_the_rendered_frame(moving):
+    """``step``'s array is ``render().cpu().numpy()`` of the same frame, bit
+    for bit, as f32 (H, W, 3) C-contiguous."""
+    got = moving.step(0.1)
+    want = moving.render().cpu().numpy()
+    assert got.dtype == np.float32 and got.shape == (48, 64, 3)
+    assert got.flags["C_CONTIGUOUS"]
+    np.testing.assert_array_equal(got, want)
+
+
+def test_step_reads_back_into_pinned_memory(moving):
+    assert torch.from_numpy(moving.step(0.1)).is_pinned()
+
+
+def test_kept_frames_stay_unchanged(moving):
+    """Three kept frames of the moving scene stay distinct and unchanged
+    while ten more frames render: every frame has a block of its own."""
+    kept = [moving.step(t) for t in (0.1, 0.2, 0.3)]
+    copies = [k.copy() for k in kept]
+    later = [moving.step(0.4 + 0.1 * i) for i in range(10)]
+    for k, c in zip(kept, copies):
+        np.testing.assert_array_equal(k, c)
+        assert not any(np.shares_memory(k, x) for x in later)
+    for i in range(3):
+        for j in range(i):
+            assert not np.shares_memory(kept[i], kept[j])
+            assert not np.array_equal(kept[i], kept[j])
+
+
+def test_1080p_readback_is_one_pinned_copy():
+    """Under the profiler a 1080p frame's readback is one ``aten::copy_``
+    of the (1080, 1920, 3) image issuing one device-to-host memcpy into
+    page-locked memory, as the benchmark's readback readers find it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from rtbench import profiling
+
+    shape = [1080, 1920, 3]
+    r = Renderer(scenes.mixed_scene(1920, 1080, 1, 0), "cuda")
+    r.step(0.1), r.step(0.1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        with record_function(profiling.WINDOW):
+            r.step(0.1)
+        torch.cuda.synchronize()
+    (copy,) = profiling.Trace(prof.profiler.kineto_results.events(), 1).copies_during(shape)
+    assert copy.name == "Memcpy DtoH (Device -> Pinned)", copy.name
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    (readback,) = [e.time_range for e in events if e.name == "rt.readback"]
+    inside = [e for e in events if e.name in profiling.COPY_OPS
+              and readback.start <= e.time_range.start <= e.time_range.end <= readback.end]
+    assert [(e.name, e.input_shapes[:2]) for e in inside] == [("aten::copy_", [shape, shape])]

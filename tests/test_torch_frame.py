@@ -18,7 +18,9 @@ Both packages render one host scene (``tests/torch_twin.py``).
     64x48 wave), which would move every jitter sample.
 (b) End to end: the port's ``Renderer.render_np()`` against raytpu's
     ``Renderer`` frame, SSIM > 0.98 (the goldens' bar).
-(c) The kernel tiers: (a) at 32x32 against raytpu with ``traversal="pallas"``
+(c) The readback: ``Renderer.step`` on the CPU hands back ``render()``'s
+    frame itself, with no page-locked memory asked for.
+(d) The kernel tiers: (a) at 32x32 against raytpu with ``traversal="pallas"``
     (the chained Pallas kernels, interpret mode), ``"perlane"`` and
     ``"mega"`` (the port's per-lane and consensus sweeps; raytpu's per-lane
     and megakernel tiers run only on a TPU, so off it raytpu renders the
@@ -62,7 +64,7 @@ from raytpu_torch.integrator import (
     tiled_pixels,
 )
 from raytpu_torch.render import Renderer
-from tests.torch_twin import twin
+from tests.torch_twin import one_thread, twin
 
 T_ANIM = 0.1  # the orbiting refractive mesh is in view
 
@@ -156,6 +158,39 @@ def test_renderer_frame_ssim_against_raytpu():
     got, want = r.render_np(), jr.render_np()
     assert np.isfinite(got).all()
     assert ssim(got, want) > 0.98
+
+
+def test_step_on_the_cpu_returns_the_frame_unpinned(monkeypatch):
+    """A CPU ``Renderer.step`` returns an f32 (H, W, 3) C-contiguous array
+    equal bit for bit to ``render()`` of the same state; an earlier frame's
+    array is unchanged after two later frames at other transforms; nothing
+    asks for pinned memory."""
+    pinned = []
+    empty, pin = torch.empty, torch.Tensor.pin_memory
+
+    def spy_empty(*args, pin_memory=False, **kw):
+        pinned.append(pin_memory)
+        return empty(*args, pin_memory=pin_memory, **kw)
+
+    def spy_pin(t, *args):
+        pinned.append(True)
+        return pin(t, *args)
+
+    monkeypatch.setattr(torch, "empty", spy_empty)
+    monkeypatch.setattr(torch.Tensor, "pin_memory", spy_pin)
+    r = Renderer(scenes.mixed_scene(32, 24, 1, 2), "cpu")
+    with one_thread():
+        first = r.step(T_ANIM)
+        kept = first.copy()
+        assert first.dtype == np.float32 and first.shape == (24, 32, 3)
+        assert first.flags["C_CONTIGUOUS"]
+        np.testing.assert_array_equal(first, r.render().numpy())
+        later = [r.step(t) for t in (0.3, 0.6)]
+    assert True not in pinned
+    np.testing.assert_array_equal(first, kept)
+    for img in later:
+        assert not np.shares_memory(img, first)
+        assert not np.array_equal(img, first)   # the transforms show
 
 
 @pytest.mark.parametrize("traversal", ["pallas", "perlane", "mega"])
