@@ -34,7 +34,10 @@ owns, and the C entry point launches the kernels' counting instantiation,
 which adds each warp's sums with one 64-bit ``atomicAdd`` each; otherwise
 it passes none and the entry point launches the one that counts nothing.
 Their plain versions add the plain walk's counts of the same numbers
-(:func:`counted`).
+(:func:`counted`). K8 and K9 count the waves after the first bounce
+(:func:`later_waves`) into slots of their own as well, read as the entries
+``mega_closest_sweep.later`` and ``mega_anyhit_sweep.later``; the kernels'
+own entries stay the sums over every wave.
 
 :func:`gxx_library` builds the host libraries of ``native/`` (the BVH
 builder, the OBJ parser and the JPEG decoder) with g++ into the same
@@ -123,20 +126,30 @@ _launches = dict.fromkeys(KERNELS, 0)
 _lib = None
 _lock = threading.Lock()
 
-# the kernels with work counters and what each counts, in the order of
+# the entries of the work counts and what each counts, in the order of
 # its counters: node visits and triangle tests, and for the consensus
-# sweeps those of them the lanes' own walks need (csrc/walk.cuh, OwnWalk)
+# sweeps those of them the lanes' own walks need (csrc/walk.cuh, OwnWalk);
+# a kernel's entry sums every wave, its LATER entry the waves after the
+# first bounce alone
+LATER = ".later"
 WORK_KEYS = {
     "perlane_closest_sweep": ("nodes", "tests"),
     "perlane_anyhit_sweep": ("nodes", "tests"),
     "mega_closest_sweep": ("nodes", "tests", "own_nodes", "own_tests"),
     "mega_anyhit_sweep": ("nodes", "tests", "own_nodes", "own_tests"),
+    "mega_closest_sweep" + LATER: ("nodes", "tests", "own_nodes", "own_tests"),
+    "mega_anyhit_sweep" + LATER: ("nodes", "tests", "own_nodes", "own_tests"),
 }
-WORK_KERNELS = tuple(WORK_KEYS)
+# the kernels that count: the entries that are no LATER entry
+WORK_KERNELS = tuple(k for k in WORK_KEYS if not k.endswith(LATER))
 _WORK_WIDTH = max(map(len, WORK_KEYS.values()))
+# the counters, a slot (a device row) per entry: a kernel's own slot holds
+# the waves its LATER slot does not
+_ROW = {k: i for i, k in enumerate(WORK_KEYS)}
 _work_plain = {k: dict.fromkeys(keys, 0) for k, keys in WORK_KEYS.items()}
-_work_device = {}    # device -> (len(WORK_KERNELS), _WORK_WIDTH) int64 counters
-_count = threading.local()   # .on: this thread's frame counts its work
+_work_device = {}    # device -> (len(WORK_KEYS), _WORK_WIDTH) int64 counters
+_count = threading.local()   # .on: this thread's frame counts its work;
+                             # .later: its waves are past the first bounce
 _capture = threading.local()  # .launches: this thread's graph capture's
 
 # g++ flags of the host libraries of native/ (gxx_library)
@@ -332,15 +345,35 @@ def counting_on() -> bool:
     return getattr(_count, "on", False)
 
 
+@contextlib.contextmanager
+def later_waves():
+    """Within the block, this thread's waves are past the first bounce:
+    the kernels with a :data:`LATER` entry count into its slot."""
+    saved = getattr(_count, "later", False)
+    _count.later = True
+    try:
+        yield
+    finally:
+        _count.later = saved
+
+
+def _slot(kernel: str) -> str:
+    """The slot ``kernel``'s work goes to now: its :data:`LATER` slot in
+    a later wave, where it has one, else its own."""
+    later = kernel + LATER
+    return later if getattr(_count, "later", False) and later in WORK_KEYS else kernel
+
+
 def work_pointer(kernel: str, device: torch.device) -> Pointer:
     """``kernel``'s int64 counters (:data:`WORK_KEYS`, in order) in
-    ``device``'s work buffer, made zeroed at first use."""
+    ``device``'s work buffer, made zeroed at first use: its :data:`LATER`
+    slot's in a later wave (:func:`later_waves`), where it has one."""
     with _lock:
         buf = _work_device.get(device)
         if buf is None:
             buf = _work_device[device] = torch.zeros(
-                (len(WORK_KERNELS), _WORK_WIDTH), dtype=torch.int64, device=device)
-    return Pointer(buf[WORK_KERNELS.index(kernel)])
+                (len(WORK_KEYS), _WORK_WIDTH), dtype=torch.int64, device=device)
+    return Pointer(buf[_ROW[_slot(kernel)]])
 
 
 @contextlib.contextmanager
@@ -348,30 +381,38 @@ def counted(kernel: str, counts=None):
     """The ``counts`` dict for a plain version of ``kernel`` to fill: while
     this thread counts (:func:`counting`), ``counts`` or a new dict, whose
     added counts of ``kernel``'s :data:`WORK_KEYS` go to its work counts
-    when the block ends; otherwise ``counts`` as given."""
+    (its :data:`LATER` slot in a later wave) when the block ends;
+    otherwise ``counts`` as given."""
     if not counting_on():
         yield counts
         return
+    slot = _slot(kernel)
     c = {} if counts is None else counts
     before = {key: c.get(key, 0) for key in WORK_KEYS[kernel]}
     yield c
     with _lock:
         for key, n in before.items():
-            _work_plain[kernel][key] += c.get(key, 0) - n
+            _work_plain[slot][key] += c.get(key, 0) - n
 
 
 def work_counts() -> dict:
-    """The work counts per kernel of :data:`WORK_KERNELS` since the last
-    reset: ``{kernel: {key: n for key in WORK_KEYS[kernel]}}``, summed over
+    """The work counts per entry of :data:`WORK_KEYS` since the last
+    reset: ``{entry: {key: n for key in WORK_KEYS[entry]}}``, summed over
     the plain versions and every device's counters (read after the
-    device's queued work)."""
+    device's queued work); a kernel's entry over every wave, its
+    :data:`LATER` entry over the waves after the first bounce."""
     with _lock:
-        out = {k: dict(v) for k, v in _work_plain.items()}
+        slots = {k: dict(v) for k, v in _work_plain.items()}
         bufs = list(_work_device.values())
     for buf in bufs:
-        for k, row in zip(WORK_KERNELS, buf.cpu().tolist()):
+        for k, row in zip(WORK_KEYS, buf.cpu().tolist()):
             for key, n in zip(WORK_KEYS[k], row):
-                out[k][key] += n
+                slots[k][key] += n
+    out = {k: dict(v) for k, v in slots.items()}
+    for k in WORK_KEYS:
+        if k.endswith(LATER):
+            for key, n in slots[k].items():
+                out[k[:-len(LATER)]][key] += n
     return out
 
 

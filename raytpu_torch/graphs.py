@@ -38,10 +38,11 @@ the kernel wrappers in place. Every other frame, the CPU's among them,
 takes ``integrator.render_frame`` and touches no graph.
 
 Spans: ``rt.graph.capture`` around each capture, ``rt.graph.replay``
-around each replay. The captured work records its own spans only while
-captured, so a replayed frame shows none of ``rt.prepass``,
-``rt.sweep.*``, ``rt.shade`` or ``rt.accumulate``; their work runs inside
-the replays."""
+around each replay, ``rt.later`` around the replays of each unit past
+the first bounce, as around the unit in an eager frame. The captured
+work records its own spans only while captured, so a replayed frame
+shows none of ``rt.prepass``, ``rt.sweep.*``, ``rt.shade`` or
+``rt.accumulate``; their work runs inside the replays."""
 
 from __future__ import annotations
 
@@ -204,7 +205,16 @@ class FramePlan:
     def _run(self, op) -> None:
         """Replay ``loop_ops``'s unit ``op``: where the skip rule reads
         ``any(lit)``, each bounce of a step as ``integrator._fused_step``
-        runs it, its two halves with the read between."""
+        runs it, its two halves with the read between. A unit past the
+        first bounce (``integrator.later_unit``) replays inside an
+        ``rt.later`` span, around its ``rt.graph.replay`` spans."""
+        if integrator.later_unit(op):
+            with span("rt.later"):
+                self._replay_unit(op)
+        else:
+            self._replay_unit(op)
+
+    def _replay_unit(self, op) -> None:
         if not self.split or op[0] not in ("step", "iter"):
             self._replay(op)
             return

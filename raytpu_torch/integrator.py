@@ -57,8 +57,9 @@ graphs (``graphs.py``), with the same reads.
 
 Under a profiler the phases are ``rt.*`` spans (``utils/spans.py``): per
 wave ``rt.raygen``, ``rt.loop`` (the bounce loop, with ``rt.bounce``,
-``rt.sweep.*``, ``rt.shade``, ``rt.accumulate``, ``rt.sort`` and each
-``rt.sync``) and ``rt.sky``, then ``rt.detile``.
+``rt.sweep.*``, ``rt.shade``, ``rt.accumulate``, ``rt.sort``, each
+``rt.sync`` and ``rt.later`` around each unit past the first bounce) and
+``rt.sky``, then ``rt.detile``.
 """
 
 from __future__ import annotations
@@ -674,6 +675,13 @@ def loop_ops(p: int, rs):
     yield ("end",)
 
 
+def later_unit(op) -> bool:
+    """Whether unit ``op`` (of :func:`loop_ops`, or a plan's half bounce
+    ``shade``/``light``) bounces waves past the first bounce: an ``iter``,
+    or a ``step``, ``shade`` or ``light`` whose ``primary`` is False."""
+    return op[0] == "iter" or (op[0] in ("step", "shade", "light") and not op[3])
+
+
 def _op_waves(op) -> list:
     """The waves ``(s, b, primary)`` of a ``step`` or ``iter`` unit."""
     if op[0] == "step":
@@ -756,7 +764,16 @@ class _FusedLoop:
 
     def run(self, op):
         """Enqueue unit ``op`` -> what later units and reads take from it
-        (a shade unit's outputs, the result) or None."""
+        (a shade unit's outputs, the result) or None. A unit past the first
+        bounce (:func:`later_unit`) runs inside an ``rt.later`` span, its
+        K8 and K9 counting into their later slots
+        (``_build.later_waves``)."""
+        if later_unit(op):
+            with span("rt.later"), _build.later_waves():
+                return self._unit(op)
+        return self._unit(op)
+
+    def _unit(self, op):
         ts, rs, stats = self.ts, self.rs, self.stats
         kind = op[0]
         if kind == "begin":

@@ -38,7 +38,11 @@ need (``own_nodes``, ``own_tests``: ``traverse._walk``).
 
 While this thread counts work (``_build.counting``: a frame rendered with
 ``stats``), the kernels count those four numbers on the card and the plain
-versions count the plain walk's, into the same ``_build.work_counts``.
+versions count the plain walk's, into the same ``_build.work_counts``; a
+wave past the first bounce (``_build.later_waves``) into each sweep's own
+later slot of ``_build.work_pointer``, so that its entry
+``mega_closest_sweep.later`` or ``mega_anyhit_sweep.later`` holds the later
+waves alone and its own entry still every wave.
 """
 
 from __future__ import annotations

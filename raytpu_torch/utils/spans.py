@@ -27,6 +27,10 @@ The names, from the outside in (``rtbench/`` reads them):
   ``rt.prepass`` on the culled tiers, and ``rt.shade``, ``rt.accumulate``
   (K3, K4);
 * ``rt.sync``: each counted host sync (``integrator._read``);
+* ``rt.later``: each unit of the loop past the first bounce
+  (``integrator.later_unit``: a compacted iteration's waves, or a bounce
+  after the first), eager or replayed; a replayed unit's ``rt.graph.replay``
+  spans lie inside it;
 * ``rt.detile``;
 * ``rt.graph.capture`` (each unit a frame plan captures, ``graphs.py``)
   and ``rt.graph.replay`` (each replay of one): a replayed frame shows the

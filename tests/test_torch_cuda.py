@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from raytpu_torch import _build, scenes
+from raytpu_torch import _build, integrator, scenes
 from raytpu_torch.config import MaterialType, ObjectConfig, RenderConfig
 from raytpu_torch.integrator import plain_kernels, render_frame
 from raytpu_torch.io.obj import Mesh, compute_smooth_normals
@@ -800,6 +800,77 @@ def test_consensus_counting_launches_change_nothing(config3_slice, monkeypatch):
     assert passed and all(p is not None for p in passed)
     assert sum(_build.work_counts()["mega_closest_sweep"].values()) > 0
     _build.reset_work_counts()
+
+
+@pytest.fixture(scope="module")
+def config2_small():
+    """The benchmark's config2 (the static mirror teapot, 5,120 triangles,
+    2 bounces, consensus tier) at 128x96 with a 64-texel sky on the card,
+    through ``rtbench.run``'s viewer, and the closeup_mirror path's poses
+    and time parameters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rtbench import camerapath, manifest, run
+
+    cell = manifest.Cell(manifest.load(), "config2.closeup")
+    cfg = dict(cell.config, width=128, height=96,
+               skybox=dict(cell.config["skybox"], size=64))
+    meshes = [run.make_mesh(run.BENCH, o["mesh"]) for o in cfg["objects"]]
+    sky = run.make_sky(cfg, 7, "cuda")
+    poses, tps, _ = camerapath.make(cell.traffic, cfg, 7)
+    return run.Viewer(run.port_renderer(cfg, meshes, sky, "cuda")), poses, tps
+
+
+def test_consensus_later_counts_equal_the_plain_walks(config2_small):
+    """A config2 frame rendered with ``stats`` on the card: K8's and K9's
+    work counts, their later entries included, equal those of the same
+    frame with the plain consensus walks in their place, and the frames
+    are equal bit for bit."""
+    viewer, poses, tps = config2_small
+    viewer.pose(poses[41])
+    r = viewer.renderer
+    r.set_transforms(tps[41])
+    stats = {}
+    _build.reset_work_counts()
+    img = r.render(stats=stats)
+    got = _build.work_counts()
+    _build.reset_work_counts()
+    with integrator.kernels(mega_closest=consensus.mega_closest_sweep_ref,
+                            mega_anyhit=consensus.mega_anyhit_sweep_ref):
+        want_img = r.render(stats={})
+    want = _build.work_counts()
+    _build.reset_work_counts()
+    assert stats["tier"] == "mega"
+    assert torch.equal(img, want_img)
+    assert got == want, (got, want)
+    later = got["mega_closest_sweep" + _build.LATER]
+    assert 0 < later["own_nodes"] < later["nodes"], later
+    assert all(got["mega_closest_sweep"][k] > later[k] for k in later)
+
+
+def test_replayed_later_sweeps_lie_inside_rt_later(config2_small):
+    """Replayed config2 frames under the profiler: per frame one K8 launch
+    (the first bounce's) outside every ``rt.later`` span and the rest,
+    launched by graph replays, inside one; ``rt.later`` holds replays."""
+    from rtbench import profiling, run, spans
+
+    viewer, poses, tps = config2_small
+    for k in range(3):      # the first frame eager, then the plan replays
+        viewer.frame(poses[k], tps[k])
+    trace = run.traced_loop(viewer, poses[3:6], tps[3:6], "cuda")
+
+    def k8(ops):
+        return [d for d in ops if d.kind == "kernel" and
+                profiling.function_name(d.name) == "mega_closest_sweep_kernel"]
+
+    inside = k8(spans.issued_inside(trace, "rt.later"))
+    assert len(k8(trace.device)) - len(inside) == trace.frames
+    assert len(inside) >= trace.frames
+    names = {n for _, _, n, _ in trace._host}
+    assert "rt.graph.replay" in names and "rt.bounce" not in names
+    later = spans.spans(trace, "rt.later")
+    replays = spans.spans(trace, "rt.graph.replay")
+    assert spans.intersect(later, replays)
 
 
 # ---------------------------------------------------------------------------
