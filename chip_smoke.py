@@ -3418,7 +3418,7 @@ def main() -> int:
           f"{t_bvh:.2f} s ({ts.bvh_aabb_min.shape[0]} nodes, "
           f"{ts.bvh_tri_v0.shape[0]} triangles, {len(ts.traversal_list)} entries; "
           f"packed records of K1/K2, K8/K9 and K10a-K11b "
-          f"{nbytes(ts.packed_nodes, ts.packed_links, ts.packed_wide, ts.packed_tris)} "
+          f"{nbytes(ts.packed_nodes, ts.packed_pairs, ts.packed_wide, ts.packed_tris)} "
           f"bytes)", flush=True)
     digest = tree_digest(first_tree(ts))
     print(f"teapot stand-in tree sha256 {digest} (raytpu's {TREE_DIGEST})", flush=True)

@@ -26,8 +26,9 @@ kernels by resetting the counters, rendering, and reading them.
 
 K1 and K2 (the per-lane sweeps) and K8 and K9 (the consensus sweeps) also
 carry work counters (:func:`work_counts`, :data:`WORK_KEYS`): their node
-visits and triangle tests, and for K8 and K9 those of them the lanes' own
-walks need, counted while a frame is rendered with ``stats``
+visits and triangle tests, for K1 and K2 their record fetches (each walked
+entry's root and each child-pair record), and for K8 and K9 the visits and
+tests the lanes' own walks need, counted while a frame is rendered with ``stats``
 (:func:`counting`, which ``integrator.render_packets`` turns on then).
 Their wrappers then pass a slot of a per-device buffer that this module
 owns, and the C entry point launches the kernels' counting instantiation,
@@ -89,14 +90,13 @@ _SIGNATURES = {
     "block_stats": [_P, _L, _P, _L, _L, _F, _P, _L, _I, _I, _F, _F, _F, _P,
                     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # rays, (state | tmax, occ), n, tmin, the schedule (block lanes, bits,
-    # words, octs), the packed links, nodes M, the entries and w2o, the
-    # packed nodes and triangles, (normals, T,) the CTAs' work counters and
-    # their number, and the node-visit and triangle-test counters or null
+    # words, octs), the entries and w2o, the packed nodes, child pairs and
+    # triangles, (normals, T,) the CTAs' work counters and their number,
+    # and the node-visit, triangle-test and fetch counters or null
     "perlane_closest_sweep": [_P, _L, _P, _L, _L, _F, _L, _P, _I, _P, _P,
-                              _L, _P, _I, _P, _P, _P, _P, _L, _P, _I, _P,
-                              _P],
-    "perlane_anyhit_sweep": [_P, _L, _P, _P, _L, _F, _L, _P, _I, _P, _P, _L,
-                             _P, _I, _P, _P, _P, _P, _I, _P, _P],
+                              _I, _P, _P, _P, _P, _P, _L, _P, _I, _P, _P],
+    "perlane_anyhit_sweep": [_P, _L, _P, _P, _L, _F, _L, _P, _I, _P, _P, _I,
+                             _P, _P, _P, _P, _P, _I, _P, _P],
     # rays, (state | tmax, occ), n, tmin, the schedule (block lanes, bits,
     # words, octs), the packed wide links, nodes M, the entries and w2o, the
     # packed nodes and triangles, (normals, T,) and the work counters or
@@ -127,14 +127,15 @@ _lib = None
 _lock = threading.Lock()
 
 # the entries of the work counts and what each counts, in the order of
-# its counters: node visits and triangle tests, and for the consensus
-# sweeps those of them the lanes' own walks need (csrc/walk.cuh, OwnWalk);
+# its counters: node visits and triangle tests, for the per-lane sweeps
+# their record fetches (csrc/perlane.cu), and for the consensus sweeps the
+# visits and tests the lanes' own walks need (csrc/walk.cuh, OwnWalk);
 # a kernel's entry sums every wave, its LATER entry the waves after the
 # first bounce alone
 LATER = ".later"
 WORK_KEYS = {
-    "perlane_closest_sweep": ("nodes", "tests"),
-    "perlane_anyhit_sweep": ("nodes", "tests"),
+    "perlane_closest_sweep": ("nodes", "tests", "fetches"),
+    "perlane_anyhit_sweep": ("nodes", "tests", "fetches"),
     "mega_closest_sweep": ("nodes", "tests", "own_nodes", "own_tests"),
     "mega_anyhit_sweep": ("nodes", "tests", "own_nodes", "own_tests"),
     "mega_closest_sweep" + LATER: ("nodes", "tests", "own_nodes", "own_tests"),

@@ -69,6 +69,32 @@ __device__ __forceinline__ bool slab(const float* o, const float* d_inv,
   return t_near <= t_far;
 }
 
+// slab's test of the box {lo.xyz, hi.xyz}, with the box's entry distance
+// t_near = max(slab entries, tmin) into *t_near_out (K1/K2's pair walk,
+// perlane.cu), in fewer instructions: a NaN among the six slab distances (a
+// 0 * inf where the ray lies in a slab plane) makes slab miss, and without
+// one fminf/fmaxf give min_nan/max_nan's values (but for the sign of a
+// zero, which no comparison sees), so the hits are slab's. t_near does not
+// depend on tfar_cap, and t_far is the exact minimum of the slab exits and
+// tfar_cap: a box that hits under one cap hits under a lower cap c exactly
+// when t_near <= c.
+__device__ __forceinline__ bool slab_near(const float* o, const float* d_inv,
+                                          const float4& lo, const float4& hi,
+                                          float tmin, float tfar_cap,
+                                          float* t_near_out) {
+  const float l0 = (lo.x - o[0]) * d_inv[0], h0 = (hi.x - o[0]) * d_inv[0];
+  const float l1 = (lo.y - o[1]) * d_inv[1], h1 = (hi.y - o[1]) * d_inv[1];
+  const float l2 = (lo.z - o[2]) * d_inv[2], h2 = (hi.z - o[2]) * d_inv[2];
+  const bool nan = (l0 != l0) | (h0 != h0) | (l1 != l1) | (h1 != h1) |
+                   (l2 != l2) | (h2 != h2);
+  const float t_near = fmaxf(fmaxf(fminf(l0, h0), fminf(l1, h1)),
+                             fmaxf(fminf(l2, h2), tmin));
+  const float t_far = fminf(fminf(fmaxf(l0, h0), fmaxf(l1, h1)),
+                            fminf(fmaxf(l2, h2), tfar_cap));
+  *t_near_out = t_near;
+  return !nan && t_near <= t_far;
+}
+
 // Moller-Trumbore, op for op traverse_pallas._mt :83-112 (strict t < best_t)
 __device__ __forceinline__ bool moller_trumbore(
     const float* o, const float* d, const float* v0, const float* e1,

@@ -1,6 +1,9 @@
 // One ray's walk of one entry's tree, shared by the chained sweeps and the
-// one-mesh walks (traverse.cu, K10a/K10b, K11a/K11b), the per-lane sweeps
-// (perlane.cu, K1/K2) and the consensus sweeps (consensus.cu, K8/K9).
+// one-mesh walks (traverse.cu, K10a/K10b, K11a/K11b) and the consensus
+// sweeps (consensus.cu, K8/K9), and the helpers every sweep shares (the
+// entries, the schedule, the triangle test, the hit record). The per-lane
+// sweeps (perlane.cu, K1/K2) walk the child-pair records with a stack of
+// their own and share only the helpers.
 //
 // The walk is stackless: from the root, an inner node descends when rt::slab
 // hits within (tmin, best_t), and a leaf's triangles are tested. Where the
@@ -8,8 +11,9 @@
 // indexed by the node's row g = node_base + node in the concatenated tables:
 //   - build order (K10a/K10b, K11a/K11b): a hit continues at node + 1, a
 //     miss or a finished leaf at bvh_miss;
-//   - near child first (K1/K2): the per-octant succ/skip links of
-//     raytpu/ops/mega.py:128 (octant_links), one (M,) row per octant;
+//   - near child first: the per-octant succ/skip links of
+//     raytpu/ops/mega.py:128 (octant_links), one (M,) row per octant,
+//     which K1/K2's pair walk follows in the same order (perlane.cu);
 //   - wide (K8/K9): the same links with every other interior level dropped
 //     (raytpu/ops/mega.py:198, widen_octant_links).
 // Node ids in every link table are mesh-local, like bvh_miss.
@@ -30,9 +34,9 @@
 //
 // How the walk reads the tree, the fetch policy F: PackedFetch reads the
 // packed 16-byte records of TorchScene.packed_* with one (M,) row of
-// packed {succ, skip} links, the octant links (K1/K2) or the wide links
-// (K8/K9); BuildFetch the same node and triangle records in build order
-// with bvh_miss (K10a, K10b, K11a, K11b). Both hand the same floats to the
+// packed {succ, skip} links, the wide links (K8/K9); BuildFetch the same
+// node and triangle records in build order with bvh_miss (K10a, K10b,
+// K11a, K11b). Both hand the same floats to the
 // same tests as the plain walk's tables.
 //
 // The plain versions (raytpu_torch/ops/traverse.py::_walk, closest_ref,
@@ -92,12 +96,11 @@ struct Work {
   unsigned long long nodes = 0, tests = 0, own_nodes = 0, own_tests = 0;
 };
 
-// Sum the warp's Work and add it to out[0] (nodes), out[1] (tests) and,
-// with kN = 4, out[2] (own_nodes) and out[3] (own_tests), one 64-bit
-// atomicAdd each from lane 0. Every lane of the warp calls it.
-template <int kN = 2>
-__device__ __forceinline__ void add_work(unsigned long long* out, Work w) {
-  unsigned long long v[4] = {w.nodes, w.tests, w.own_nodes, w.own_tests};
+// Sum the warp's first kN counts v[0..kN) and add them to out[0..kN),
+// one 64-bit atomicAdd each from lane 0. Every lane of the warp calls it.
+template <int kN>
+__device__ __forceinline__ void add_counts(unsigned long long* out,
+                                           unsigned long long* v) {
 #pragma unroll
   for (int c = 0; c < kN; ++c) {
 #pragma unroll
@@ -108,6 +111,14 @@ __device__ __forceinline__ void add_work(unsigned long long* out, Work w) {
 #pragma unroll
     for (int c = 0; c < kN; ++c) atomicAdd(out + c, v[c]);
   }
+}
+
+// Sum the warp's Work and add it to out[0] (nodes), out[1] (tests) and,
+// with kN = 4, out[2] (own_nodes) and out[3] (own_tests).
+template <int kN = 2>
+__device__ __forceinline__ void add_work(unsigned long long* out, Work w) {
+  unsigned long long v[4] = {w.nodes, w.tests, w.own_nodes, w.own_tests};
+  add_counts<kN>(out, v);
 }
 
 // How a walk reads the tree: a fetch policy gives, for the node of row g,
@@ -140,10 +151,9 @@ __device__ __forceinline__ bool packed_test(const float4* tris, long long s,
   return moller_trumbore(o, d, v0, e1, e2, tmin, best_t, t, u, v);
 }
 
-// The walk over the packed records along per-octant links, near child
-// first (K1/K2, the octant links) or with every other interior level
-// dropped (K8/K9, the wide links): a node's links are one 8-byte word
-// {succ, skip} of the block's octant row. One visit issues its three
+// The walk over the packed records along per-octant links with every
+// other interior level dropped (K8/K9, the wide links): a node's links are
+// one 8-byte word {succ, skip} of the block's octant row. One visit issues its three
 // loads at once, none waiting on the box test, so the next node is in a
 // register before a warp's vote.
 struct PackedFetch {
@@ -180,9 +190,8 @@ struct PackedFetch {
   }
 };
 
-// The packed records (TorchScene.packed_nodes, packed_tris) with one
-// table of packed links (packed_links or packed_wide), as the per-lane and
-// consensus sweeps take them.
+// The packed records (TorchScene.packed_nodes, packed_tris) with the
+// packed wide links (packed_wide), as the consensus sweeps take them.
 struct Packed {
   const float4* nodes;  // (M, 2) float4 {bmin, first} {bmax, count}
   const int2* links;    // (8, M) int2 {succ, skip}
@@ -449,7 +458,8 @@ __device__ __forceinline__ void load_ray(const float* rays, long long rays_s,
 // of raytpu_torch/ops/mega.py): a lane skips an entry whose bit for its
 // block is 0 (bits: (E, n_words) int32 words in walk order, bit b % 32 of
 // word b / 32 for block b = lane / block_lanes) and walks with its BLOCK's
-// octant row of the links (octs[b]; row = octs[b] * M of an (8, M) table).
+// octant row of the links (octs[b]; row = octs[b] * M of an (8, M) table;
+// with n_nodes 1, as K1/K2 make it, the row is the octant itself).
 struct Schedule {
   long long block_lanes;  // lanes per culling block
   const int* bits;        // (E, n_words) int32 bit words, walk order

@@ -12,12 +12,14 @@ nodes are threaded once per ray-direction octant, near child first
 tier, and once more with every other interior level dropped
 (``wide_succ``/``wide_skip``, ``ops/mega.widen_octant_links``) for the
 consensus tier; ``traversal`` and ``auto_tier`` say which tier the sweeps
-take. The per-lane tier's kernels read the nodes, octant links and
-triangles as packed 16-byte records (``packed_*``, :func:`with_packed`),
-the same bits as the tables they come from, and the consensus tier's the
-same node and triangle records with the wide links packed as the octant
-links are; the chained sweeps and the one-mesh walks read the same node
-and triangle records with ``bvh_miss``.
+take. The per-lane tier's kernels read the roots and triangles as packed
+16-byte records (``packed_*``, :func:`with_packed`), the same bits as the
+tables they come from, and each inner node's children as one 64-byte
+child-pair record with its near child per octant taken from the octant
+links (``packed_pairs``, :func:`pack_pairs`); the consensus tier's read the
+same node and triangle records with the wide links packed, and the
+chained sweeps and the one-mesh walks the same node and triangle records
+with ``bvh_miss``.
 
 Every scene keeps each mesh's primitive range (``mesh_prim_ranges``). A
 scene with no BVH (:func:`brute_scene`, ``traversal="brute"`` or
@@ -90,11 +92,11 @@ class TorchScene:
     # walk's wide links, ops/mega.widen_octant_links)
     wide_succ: Optional[torch.Tensor] = None      # (8, M) int32
     wide_skip: Optional[torch.Tensor] = None      # (8, M) int32
-    # the packed records of K1/K2 (with the octant links), of K8/K9 (with
+    # the packed records of K1/K2 (with the child pairs), of K8/K9 (with
     # the wide links) and of K10a-K11b (with bvh_miss), the bits of the
     # tables above laid out for 16-byte loads (with_packed)
     packed_nodes: Optional[torch.Tensor] = None   # (M, 8) f32, pack_nodes
-    packed_links: Optional[torch.Tensor] = None   # (8, M, 2) int32, pack_links
+    packed_pairs: Optional[torch.Tensor] = None   # (M, 16) f32, pack_pairs
     packed_wide: Optional[torch.Tensor] = None    # (8, M, 2) int32, pack_links
     packed_tris: Optional[torch.Tensor] = None    # (T, 12) f32, pack_tris
     traversal_list: Tuple[Tuple[int, int], ...] = ()
@@ -107,6 +109,9 @@ class TorchScene:
     # (ops/trace.closest_hit_loop) reads them without a device sync
     entry_rows: Tuple[Tuple[int, int, int, int, int], ...] = ()
     leaf_max: int = 0              # largest leaf (the plain walk's unroll)
+    # inner levels of the deepest tree: the stack entries K1/K2's pair walk
+    # needs (pack_pairs)
+    pair_depth: int = 0
     # RenderConfig.traversal, and the tier "auto" resolves to ("perlane" or
     # "mega", accel.resolve_auto_tier)
     traversal: str = "auto"
@@ -217,9 +222,9 @@ def pack_nodes(bmin: torch.Tensor, bmax: torch.Tensor, first: torch.Tensor,
 
 
 def pack_links(succ: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-    """(8, M, 2) int32 ``{succ, skip}`` words of (8, M) links, octant or
-    wide: an inner node's walk takes ``succ`` on a box hit and ``skip`` on a
-    miss, a leaf's always ``skip``."""
+    """(8, M, 2) int32 ``{succ, skip}`` words of (8, M) links (the wide
+    links): an inner node's walk takes ``succ`` on a box hit and ``skip`` on
+    a miss, a leaf's always ``skip``."""
     return torch.stack((succ, skip), dim=-1).contiguous()
 
 
@@ -231,15 +236,73 @@ def pack_tris(v0: torch.Tensor, e1: torch.Tensor,
     return torch.cat((v0, pad, e1, pad, e2, pad), dim=1).contiguous()
 
 
+def pack_pairs(ts: TorchScene):
+    """K1/K2's child-pair records of ``ts``'s trees and the stack they
+    need: ``(pairs, depth)``. ``pairs`` is (M, 16) f32, four 16-byte words
+    a row; the row of inner node ``g``, whose children are ``a`` (row
+    ``g + 1``, the build order's first) and ``b`` (``a``'s ``bvh_miss``),
+    holds ``{a_min, a_ref}``, ``{a_max, a_count << 8 | near}``, ``{b_min,
+    b_ref}``, ``{b_max, b_count}``: the children's boxes bit for bit, a
+    leaf child's mesh-local first slot and count, an inner child's ``~id``
+    (its mesh-local id complemented, so negative) and count 0, and ``near``,
+    whose bit ``o`` says that ``a`` is the near child for octant ``o``:
+    ``a`` is where ``oct_succ`` continues on a box hit, the ``pick_l`` of
+    ``ops/mega.octant_links``. A leaf's row is zero (never read). ``depth``
+    counts the inner levels of the deepest tree (0 for trees that are one
+    leaf). Vectorized over the nodes; the loops run over the trees and the
+    levels."""
+    first, miss = ts.bvh_tri_first, ts.bvh_miss.long()
+    dev, m = first.device, first.shape[0]
+    trees = sorted({(nb, nc) for _, _, nb, nc, _ in ts.entry_rows})
+    base = torch.zeros(m, dtype=torch.long, device=dev)
+    for nb, nc in trees:
+        base[nb:nb + nc] = nb
+    inner = (first < 0).nonzero().squeeze(1)
+    a = inner + 1
+    b = base[inner] + miss[a]
+    near = ts.oct_succ[:, inner].long() == (a - base[inner])      # (8, I)
+    near = (near.long() << torch.arange(8, device=dev)[:, None]).sum(0)
+    i32 = torch.int32
+
+    def ref_count(c):
+        leaf = first[c] >= 0
+        ref = torch.where(leaf, first[c], ~(c - base[inner]).to(i32))
+        return ref, torch.where(leaf, ts.bvh_tri_count[c], 0).long()
+
+    if ts.leaf_max >= 1 << 23:
+        raise ValueError(f"pack_pairs: a leaf of {ts.leaf_max} triangles does "
+                         "not fit the record's 23 bits")
+    (a_ref, a_count), (b_ref, b_count) = ref_count(a), ref_count(b)
+    box = (ts.bvh_aabb_min.view(i32), ts.bvh_aabb_max.view(i32))
+    words = torch.zeros((m, 16), dtype=i32, device=dev)
+    words[inner] = torch.cat((
+        box[0][a], a_ref[:, None], box[1][a],
+        ((a_count << 8) | near).to(i32)[:, None],
+        box[0][b], b_ref[:, None], box[1][b], b_count.to(i32)[:, None]), dim=1)
+
+    kid = torch.full((m, 2), -1, dtype=torch.long, device=dev)
+    kid[inner] = torch.stack((a, b), dim=1)
+    level = torch.tensor([nb for nb, _ in trees], dtype=torch.long, device=dev)
+    depth = 0
+    while True:
+        level = level[first[level] < 0]
+        if not level.numel():
+            return words.view(torch.float32), depth
+        depth += 1
+        level = kid[level].reshape(-1)
+
+
 def with_packed(ts: TorchScene) -> TorchScene:
     """``ts`` with the packed records of K1/K2, K8/K9 and K10a-K11b built
     from its ``bvh_*`` tables, octant links and wide links (once per scene:
     they do not depend on the transforms)."""
+    pairs, depth = pack_pairs(ts)
     return dataclasses.replace(
         ts,
         packed_nodes=pack_nodes(ts.bvh_aabb_min, ts.bvh_aabb_max,
                                 ts.bvh_tri_first, ts.bvh_tri_count),
-        packed_links=pack_links(ts.oct_succ, ts.oct_skip),
+        packed_pairs=pairs,
+        pair_depth=depth,
         packed_wide=pack_links(ts.wide_succ, ts.wide_skip),
         packed_tris=pack_tris(ts.bvh_tri_v0, ts.bvh_tri_e1, ts.bvh_tri_e2))
 
@@ -287,7 +350,7 @@ def build_device_scene(scene: Scene, device) -> TorchScene:
 BVH_FIELDS = ("bvh_aabb_min", "bvh_aabb_max", "bvh_tri_first", "bvh_tri_count",
               "bvh_miss", "bvh_tri_v0", "bvh_tri_e1", "bvh_tri_e2",
               "bvh_tri_prim", "bvh_tri_n_soa", "oct_succ", "oct_skip",
-              "wide_succ", "wide_skip", "packed_nodes", "packed_links",
+              "wide_succ", "wide_skip", "packed_nodes", "packed_pairs",
               "packed_wide", "packed_tris")
 
 

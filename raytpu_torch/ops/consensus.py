@@ -91,7 +91,7 @@ def launch_closest(ts: TorchScene, rays: torch.Tensor, tmin: float,
     """K8 alone, on a ``perlane.prepass`` ``schedule`` of these rays."""
     k = "mega_closest_sweep"
     t = ts.bvh_tri_v0.shape[0]
-    tables = perlane.culled_operands(k, ts, rays, schedule, "packed_wide")
+    tables = perlane.culled_operands(k, ts, rays, schedule)
     _build.launch(
         k,
         *_build.check_planes(k, "rays", rays, (6, *rays.shape[1:])),
@@ -123,7 +123,7 @@ def launch_anyhit(ts: TorchScene, rays: torch.Tensor, tmin: float,
                   schedule) -> torch.Tensor:
     """K9 alone, on a ``perlane.prepass`` ``schedule`` of these rays."""
     k = "mega_anyhit_sweep"
-    tables = perlane.culled_operands(k, ts, rays, schedule, "packed_wide")
+    tables = perlane.culled_operands(k, ts, rays, schedule)
     _build.launch(
         k,
         *_build.check_planes(k, "rays", rays, (6, *rays.shape[1:])),

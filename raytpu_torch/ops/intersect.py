@@ -73,8 +73,10 @@ def moller_trumbore(o, d, v0, e1, e2, tmin: float, best_t: torch.Tensor):
     return t, u, v, hit
 
 
-def slab(o, d_inv, bmin, bmax, tmin: float, tfar_cap: torch.Tensor) -> torch.Tensor:
-    """Slab test per lane. ``torch.minimum``/``maximum`` propagate NaN, as
+def slab_near(o, d_inv, bmin, bmax, tmin: float, tfar_cap: torch.Tensor):
+    """Slab test per lane, ``(hit, t_near)``: t_near is the box's entry
+    distance ``max(slab entries, tmin)`` (``csrc/common.cuh``'s
+    ``slab_near``). ``torch.minimum``/``maximum`` propagate NaN, as
     ``jnp.minimum``/``maximum`` do in ``_slab``: a 0*inf NaN makes the test
     false and the node is skipped (``intersect.ray_aabb`` differs on
     purpose; the packed kernels and this walk share the ``_slab`` rule)."""
@@ -87,7 +89,12 @@ def slab(o, d_inv, bmin, bmax, tmin: float, tfar_cap: torch.Tensor) -> torch.Ten
         tfs.append(torch.maximum(lo, hi))
     t_near = torch.maximum(torch.maximum(tns[0], tns[1]), torch.maximum(tns[2], tmin_t))
     t_far = torch.minimum(torch.minimum(tfs[0], tfs[1]), torch.minimum(tfs[2], tfar_cap))
-    return t_near <= t_far
+    return t_near <= t_far, t_near
+
+
+def slab(o, d_inv, bmin, bmax, tmin: float, tfar_cap: torch.Tensor) -> torch.Tensor:
+    """Slab test per lane (:func:`slab_near`'s hit)."""
+    return slab_near(o, d_inv, bmin, bmax, tmin, tfar_cap)[0]
 
 
 # ---------------------------------------------------------------------------

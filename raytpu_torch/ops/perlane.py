@@ -14,14 +14,22 @@ and take the JAX tier's schedule, which decides exact ties:
   ``"light"``, ``raytpu/integrator.py:129``);
 * a lane skips an entry whose bit for its block is 0;
 * inside an entry a lane walks near child first with its BLOCK's octant,
-  along the scene's ``oct_succ``/``oct_skip`` links (the TPU kernel's tie
-  order; a ray's own octant is a later option).
+  in the order of the scene's ``oct_succ``/``oct_skip`` links (the TPU
+  kernel's tie order; a ray's own octant is a later option).
 
-The TPU kernel's treelet banks, quantized boxes, pair step and deferred-leaf
-queue are TPU scheduling that only add candidate tests; the CUDA kernels
-(``csrc/perlane.cu``) walk the scene's packed f32 records (``packed_nodes``,
-``packed_links``, ``packed_tris``: the ``bvh_*`` tables' and octant links'
-bits in 16-byte words) as persistent warps that take 32 lanes at a time
+The TPU kernel's treelet banks, quantized boxes and deferred-leaf queue are
+TPU scheduling that only add candidate tests. The CUDA kernels
+(``csrc/perlane.cu``) take its pair step: a lane standing at an entered
+node loads one 64-byte record of both children (``packed_pairs``: their
+boxes, references and the near child per octant), tests both boxes, takes
+the near child and keeps the far one for after it, on a per-lane stack
+where the near one is entered (the wrappers refuse a tree deeper than
+:data:`PAIR_STACK`); it takes inner nodes until it reaches a leaf, then
+the leaf, so a warp's lanes step and test together. It enters the same nodes
+and tests the same triangles, in the same order, as the stackless walk of
+the plain versions (``ops/traverse._walk`` along the octant links). They
+read the roots and triangles as packed f32 records (``packed_nodes``,
+``packed_tris``) and run as persistent warps that take 32 lanes at a time
 from per-CTA work counters. The wrappers take a CPU tensor to the plain version,
 launch the kernel for a CUDA tensor (or raise), and raise unless the wave
 is whole blocks of ``BLOCK_PACKETS``.
@@ -29,10 +37,10 @@ The prepass's tensors stay on the device; only the plain versions read them
 back.
 
 While this thread counts work (``_build.counting``: a frame rendered with
-``stats``), the kernels count their node visits and triangle tests on the
-card and the plain versions count the plain walk's, into the same
-``_build.work_counts`` (:func:`visit_counters`; the consensus sweeps
-count so too).
+``stats``), the kernels count their node visits, triangle tests and record
+fetches on the card and the plain versions count the plain walk's, into
+the same ``_build.work_counts`` (:func:`visit_counters`; the consensus
+sweeps count their visits and tests so too).
 """
 
 from __future__ import annotations
@@ -91,23 +99,47 @@ def schedule_operands(k: str, rays, schedule):
     )
 
 
-def culled_operands(k: str, ts: TorchScene, rays, schedule, table: str):
-    """The operands of the culled sweeps' C entry points (K1/K2, K8/K9)
-    after the per-call ones: the schedule, the scene's packed link
-    ``table`` (``"packed_links"`` or ``"packed_wide"``), the node count,
-    the entries in walk order and w2o, the packed nodes and triangles. The
-    scene's tables are checked first."""
-    m = ts.bvh_aabb_min.shape[0]
-    links, nodes, tris = packed_operands(
-        k, ts, (table, getattr(ts, table), (8, m, 2), torch.int32))
+def _entry_operands(k: str, ts: TorchScene, schedule):
+    """The entries in walk order, their count and w2o, checked."""
     entries = schedule[2]
     c = _build.check_operand
-    return (
-        *schedule_operands(k, rays, schedule), links, m,
-        c(k, "entries", entries, (entries.shape[0], 5), torch.int32),
-        entries.shape[0], c(k, "w2o", ts.w2o, (ts.w2o.shape[0], 3, 4)),
-        nodes, tris,
-    )
+    return (c(k, "entries", entries, (entries.shape[0], 5), torch.int32),
+            entries.shape[0], c(k, "w2o", ts.w2o, (ts.w2o.shape[0], 3, 4)))
+
+
+def culled_operands(k: str, ts: TorchScene, rays, schedule):
+    """The operands of the consensus sweeps' C entry points (K8/K9) after
+    the per-call ones: the schedule, the scene's packed wide links
+    ``packed_wide``, the node count, the entries in walk order and w2o, the
+    packed nodes and triangles. The scene's tables are checked first."""
+    m = ts.bvh_aabb_min.shape[0]
+    links, nodes, tris = packed_operands(
+        k, ts, ("packed_wide", ts.packed_wide, (8, m, 2), torch.int32))
+    return (*schedule_operands(k, rays, schedule), links, m,
+            *_entry_operands(k, ts, schedule), nodes, tris)
+
+
+# the inner levels of a tree that K1/K2's pair walk can hold on its stack
+# (csrc/perlane.cu, kStack)
+PAIR_STACK = 64
+
+
+def pair_operands(k: str, ts: TorchScene, rays, schedule):
+    """The operands of K1/K2's C entry points after the per-call ones: the
+    schedule, the entries in walk order and w2o, the packed nodes, child
+    pairs and triangles. A scene whose trees have more inner levels than
+    the walk's stack holds (``ts.pair_depth`` over :data:`PAIR_STACK`)
+    raises; then the scene's tables are checked."""
+    if ts.pair_depth > PAIR_STACK:
+        raise ValueError(
+            f"{k}: a tree of {ts.pair_depth} inner levels is deeper than the "
+            f"pair walk's stack of {PAIR_STACK}")
+    m = ts.bvh_aabb_min.shape[0]
+    pairs, nodes, tris = packed_operands(
+        k, ts, ("packed_pairs", ts.packed_pairs, (m, 16), torch.float32),
+        link_align=16)
+    return (*schedule_operands(k, rays, schedule),
+            *_entry_operands(k, ts, schedule), nodes, pairs, tris)
 
 
 # work counters a persistent launch may use, one per CTA: more than the
@@ -147,7 +179,7 @@ def launch_closest(ts: TorchScene, rays: torch.Tensor, tmin: float,
     """K1 alone, on a :func:`prepass` ``schedule`` of these rays."""
     k = "perlane_closest_sweep"
     t = ts.bvh_tri_v0.shape[0]
-    tables = culled_operands(k, ts, rays, schedule, "packed_links")
+    tables = pair_operands(k, ts, rays, schedule)
     taken = _work_counters(rays.device)
     _build.launch(
         k,
@@ -180,7 +212,7 @@ def launch_anyhit(ts: TorchScene, rays: torch.Tensor, tmin: float,
                   schedule) -> torch.Tensor:
     """K2 alone, on a :func:`prepass` ``schedule`` of these rays."""
     k = "perlane_anyhit_sweep"
-    tables = culled_operands(k, ts, rays, schedule, "packed_links")
+    tables = pair_operands(k, ts, rays, schedule)
     taken = _work_counters(rays.device)
     _build.launch(
         k,

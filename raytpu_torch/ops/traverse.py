@@ -85,13 +85,14 @@ def _entries_w2o(kernel: str, ts: TorchScene):
             c(kernel, "w2o", ts.w2o, (ts.w2o.shape[0], 3, 4)))
 
 
-def packed_operands(kernel: str, ts: TorchScene, link) -> list:
+def packed_operands(kernel: str, ts: TorchScene, link, link_align: int = 8) -> list:
     """Validated device pointers of the link table ``link`` (``(name,
     tensor, shape, dtype)``) that a packed walk follows and of the scene's
     packed node and triangle records: ``[link, nodes, tris]``. Every type
     and shape is checked before any device; a scene without records (or
     without this link table) raises, and so do records that are not 16-byte
-    aligned for the kernels' vector loads."""
+    aligned for the kernels' vector loads, or a link table not
+    ``link_align``-byte aligned."""
     if ts.packed_nodes is None or ts.packed_tris is None or link[1] is None:
         raise ValueError(f"{kernel}: the scene has no packed records "
                          "(device_scene.with_packed builds them)")
@@ -100,7 +101,7 @@ def packed_operands(kernel: str, ts: TorchScene, link) -> list:
     links, nodes, tris = _build.check_operands(kernel, (
         link, ("packed_nodes", ts.packed_nodes, (m, 8), torch.float32),
         ("packed_tris", ts.packed_tris, (t, 12), torch.float32)))
-    if (nodes | tris) % 16 or links % 8:
+    if (nodes | tris) % 16 or links % link_align:
         raise ValueError(f"{kernel}: the packed records are not aligned")
     return [links, nodes, tris]
 
@@ -282,8 +283,11 @@ def _walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
     stop; a lane that stops tests no more triangles of its leaf). A lane's
     visits and tests happen in the order the CUDA thread makes them, so
     ``counts``, if a dict, receives the kernel's work too:
-    node visits (``nodes``) and Moller-Trumbore tests (``tests``), and in
-    groups those of them the lanes' own walks need (``own_nodes``,
+    node visits (``nodes``) and Moller-Trumbore tests (``tests``); alone,
+    the record fetches of K1/K2's pair walk over the same nodes
+    (``fetches``: each lane's root, and each inner node it enters, whose
+    child-pair record the kernel loads, ``csrc/perlane.cu``); in groups
+    the visits and tests the lanes' own walks need (``own_nodes``,
     ``own_tests``). If it
     holds a dict ``rows``, that receives, per table, a bool mask of the rows
     the kernel reads (:data:`ROW_BYTES`; :func:`rows_bytes` sums them).
@@ -317,6 +321,8 @@ def _walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
     if groups is not None:
         _, gid = torch.unique(groups, return_inverse=True)
         n_groups = int(gid.max()) + 1
+    elif counts is not None:
+        counts["fetches"] = counts.get("fetches", 0) + lanes.numel()
     while lanes.numel():
         if counts is not None:
             counts["nodes"] = counts.get("nodes", 0) + lanes.numel()
@@ -361,6 +367,8 @@ def _walk(ts: TorchScene, nb: int, nc: int, tb: int, o, d, d_inv,
         descend = go & ~leaf
         test = go & leaf
         nxt = torch.where(descend, succ, skip)
+        if counts is not None and groups is None:
+            counts["fetches"] += int(descend.sum())
 
         if counts is not None and "rows" in counts:
             _read_rows(counts, "bvh_tri_first", g, m)

@@ -639,8 +639,9 @@ def config4_slice():
 
 
 def test_perlane_work_counts_equal_the_plain_walks(config4_slice):
-    """K1's and K2's counting launches count exactly the node visits and
-    triangle tests of their plain walks on the config4 slice."""
+    """K1's and K2's counting launches count exactly the node visits,
+    triangle tests and record fetches of their plain walks on the config4
+    slice."""
     from raytpu_torch.config import RAY_TMIN
 
     r, rays, st0, srays, tmax = config4_slice
@@ -659,8 +660,8 @@ def test_perlane_work_counts_equal_the_plain_walks(config4_slice):
     got = _build.work_counts()
     _build.reset_work_counts()
     for k in want:
-        assert want[k]["nodes"] > 0 and want[k]["tests"] > 0, want
-        assert got[k] == {"nodes": want[k]["nodes"], "tests": want[k]["tests"]}, (k, got)
+        assert 0 < want[k]["fetches"] < want[k]["nodes"] and want[k]["tests"] > 0, want
+        assert got[k] == {key: want[k][key] for key in _build.WORK_KEYS[k]}, (k, got)
 
 
 def test_perlane_counting_launches_change_nothing(config4_slice, monkeypatch):
@@ -698,6 +699,86 @@ def test_perlane_counting_launches_change_nothing(config4_slice, monkeypatch):
     assert passed and all(p is not None for p in passed)
     assert sum(_build.work_counts()["perlane_closest_sweep"].values()) > 0
     _build.reset_work_counts()
+
+
+@pytest.fixture(scope="module", params=["config4", "tie", "one_leaf"])
+def pair_rig(request):
+    """A scene on the card, rays and their windows for K1/K2's pair walk:
+    the config4 slice, the tie scene's primary wave (two instances of one
+    box at the same place) and, around a mesh of one triangle (its tree's
+    root is a leaf), rays aimed at it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+    from raytpu_torch.config import RAY_TMAX
+
+    if request.param == "config4":
+        r, rays, st0, _, _ = request.getfixturevalue("config4_slice")
+        return r.tscene, rays, st0[traverse.ST_T]
+    if request.param == "tie":
+        r = Renderer(scenes.tie_scene(), "cuda")
+        r.set_transforms(0.1)
+        rays, act = chip_smoke.primary_wave(r)
+        return r.tscene, rays, torch.where(act, RAY_TMAX, 0.0).float().contiguous()
+    pos = np.array([[-3, -3, 0], [3, -3, 0], [0, 3, 0]], np.float32)
+    tris = np.arange(3, dtype=np.int32).reshape(1, 3)
+    cfg = RenderConfig(objects=(ObjectConfig("tri", MaterialType.DIFFUSE,
+                                             "static"),), width=32, height=32)
+    mesh = Mesh(positions=pos, normals=compute_smooth_normals(pos, tris),
+                triangles=tris, name="tri")
+    r = Renderer(load_scene(cfg, meshes=[mesh],
+                            skybox=np.full((6, 2, 2, 3), 0.5, np.float32)), "cuda")
+    assert r.tscene.bvh_tri_first.tolist() == [0] and r.tscene.pair_depth == 0
+    rng = np.random.default_rng(5)
+    p, k = 8, 1024
+    u = rng.normal(size=(p * k, 3))
+    o = u / np.linalg.norm(u, axis=1, keepdims=True) * 9.0
+    d = rng.uniform(-3, 3, (p * k, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = torch.from_numpy(np.ascontiguousarray(
+        np.concatenate([o.T, d.T]), np.float32).reshape(6, p, k)).cuda()
+    win = torch.full((p, k), RAY_TMAX, device="cuda")
+    win.view(-1)[::5] = 0.0
+    return r.tscene, rays, win
+
+
+def test_pair_walks_equal_the_plain_walks(pair_rig):
+    """K1's state and K2's flags equal their plain walks' bit for bit, and
+    their counting launches count the plain walks' node visits, triangle
+    tests and record fetches exactly, the counting and the plain launches
+    giving the same bits. K2 runs on the same rays with windows of 0-30,
+    so part of its lanes end their walks at a first hit."""
+    from raytpu_torch.config import RAY_TMIN
+
+    ts, rays, win = pair_rig
+    st0 = traverse.make_trace_state(win)
+    rng = np.random.default_rng(11)
+    tmax = torch.where(win > 0, torch.from_numpy(rng.uniform(
+        0, 30, win.shape).astype(np.float32)).cuda(), 0.0).contiguous()
+    occ0 = torch.zeros(win.shape, dtype=torch.int32, device="cuda")
+    want = {"perlane_closest_sweep": {}, "perlane_anyhit_sweep": {}}
+    plain = (perlane.perlane_closest_sweep_ref(ts, rays, RAY_TMIN, st0.clone(),
+                                               counts=want["perlane_closest_sweep"]),
+             perlane.perlane_anyhit_sweep_ref(ts, rays, RAY_TMIN, tmax, occ0.clone(),
+                                              counts=want["perlane_anyhit_sweep"]))
+    assert (plain[0][traverse.ST_VALID].view(torch.int32) != 0).any()
+    assert plain[1].any() and not plain[1].all()
+    got = (perlane.perlane_closest_sweep(ts, rays, RAY_TMIN, st0.clone()),
+           perlane.perlane_anyhit_sweep(ts, rays, RAY_TMIN, tmax, occ0.clone()))
+    _build.reset_work_counts()
+    with _build.counting():
+        counted = (perlane.perlane_closest_sweep(ts, rays, RAY_TMIN, st0.clone()),
+                   perlane.perlane_anyhit_sweep(ts, rays, RAY_TMIN, tmax, occ0.clone()))
+    work = _build.work_counts()
+    _build.reset_work_counts()
+    for states in (got, counted):
+        assert torch.equal(states[0].view(torch.int32), plain[0].view(torch.int32))
+        assert torch.equal(states[1], plain[1])
+    for k, w in want.items():
+        assert 0 < w["fetches"] <= w["nodes"] and w["tests"] > 0, (k, w)
+        assert work[k] == {key: w[key] for key in _build.WORK_KEYS[k]}, (k, work)
+        if ts.pair_depth == 0:
+            assert w["fetches"] == w["nodes"]
 
 
 @pytest.fixture(scope="module")

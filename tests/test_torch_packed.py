@@ -1,10 +1,11 @@
 """The packed records and the launch operands of the sweeps that read
 them, and of the culled sweeps, on the CPU.
 
-K1 and K2 (``csrc/perlane.cu``) read a scene's nodes, octant links and
-triangles as 16-byte records (``TorchScene.packed_nodes``,
-``packed_links``, ``packed_tris``, built by ``device_scene.with_packed``
-for the port's own trees and for raytpu's chunked ones); K8 and K9
+K1 and K2 (``csrc/perlane.cu``) read a scene's roots and triangles as
+16-byte records (``TorchScene.packed_nodes``, ``packed_tris``, built by
+``device_scene.with_packed`` for the port's own trees and for raytpu's
+chunked ones) and each inner node's children as one 64-byte record
+(``packed_pairs``; their walk is in ``test_torch_pairs.py``); K8 and K9
 (``csrc/consensus.cu``) the same node and triangle records with the wide
 links (``packed_wide``); K10a-K11b (``csrc/traverse.cu``) the same node
 and triangle records in build order, with ``bvh_miss``. The records must
@@ -24,6 +25,7 @@ import torch
 from raytpu.render import Renderer as JaxRenderer
 from raytpu_torch import _build, scenes
 from raytpu_torch.device_scene import from_raytpu, pack_links, pack_nodes, pack_tris
+from raytpu_torch.ops.mega import OCTANTS
 from raytpu_torch.ops import consensus, perlane, traverse
 from raytpu_torch.render import Renderer
 from tests.torch_twin import cone_rays, raytpu_twin
@@ -64,14 +66,12 @@ def test_packed_nodes_unpack_bitwise(ts):
     assert leaf.any() and (~leaf).any()      # both kinds of record present
 
 
-@pytest.mark.parametrize("kind", ["octant", "wide"])
+@pytest.mark.parametrize("kind", ["wide"])
 def test_packed_links_unpack_bitwise(ts, kind):
-    """``packed_links`` holds the octant links, ``packed_wide`` the wide
-    links of the consensus walk, bit for bit."""
+    """``packed_wide`` holds the wide links of the consensus walk, bit for
+    bit."""
     m = ts.bvh_aabb_min.shape[0]
-    links, succ, skip = {
-        "octant": (ts.packed_links, ts.oct_succ, ts.oct_skip),
-        "wide": (ts.packed_wide, ts.wide_succ, ts.wide_skip)}[kind]
+    links, succ, skip = ts.packed_wide, ts.wide_succ, ts.wide_skip
     assert links.shape == (8, m, 2) and links.dtype == I32
     assert links.is_contiguous()
     assert torch.equal(links[..., 0], succ)
@@ -81,14 +81,63 @@ def test_packed_links_unpack_bitwise(ts, kind):
     # in both words (they are never reached)
     inner = ts.bvh_tri_first < 0
     same = (links[..., 0] == links[..., 1]) & inner
-    if kind == "octant":
-        assert not same.any()
-    else:
-        ends = torch.zeros(m, dtype=I32)
-        for _, _, nb, nc, _ in ts.entry_rows:
-            ends[nb:nb + nc] = nc
-        assert torch.equal(same, (links[..., 0] == ends) & inner)
-        assert (inner & ~same).any()
+    ends = torch.zeros(m, dtype=I32)
+    for _, _, nb, nc, _ in ts.entry_rows:
+        ends[nb:nb + nc] = nc
+    assert torch.equal(same, (links[..., 0] == ends) & inner)
+    assert (inner & ~same).any()
+
+
+def _children(ts):
+    """Each inner node's rows, its children's (a: the next row, b: a's
+    ``bvh_miss``) and its tree's node base."""
+    m = ts.bvh_aabb_min.shape[0]
+    base = torch.zeros(m, dtype=torch.long)
+    for _, _, nb, nc, _ in ts.entry_rows:
+        base[nb:nb + nc] = nb
+    inner = (ts.bvh_tri_first < 0).nonzero().squeeze(1)
+    a = inner + 1
+    return inner, a, base[inner] + ts.bvh_miss[a].long(), base[inner]
+
+
+@pytest.mark.parametrize("part", ["boxes", "references"])
+def test_pair_records_unpack_bitwise(ts, part):
+    """``packed_pairs`` holds, per inner node, its children's boxes bit for
+    bit (``bvh_aabb_min``/``max`` rows), a leaf child's first slot and
+    count and an inner child's complemented mesh-local id; a leaf's row is
+    zero."""
+    m = ts.bvh_aabb_min.shape[0]
+    pairs = ts.packed_pairs
+    assert pairs.shape == (m, 16) and pairs.dtype == torch.float32
+    assert pairs.is_contiguous() and pairs.stride(0) * 4 == 64  # four 16-byte words
+    w = _bits(pairs)
+    inner, a, b, base = _children(ts)
+    assert not w[ts.bvh_tri_first >= 0].any()
+    counts = (w[inner, 7] >> 8, w[inner, 15])
+    for c, col, count in ((a, 0, counts[0]), (b, 8, counts[1])):
+        if part == "boxes":
+            assert torch.equal(w[inner, col:col + 3], _bits(ts.bvh_aabb_min[c]))
+            assert torch.equal(w[inner, col + 4:col + 7], _bits(ts.bvh_aabb_max[c]))
+            continue
+        leaf = ts.bvh_tri_first[c] >= 0
+        assert leaf.any() and (~leaf).any()
+        assert torch.equal(w[inner, col + 3][leaf], ts.bvh_tri_first[c][leaf])
+        assert torch.equal(count[leaf], ts.bvh_tri_count[c][leaf])
+        assert torch.equal(~w[inner, col + 3][~leaf], (c - base)[~leaf].to(I32))
+        assert not count[~leaf].any()
+
+
+@pytest.mark.parametrize("octant", range(OCTANTS))
+def test_pair_records_near_child_is_the_octant_links(ts, octant):
+    """Bit ``octant`` of an inner node's near byte says that its first
+    child is the near one: where the octant links continue on a box hit
+    (the ``pick_l`` of ``ops/mega.octant_links``)."""
+    inner, a, b, base = _children(ts)
+    near = (_bits(ts.packed_pairs)[inner, 7] >> octant) & 1
+    succ = ts.oct_succ[octant, inner].long() + base
+    assert torch.equal(near == 1, succ == a)
+    assert torch.equal(near == 0, succ == b)
+    assert (near == 1).any() and (near == 0).any()
 
 
 def test_packed_tris_unpack_bitwise(ts):
@@ -124,8 +173,9 @@ def test_packed_records_are_scene_constants(ts):
     """A transform update keeps the records (they do not depend on the
     transforms), so they are built once per scene."""
     moved = ts.with_transforms(ts.o2w.numpy(), ts.w2o.numpy())
-    for name in ("packed_nodes", "packed_links", "packed_wide", "packed_tris"):
+    for name in ("packed_nodes", "packed_pairs", "packed_wide", "packed_tris"):
         assert getattr(moved, name) is getattr(ts, name)
+    assert moved.pair_depth == ts.pair_depth > 0
 
 
 def _launcher(sweep: str, ts, rays, win):
@@ -145,12 +195,18 @@ def _launcher(sweep: str, ts, rays, win):
 def test_launch_operands_refuse(ts, sweep):
     """The kernel-only launchers refuse CPU tensors, and refuse a scene
     without packed records or with a record table of the wrong shape or
-    type before they look at the device: K1/K2 read the octant links
-    ``packed_links``, K8/K9 the wide links ``packed_wide``."""
+    type before they look at the device: K1/K2 read the child pairs
+    ``packed_pairs``, K8/K9 the wide links ``packed_wide``. K1/K2 refuse
+    a scene deeper than their walk's stack first."""
     rays, win = (torch.from_numpy(x) for x in cone_rays(1, seed=4, k=32))
     launch = _launcher(sweep, ts, rays, win)
-    links = "packed_links" if sweep in ("K1", "K2") else "packed_wide"
+    links = "packed_pairs" if sweep in ("K1", "K2") else "packed_wide"
     _build.reset_launch_counts()
+    if sweep in ("K1", "K2"):
+        with pytest.raises(ValueError, match="deeper than the pair walk's stack"):
+            launch(dataclasses.replace(ts, pair_depth=perlane.PAIR_STACK + 1))
+        with pytest.raises(ValueError, match="needs a CUDA tensor"):
+            launch(dataclasses.replace(ts, pair_depth=perlane.PAIR_STACK))
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         launch(ts)
     for name in ("packed_nodes", links, "packed_tris"):
@@ -160,7 +216,8 @@ def test_launch_operands_refuse(ts, sweep):
              links: getattr(ts, links)[..., :1],
              "packed_tris": ts.packed_tris[:, :9]}
     retyped = {"packed_nodes": ts.packed_nodes.view(I32),
-               links: getattr(ts, links).float(),
+               links: (ts.packed_pairs.double() if links == "packed_pairs"
+                       else ts.packed_wide.float()),
                "packed_tris": ts.packed_tris.double()}
     for name, table in wrong.items():
         with pytest.raises(ValueError, match=f"{name} has shape"):

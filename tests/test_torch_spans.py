@@ -129,8 +129,8 @@ def test_a_frame_with_stats_counts_the_plain_walks_work(renderer):
     got = _build.work_counts()
     _build.reset_work_counts()
     for k in mine:
-        assert mine[k]["nodes"] > 0 and mine[k]["tests"] > 0
-        assert got[k] == {"nodes": mine[k]["nodes"], "tests": mine[k]["tests"]}
+        assert 0 < mine[k]["fetches"] <= mine[k]["nodes"] and mine[k]["tests"] > 0
+        assert got[k] == {key: mine[k][key] for key in _build.WORK_KEYS[k]}
     renderer.render(stats={})
     assert _build.work_counts() == got
     _build.reset_work_counts()
