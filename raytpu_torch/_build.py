@@ -35,8 +35,9 @@ owns, and the C entry point launches the kernels' counting instantiation,
 which adds each warp's sums with one 64-bit ``atomicAdd`` each; otherwise
 it passes none and the entry point launches the one that counts nothing.
 Their plain versions add the plain walk's counts of the same numbers
-(:func:`counted`). K8 and K9 count the waves after the first bounce
+(:func:`counted`). All four count the waves after the first bounce
 (:func:`later_waves`) into slots of their own as well, read as the entries
+``perlane_closest_sweep.later``, ``perlane_anyhit_sweep.later``,
 ``mega_closest_sweep.later`` and ``mega_anyhit_sweep.later``; the kernels'
 own entries stay the sums over every wave.
 
@@ -130,14 +131,16 @@ _lock = threading.Lock()
 # its counters: node visits and triangle tests, for the per-lane sweeps
 # their record fetches (csrc/perlane.cu), and for the consensus sweeps the
 # visits and tests the lanes' own walks need (csrc/walk.cuh, OwnWalk);
-# a kernel's entry sums every wave, its LATER entry the waves after the
-# first bounce alone
+# a kernel's entry sums every wave, its LATER entry (each of the four
+# sweeps has one) the waves after the first bounce alone
 LATER = ".later"
 WORK_KEYS = {
     "perlane_closest_sweep": ("nodes", "tests", "fetches"),
     "perlane_anyhit_sweep": ("nodes", "tests", "fetches"),
     "mega_closest_sweep": ("nodes", "tests", "own_nodes", "own_tests"),
     "mega_anyhit_sweep": ("nodes", "tests", "own_nodes", "own_tests"),
+    "perlane_closest_sweep" + LATER: ("nodes", "tests", "fetches"),
+    "perlane_anyhit_sweep" + LATER: ("nodes", "tests", "fetches"),
     "mega_closest_sweep" + LATER: ("nodes", "tests", "own_nodes", "own_tests"),
     "mega_anyhit_sweep" + LATER: ("nodes", "tests", "own_nodes", "own_tests"),
 }

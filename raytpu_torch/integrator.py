@@ -766,7 +766,7 @@ class _FusedLoop:
         """Enqueue unit ``op`` -> what later units and reads take from it
         (a shade unit's outputs, the result) or None. A unit past the first
         bounce (:func:`later_unit`) runs inside an ``rt.later`` span, its
-        K8 and K9 counting into their later slots
+        sweeps (K1 and K2, or K8 and K9) counting into their later slots
         (``_build.later_waves``)."""
         if later_unit(op):
             with span("rt.later"), _build.later_waves():

@@ -40,7 +40,11 @@ While this thread counts work (``_build.counting``: a frame rendered with
 ``stats``), the kernels count their node visits, triangle tests and record
 fetches on the card and the plain versions count the plain walk's, into
 the same ``_build.work_counts`` (:func:`visit_counters`; the consensus
-sweeps count their visits and tests so too).
+sweeps count their visits and tests so too). A wave past the first bounce
+(``_build.later_waves``) counts into each sweep's own later slot, so that
+its entry ``perlane_closest_sweep.later`` or ``perlane_anyhit_sweep.later``
+holds the reflected, refracted and shadow waves after the first bounce
+alone and its own entry still every wave.
 """
 
 from __future__ import annotations
@@ -155,8 +159,9 @@ def _work_counters(device) -> torch.Tensor:
 
 def visit_counters(k: str, device):
     """Where launch ``k`` (K1, K2, K8 or K9) adds its work counts: the
-    kernel's slot of ``_build``'s buffer while this thread counts, else
-    None (the kernel that counts nothing)."""
+    kernel's slot of ``_build``'s buffer while this thread counts (its
+    later slot in a wave past the first bounce), else None (the kernel
+    that counts nothing)."""
     return _build.work_pointer(k, device) if _build.counting_on() else None
 
 

@@ -24,10 +24,11 @@ through the fused, compacted bounce loop.
   boxes in one refractive mesh) for ``cube_scene.obj``, in front of the
   same sky. Both resolve to the consensus tier;
 * :func:`config1_standin` / :func:`config5_standin`: the presets
-  ``config1`` and ``config5`` (``raytpu/presets.py:24,88``), a
-  :func:`box_mesh` for ``cube.obj``: the diffuse cube alone and without a
-  sky (consensus tier), and the mirror teapot stand-in with a refractive
-  orbiting cube in front of the generated sky (per-lane tier).
+  ``config1`` and ``config5`` (``raytpu/presets.py:24,88``): the diffuse
+  cube (:func:`box_mesh`) alone and without a sky (consensus tier), and
+  the mirror teapot stand-in with a refractive orbiting cube
+  (:func:`cube_mesh`, flat faces as ``cube.obj`` has them) in front of
+  the generated sky (per-lane tier).
 
 ``raytpu_torch.presets.STANDINS`` names the six stand-ins.
 """
@@ -240,10 +241,19 @@ def config1_standin(**config) -> Scene:
     return load_scene(cfg, meshes=[box_mesh((0.0, 0.0, 0.0), 1.0)])
 
 
+def cube_mesh() -> Mesh:
+    """``cube.obj``: the axis-aligned cube of half extent 1 about the
+    origin, 24 vertices and 12 triangles, each face with its own four
+    vertices and its flat outward normal (``cube.obj`` duplicates its
+    corners for flat shading; a glass cube with :func:`box_mesh`'s
+    averaged corner normals bends rays like a lens)."""
+    return _quad_mesh(_box_quads((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)), "cube")
+
+
 def config5_standin(sky_size: int = 1024, **config) -> Scene:
     """config5's shape (``raytpu/presets.py:88``, the flythrough): the
-    mirror teapot stand-in (``generate_highpoly(depth=4)``) ``spin`` and a
-    refractive cube (:func:`box_mesh`) ``orbit``, in front of the
+    mirror teapot stand-in (``generate_highpoly(depth=4)``) ``spin`` and
+    the refractive flat cube (:func:`cube_mesh`) ``orbit``, in front of the
     generated sky; 1920x1080, 1 spp, 3 bounces. ``traversal="auto"``
     resolves it to the per-lane tier (spp 1 with bounces). ``sky_size``
     and ``config`` as for :func:`config2_standin`."""
@@ -256,7 +266,7 @@ def config5_standin(sky_size: int = 1024, **config) -> Scene:
     ).replace(**config)
     meshes = [generate_highpoly(depth=4, radius=TEAPOT_RADIUS,
                                 name="teapot_standin"),
-              box_mesh((0.0, 0.0, 0.0), 1.0)]
+              cube_mesh()]
     return load_scene(cfg, meshes=meshes, skybox=procedural_skybox(sky_size))
 
 

@@ -1284,3 +1284,79 @@ def test_1080p_readback_is_one_pinned_copy():
     inside = [e for e in events if e.name in profiling.COPY_OPS
               and readback.start <= e.time_range.start <= e.time_range.end <= readback.end]
     assert [(e.name, e.input_shapes[:2]) for e in inside] == [("aten::copy_", [shape, shape])]
+
+
+# ---------------------------------------------------------------------------
+# config5 (the glass cube and the mirror teapot, per-lane tier): K1/K2's
+# later waves. Last in the file: run ahead of test_prepass_is_one_launch_
+# without_sync, the traced config5 loop left that test's profiler with no
+# device event (not understood; each passes alone and in this order).
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def config5_small():
+    """The benchmark's config5 at 128x64 (8 tiles at 1 spp, one block, so
+    the per-lane tier) with a 64-texel sky on the card, through
+    ``rtbench.run``'s viewer, and the closeup path's poses and time
+    parameters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rtbench import camerapath, manifest, run
+
+    cell = manifest.Cell(manifest.load(), "config5.closeup")
+    cfg = dict(cell.config, width=128, height=64,
+               skybox=dict(cell.config["skybox"], size=64))
+    meshes = [run.make_mesh(run.BENCH, o["mesh"]) for o in cfg["objects"]]
+    sky = run.make_sky(cfg, 7, "cuda")
+    poses, tps, _ = camerapath.make(cell.traffic, cfg, 7)
+    return run.Viewer(run.port_renderer(cfg, meshes, sky, "cuda")), poses, tps
+
+
+def test_perlane_later_counts_equal_the_plain_walks(config5_small):
+    """A config5 frame rendered with ``stats`` on the card: K1's and K2's
+    work counts, their later entries included, equal those of the same
+    frame with the plain per-lane walks in their place, and the frames are
+    equal bit for bit."""
+    viewer, poses, tps = config5_small
+    viewer.pose(poses[41])
+    r = viewer.renderer
+    r.set_transforms(tps[41])
+    stats = {}
+    _build.reset_work_counts()
+    img = r.render(stats=stats)
+    got = _build.work_counts()
+    _build.reset_work_counts()
+    with integrator.kernels(perlane_closest=perlane.perlane_closest_sweep_ref,
+                            perlane_anyhit=perlane.perlane_anyhit_sweep_ref):
+        want_img = r.render(stats={})
+    want = _build.work_counts()
+    _build.reset_work_counts()
+    assert stats["tier"] == "perlane"
+    assert torch.equal(img, want_img)
+    assert got == want, (got, want)
+    later = got["perlane_closest_sweep" + _build.LATER]
+    assert all(0 < later[k] < got["perlane_closest_sweep"][k] for k in later), got
+
+
+def test_replayed_perlane_later_sweeps_lie_inside_rt_later(config5_small):
+    """Replayed config5 frames under the profiler: per frame one K1 launch
+    (the first bounce's) outside every ``rt.later`` span and the rest,
+    launched by graph replays, inside one; no K2, K8 or K9 launch."""
+    from rtbench import profiling, run, spans
+
+    viewer, poses, tps = config5_small
+    for k in range(3):      # the first frame eager, then the plan replays
+        viewer.frame(poses[k], tps[k])
+    trace = run.traced_loop(viewer, poses[3:6], tps[3:6], "cuda")
+
+    def named(ops, name):
+        return [d for d in ops if d.kind == "kernel" and
+                profiling.function_name(d.name) == name]
+
+    k1 = "perlane_closest_sweep_kernel"
+    inside = named(spans.issued_inside(trace, "rt.later"), k1)
+    assert len(named(trace.device, k1)) - len(inside) == trace.frames
+    assert len(inside) >= trace.frames
+    for other in ("perlane_anyhit_sweep_kernel", "mega_closest_sweep_kernel",
+                  "mega_anyhit_sweep_kernel"):
+        assert not named(trace.device, other), other
